@@ -1,0 +1,483 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (nrtsearch_tpu_torch) on one card.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure raises and exits non-zero:
+
+1. device: require CUDA; print torch/CUDA versions and the card's name and
+   power limit (nvidia-smi); keep matmuls at full f32.
+2. build: compile the kernels from nrtsearch_tpu_torch/csrc with nvcc.
+3. kernels vs their plain torch twins on the card at main-path shapes
+   (gather_rows at Hp=536, D=1,000,064, U in {32, 128}; near_stages and
+   far_stage at B=32, N in 2^15..2^19 with duplicate docs, both sentinels
+   and an all-pad row): outputs must be bit-equal; CUDA-event times.
+4. index: SyntheticCorpus(1M docs, 100k vocab, 48 draws/doc, seed 42) cut
+   into 4 doc-range segments on the card, Searcher.warm builds the dense
+   head rows; device memory is printed.
+5. search: 8 single queries through Searcher.search, 4 batches of 32
+   through fast_search_batch, one conjunction with a tail term (merge
+   path). Launch counters are reset just before and read just after; every
+   kernel must have launched. Latencies at B=1 and B=32.
+6. the answers against an independent numpy BM25 of the same corpus.
+7. ingest ~2,000 text docs through IndexWriter on the card and on the CPU;
+   merge results bit-equal, fused results within 1e-6 relative.
+
+The last lines are the kernel table as JSON, the card's name and power
+limit, and {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 42
+NUM_DOCS, VOCAB, DRAWS = 1_000_000, 100_000, 48   # bench.py:26-28 defaults
+SEGMENTS = 4
+TOP_K = 100            # bench.py TOP_K
+BATCH = 32             # bench.py BATCH
+TERMS_PER_QUERY = 4    # bench.py TERMS_PER_QUERY
+FUSED_REL = 1e-4       # fused bound vs exact (tests/test_dense_path_matrix.py)
+MERGE_REL = 1e-5       # exact f32, numpy sums in another order
+CPU_GPU_FUSED_REL = 1e-6
+
+KERNEL_SOURCES = {
+    "gather_rows": ("nrtsearch_tpu_torch/csrc/gather_rows.cu",
+                    "nrtsearch_tpu/ops/dense_fused.py:77"),
+    "near_stages": ("nrtsearch_tpu_torch/csrc/bitonic_merge.cu",
+                    "nrtsearch_tpu/ops/pallas_merge.py:194"),
+    "far_stage": ("nrtsearch_tpu_torch/csrc/bitonic_merge.cu",
+                  "nrtsearch_tpu/ops/pallas_merge.py:54"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, setup=lambda: (), reps: int = 25, warmup: int = 3) -> float:
+    """Median of per-launch CUDA-event times of ``fn(*setup())``, in ms;
+    ``setup`` (fresh inputs for in-place kernels) runs outside the timed
+    window."""
+    times = []
+    for i in range(warmup + reps):
+        args = setup()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(*args)
+        b.record()
+        b.synchronize()
+        if i >= warmup:
+            times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their twins
+# ---------------------------------------------------------------------------
+
+
+def _merge_inputs(gen, B: int, N: int, dev):
+    """[B, N] rows of two sorted halves, the second reversed (one bitonic
+    merge level of run_len N/2): duplicate docs, LOW front padding in the
+    first half, HIGH back padding, and row B-1 all HIGH padding."""
+    from nrtsearch_tpu_torch.ops.merge_scoring import DOC_SENTINEL, DOC_SENTINEL_LOW
+
+    half = N // 2
+    docs = torch.randint(0, N // 4, (B, 2, half), generator=gen, device=dev, dtype=torch.int32)
+    docs[:, 0, :64] = int(DOC_SENTINEL_LOW)
+    docs[:, :, -half // 8 :] = int(DOC_SENTINEL)
+    docs = torch.sort(docs, dim=-1).values
+    docs[:, 1] = torch.flip(docs[:, 1], dims=(-1,))
+    docs = docs.reshape(B, N).contiguous()
+    docs[B - 1] = int(DOC_SENTINEL)
+    contribs = torch.rand((B, N), generator=gen, device=dev)
+    contribs[docs == int(DOC_SENTINEL)] = 0.0
+    return docs, contribs
+
+
+def phase_kernels(dev, merge_widths, main_n: int) -> dict:
+    from nrtsearch_tpu_torch.ops import bitonic_merge as bm
+    from nrtsearch_tpu_torch.ops import dense_fused
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    stats = {name: {"max_abs_err": 0.0} for name in KERNEL_SOURCES}
+
+    Hp, D = 536, 1_000_064
+    rows = torch.rand((Hp, D), generator=gen, device=dev).to(torch.bfloat16)
+    for U in (32, 128):
+        idx = torch.randint(0, Hp, (U,), generator=gen, device=dev, dtype=torch.int32)
+        idx[U - 4 :] = 0   # pad slots repeat row 0
+        out = dense_fused.gather_rows(rows, idx)
+        ref = dense_fused._gather_rows_scan(rows, idx)
+        err = float((out.float() - ref.float()).abs().max())
+        stats["gather_rows"]["max_abs_err"] = max(stats["gather_rows"]["max_abs_err"], err)
+        if not torch.equal(out.view(torch.int16), ref.view(torch.int16)):
+            raise AssertionError(f"gather_rows differs from its twin at U={U}")
+        ms = cuda_ms(lambda: dense_fused.gather_rows(rows, idx))
+        plain = cuda_ms(lambda: dense_fused._gather_rows_scan(rows, idx))
+        gbs = 2 * U * D * 2 / (ms * 1e-3) / 1e9
+        log(f"kernel gather_rows Hp={Hp} D={D} U={U}: bit-equal; {ms:.4f} ms "
+            f"({gbs:.0f} GB/s moved), twin {plain:.4f} ms")
+        if U == 128:
+            stats["gather_rows"].update(ms=ms, plain_ms=plain, shape=[Hp, D, U])
+    del rows
+
+    B = 32
+    for N in merge_widths:
+        docs, contribs = _merge_inputs(gen, B, N, dev)
+        kd, kc = docs.clone(), contribs.clone()
+        bm.merge_level(kd, kc, N // 2)                     # kernels
+        td, tc = docs.clone(), contribs.clone()
+        d = N // 2
+        while d >= 1:                                      # twins
+            bm.far_stage_twin(td, tc, d)
+            d //= 2
+        err = max(float((kd.long() - td.long()).abs().max()),
+                  float((kc - tc).abs().max()))
+        for name in ("near_stages", "far_stage"):
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        if not (torch.equal(kd, td) and torch.equal(kc.view(torch.int32), tc.view(torch.int32))):
+            raise AssertionError(f"merge level differs from its twin at N={N}")
+        if not bool((kd[:, 1:] >= kd[:, :-1]).all()):
+            raise AssertionError(f"merge level output not sorted at N={N}")
+        # each timed launch gets a fresh copy of the level's input, so the
+        # in-place stages swap as they do on the main path
+        d0 = bm.near_tile(N) // 2
+        far_d = N // 2
+
+        def fresh():
+            return docs.clone(), contribs.clone()
+
+        near_ms = cuda_ms(lambda x, y: bm.near_stages(x, y, d0), fresh)
+        near_plain = cuda_ms(lambda x, y: bm.near_stages_twin(x, y, d0), fresh)
+        far_ms = cuda_ms(lambda x, y: bm.far_stage(x, y, far_d), fresh)
+        far_plain = cuda_ms(lambda x, y: bm.far_stage_twin(x, y, far_d), fresh)
+        log(f"kernel merge level B={B} N={N}: bit-equal; near_stages(d0={d0}) "
+            f"{near_ms:.4f} ms, twin {near_plain:.4f} ms; far_stage(d={far_d}) "
+            f"{far_ms:.4f} ms, twin {far_plain:.4f} ms")
+        if N == main_n:
+            stats["near_stages"].update(ms=near_ms, plain_ms=near_plain, shape=[B, N, d0])
+            stats["far_stage"].update(ms=far_ms, plain_ms=far_plain, shape=[B, N, far_d])
+        del docs, contribs, kd, kc, td, tc
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phases 4-7: index, search, exact answers, ingest
+# ---------------------------------------------------------------------------
+
+
+def body_field_defs():
+    from nrtsearch_tpu_torch.schema import create_field_def
+
+    return {"body": create_field_def("body", {"type": "TEXT", "search": True})}
+
+
+def phase_index(dev, num_docs: int, vocab: int, draws: int, segments: int):
+    from nrtsearch_tpu_torch.convert import segment_from_numpy
+    from nrtsearch_tpu_torch.core.searcher import Searcher
+    from nrtsearch_tpu_torch.models.synthetic import SyntheticCorpus
+
+    t0 = time.perf_counter()
+    corpus = SyntheticCorpus(num_docs, vocab, draws, seed=SEED)
+    t1 = time.perf_counter()
+    segs = [segment_from_numpy(a, dev) for a in corpus.segment_arrays(segments)]
+    t2 = time.perf_counter()
+    searcher = Searcher(segs, body_field_defs())
+    searcher.warm(["body"])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    st = searcher.packed_view("body")._dense_state()
+    log(f"index: {num_docs} docs, vocab {vocab}, {len(corpus.post_docs)} postings, "
+        f"{segments} segments; corpus {t1 - t0:.1f} s, segments to device "
+        f"{t2 - t1:.1f} s, pack + dense rows {t3 - t2:.1f} s")
+    log(f"index: {len(st['head_pos'])} head rows x D={st['D']} (+ residual rows: "
+        f"{st['rows_lo'] is not None}), tail_max_df {st['tail_max_df']}")
+    return corpus, searcher
+
+
+def fused_tail_width(searcher) -> int:
+    """R * run_len of the fused path's fixed tail shape on this snapshot."""
+    from nrtsearch_tpu_torch.ops.merge_scoring import _pow2
+
+    st = searcher.packed_view("body")._dense_state()
+    run_len = int(os.environ.get("NRT_DENSE_RL", 0)) or _pow2(
+        min(max(4096, st["tail_max_df"]), 65536))
+    return int(os.environ.get("NRT_DENSE_R", "8")) * run_len
+
+
+def conjunction_terms(corpus, searcher) -> list[str]:
+    """Two head terms and the most frequent tail term: a conjunction the
+    fused path refuses (a tail term), served by the merge path."""
+    head = searcher.packed_view("body")._dense_state()["head_pos"]
+    order = np.argsort(-corpus.term_lengths, kind="stable")
+    tail = next(str(t) for t in order if str(t) not in head)
+    return [str(order[0]), str(order[1]), tail]
+
+
+def _match(terms, operator="SHOULD"):
+    from nrtsearch_tpu_torch.query import parse_query
+
+    return parse_query({"matchQuery": {"field": "body", "query": " ".join(terms),
+                                       "operator": operator}})
+
+
+def phase_search(corpus, searcher, reps: int = 3) -> dict:
+    """The main path. Returns results, latencies and path counts."""
+    singles = corpus.sample_queries(8, TERMS_PER_QUERY)
+    batches = [corpus.sample_queries(BATCH, TERMS_PER_QUERY) for _ in range(4)]
+    conj = conjunction_terms(corpus, searcher)
+    view = searcher.packed_view("body")
+    paths0 = dict(view.path_counts)
+    lat1, lat32 = [], []
+    single_out = batch_out = None
+    for _ in range(reps):
+        single_out = []
+        for q in singles:
+            t = time.perf_counter()
+            single_out.append(searcher.search(_match(q), TOP_K))
+            lat1.append(time.perf_counter() - t)
+        batch_out = []
+        for qs in batches:
+            t = time.perf_counter()
+            specs = [searcher.fast_query_spec(_match(q)) for q in qs]
+            batch_out.append(searcher.fast_search_batch(specs, TOP_K))
+            lat32.append(time.perf_counter() - t)
+    conj_out = searcher.search(_match(conj, "MUST"), TOP_K)
+    paths = {k: view.path_counts[k] - paths0[k] for k in paths0}
+    return {
+        "singles": singles, "single_out": single_out, "batches": batches,
+        "batch_out": batch_out, "conj": conj, "conj_out": conj_out,
+        "lat1": lat1, "lat32": lat32, "paths": paths,
+    }
+
+
+def _check_topk(td, exact, rel: float, ctx: str) -> int:
+    """Scores rank by rank within ``rel``; a doc may differ from the exact
+    answer only where the two scores at that rank are within ``rel`` (a
+    near-tie: f32 sums taken in another order break ties by score, not by
+    docid). Hits exact, or a lower bound when the relation says so.
+    Returns the number of near-tie swaps."""
+    s, d, total = exact
+    docs = np.array([h.global_ord for h in td.hits], np.int64)
+    scores = np.array([h.score for h in td.hits], np.float32)
+    if len(docs) != len(d):
+        raise AssertionError(f"{ctx}: {len(docs)} hits, exact has {len(d)}")
+    err = np.abs(scores - s) / np.maximum(np.abs(s), 1e-9)
+    if len(err) and err.max() > rel:
+        raise AssertionError(f"{ctx}: score rel err {err.max():.3g} > {rel}")
+    swaps = np.nonzero(docs != d)[0]
+    if len(set(docs.tolist())) != len(docs):
+        raise AssertionError(f"{ctx}: duplicate docs in the top-k")
+    for i in swaps:
+        if abs(float(s[i]) - float(scores[i])) > rel * abs(float(s[i])):
+            raise AssertionError(f"{ctx}: doc {docs[i]} != {d[i]} at rank {i}")
+    exact_hits = td.relation == "EQUAL_TO"
+    if (exact_hits and td.total_hits != total) or td.total_hits > total:
+        raise AssertionError(f"{ctx}: hits {td.total_hits} ({td.relation}) vs {total}")
+    return len(swaps)
+
+
+def phase_exact(corpus, res) -> dict:
+    """The 8 singles (fused path) and the conjunction (merge path) against
+    the corpus's independent numpy BM25."""
+    out = {"fused_rel": 0.0, "merge_rel": 0.0, "swaps": 0}
+    for q, td in zip(res["singles"], res["single_out"]):
+        ex = corpus.exact_topk(q, TOP_K)
+        out["swaps"] += _check_topk(td, ex, FUSED_REL, f"single {q}")
+        out["fused_rel"] = max(out["fused_rel"], _max_rel(td, ex))
+    ex = corpus.exact_topk(res["conj"], TOP_K, require_all=True)
+    td = res["conj_out"]
+    if td.relation != "EQUAL_TO" or td.total_hits != ex[2]:
+        raise AssertionError(f"conjunction hits {td.total_hits} vs exact {ex[2]}")
+    out["swaps"] += _check_topk(td, ex, MERGE_REL, f"conjunction {res['conj']}")
+    out["merge_rel"] = _max_rel(td, ex)
+    out["conj_hits"] = ex[2]
+    return out
+
+
+def _max_rel(td, exact) -> float:
+    s = exact[0]
+    if not len(s):
+        return 0.0
+    sc = np.array([h.score for h in td.hits], np.float32)
+    return float(np.max(np.abs(sc - s) / s))
+
+
+INGEST_QUERIES = {
+    "or_head": ("common alpha", "SHOULD"),
+    "or_mixed": ("common needle beta", "SHOULD"),
+    "tail_only": ("needle", "SHOULD"),
+    "must_head": ("common gamma", "MUST"),
+    "must_tail": ("delta needle", "MUST"),
+}
+
+
+def _ingest_docs(n: int) -> list[dict]:
+    rng = np.random.default_rng(SEED)
+    words = ["alpha", "beta", "gamma", "delta"]
+    docs = []
+    for i in range(n):
+        toks = ["common"] * int(rng.integers(1, 4))
+        toks += [words[j] for j in rng.integers(0, 4, size=int(rng.integers(1, 6)))]
+        if i % 23 == 0:
+            toks.append("needle")
+        docs.append({"id": str(i), "body": " ".join(toks)})
+    return docs
+
+
+def phase_ingest(dev, n_docs: int = 2000) -> dict:
+    """IndexWriter -> refresh on the card and on the CPU; search both."""
+    from nrtsearch_tpu_torch.core.searcher import Searcher
+    from nrtsearch_tpu_torch.core.writer import IndexWriter
+    from nrtsearch_tpu_torch.schema import create_field_def
+
+    fds = {"id": create_field_def("id", {"type": "_ID", "store": True}),
+           **body_field_defs()}
+    docs = _ingest_docs(n_docs)
+    searchers = {}
+    for name, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        w = IndexWriter(fds, d)
+        w.add_documents([dict(x) for x in docs[: n_docs // 2]])
+        w.refresh()
+        w.add_documents([dict(x) for x in docs[n_docs // 2 :]])
+        searchers[name] = Searcher(w.refresh(), fds)
+    checked = 0
+    saved = os.environ.get("NRT_FAST_PATH")
+    try:
+        for path in ("merge", "fused"):
+            os.environ["NRT_FAST_PATH"] = path
+            for qname, (text, op) in INGEST_QUERIES.items():
+                node = _match(text.split(), op)
+                g = searchers["gpu"].search(node, 50)
+                c = searchers["cpu"].search(node, 50)
+                ctx = f"ingest {qname}/{path}"
+                gd = [h.global_ord for h in g.hits]
+                cd = [h.global_ord for h in c.hits]
+                gs = np.array([h.score for h in g.hits], np.float32)
+                cs = np.array([h.score for h in c.hits], np.float32)
+                if (g.total_hits, g.relation) != (c.total_hits, c.relation) or not gd:
+                    raise AssertionError(f"{ctx}: hits {g.total_hits} vs {c.total_hits}")
+                if path == "merge":
+                    if gd != cd or not np.array_equal(gs, cs):
+                        raise AssertionError(f"{ctx}: cuda and cpu differ")
+                else:
+                    if len(gd) != len(cd) or np.max(np.abs(gs - cs) / cs) > CPU_GPU_FUSED_REL:
+                        raise AssertionError(f"{ctx}: scores differ beyond 1e-6")
+                    for i, (a, b) in enumerate(zip(gd, cd)):
+                        if a != b and abs(gs[i] - cs[i]) > CPU_GPU_FUSED_REL * cs[i]:
+                            raise AssertionError(f"{ctx}: doc {a} != {b} at rank {i}")
+                checked += 1
+    finally:
+        if saved is None:
+            os.environ.pop("NRT_FAST_PATH", None)
+        else:
+            os.environ["NRT_FAST_PATH"] = saved
+    return {"docs": n_docs, "queries_checked": checked}
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    # 1. device
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    from nrtsearch_tpu_torch import kernels
+    from nrtsearch_tpu_torch.device import exact_cuda_matmul, resolve_device
+    from nrtsearch_tpu_torch.ops import dense_fused, merge_scoring
+
+    dev = resolve_device("cuda")
+    card = card_line()
+    log(f"device: {torch.cuda.get_device_name(dev)} | {card} | torch {torch.__version__} "
+        f"CUDA {torch.version.cuda} | python {sys.version.split()[0]}")
+    exact_cuda_matmul()
+    log(f"device: bf16 mm with f32 out on CUDA: {dense_fused.cuda_bf16_mm_f32_out()}")
+
+    # 2. build
+    t = time.perf_counter()
+    so = kernels.build()
+    kernels._library()
+    log(f"build: {so.name} in {time.perf_counter() - t:.2f} s (nvcc {kernels.BUILD_INFO['seconds']:.2f} s)")
+    for line in kernels.BUILD_INFO["log"].splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            log(f"build: {line.strip()}")
+
+    # 4 (before 3: the main path's tail width picks the timed merge shape)
+    corpus, searcher = phase_index(dev, NUM_DOCS, VOCAB, DRAWS, SEGMENTS)
+    log(f"index: torch.cuda.memory_allocated {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
+    main_n = fused_tail_width(searcher)
+
+    # 3. kernels vs twins
+    widths = sorted({1 << p for p in range(15, 20)} | {main_n})
+    stats = phase_kernels(dev, widths, main_n)
+
+    # 5. search on the main path
+    kernels.reset_launch_counts()
+    syncs0 = (dense_fused.HOST_SYNCS["window_certificate"],
+              merge_scoring.HOST_SYNCS["hierarchical_topk"])
+    res = phase_search(corpus, searcher)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    syncs = (dense_fused.HOST_SYNCS["window_certificate"] - syncs0[0],
+             merge_scoring.HOST_SYNCS["hierarchical_topk"] - syncs0[1])
+    log(f"search: launches {launches}")
+    log(f"search: specs by path {res['paths']}; host syncs window {syncs[0]}, "
+        f"hierarchical_topk {syncs[1]}; window branch {dense_fused.WINDOW_BRANCH}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    if res["paths"]["fused"] == 0 or res["paths"]["merge"] == 0:
+        raise AssertionError(f"both paths must serve: {res['paths']}")
+    p50_1 = 1e3 * float(np.median(res["lat1"]))
+    p50_32 = 1e3 * float(np.median(res["lat32"]))
+    log(f"search: p50 latency B=1 {p50_1:.2f} ms (n={len(res['lat1'])}), B=32 "
+        f"{p50_32:.2f} ms (n={len(res['lat32'])}) | {card}")
+
+    # 6. against the independent numpy answer
+    ex = phase_exact(corpus, res)
+    log(f"exact: 8 singles within {FUSED_REL} (worst {ex['fused_rel']:.3g}), "
+        f"conjunction {res['conj']} hits {ex['conj_hits']} exact, scores within "
+        f"{MERGE_REL} (worst {ex['merge_rel']:.3g}); near-tie doc swaps {ex['swaps']}")
+
+    # 7. ingest on the card
+    ing = phase_ingest(dev)
+    log(f"ingest: {ing['docs']} docs, {ing['queries_checked']} queries; merge bit-equal, "
+        f"fused within {CPU_GPU_FUSED_REL} between cuda and cpu")
+
+    table = []
+    for name, (src, replaces) in KERNEL_SOURCES.items():
+        st = stats[name]
+        table.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": st["max_abs_err"],
+            "ms": st["ms"], "plain_ms": st["plain_ms"], "shape": st["shape"],
+        })
+    print(json.dumps({"kernels": table}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,200 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+At first use nvcc compiles every ``csrc/*.cu`` file into one shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds)::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o _build/kernels_<hash>.so csrc/*.cu
+
+The library goes into ``nrtsearch_tpu_torch/_build/`` under a name keyed by a
+hash of the sources and flags, and is loaded with ctypes: pointers and the
+stream are ``c_void_p``, ints ``c_int``. Every C entry point launches on the
+current torch stream and returns ``cudaGetLastError()``; the wrappers below
+raise when it is not 0. A failed build raises with nvcc's stderr.
+
+Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel and
+nowhere else, so a run can show that its main path went through the kernels.
+The wrappers take CUDA tensors only; the plain torch twins live beside their
+callers (ops/dense_fused.py, ops/bitonic_merge.py).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+LAUNCHES = {"gather_rows": 0, "near_stages": 0, "far_stage": 0}
+# ptxas register / shared-memory report of the last build (nvcc's stderr)
+BUILD_INFO = {"log": "", "seconds": 0.0, "path": ""}
+
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the keyed shared library (once per source
+    hash) and return its path. Raises with nvcc's stderr on failure."""
+    import time
+
+    so = library_path()
+    if so.exists():
+        BUILD_INFO["path"] = str(so)
+        return so
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
+            f"{proc.stderr}"
+        )
+    os.replace(tmp, so)
+    BUILD_INFO.update(
+        log=proc.stderr, seconds=time.perf_counter() - t0, path=str(so)
+    )
+    return so
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.nrt_gather_rows.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+        lib.nrt_near_stages.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.nrt_far_stage.argtypes = [vp, vp, ci, ci, ci, ci, vp]
+        for fn in (lib.nrt_gather_rows, lib.nrt_near_stages, lib.nrt_far_stage):
+            fn.restype = ci
+        lib.nrt_error_string.argtypes = [ci]
+        lib.nrt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(kernel: str, fn, device: torch.device, *args) -> None:
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        msg = lib.nrt_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: {msg} ({err})")
+    LAUNCHES[kernel] += 1
+
+
+def _pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
+
+def gather_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """bf16 rows [Hp, D], int32 idx [U] -> bf16 [U, D] = rows[idx]."""
+    _check(rows, "rows", torch.bfloat16, 2)
+    _check(idx, "idx", torch.int32, 1)
+    if idx.device != rows.device:
+        raise ValueError("rows and idx must be on the same device")
+    Hp, D = rows.shape
+    U = idx.shape[0]
+    if D % 8 or rows.data_ptr() % 16:
+        raise ValueError(f"rows need D % 8 == 0 and 16-byte alignment (D={D})")
+    if -(-D // 8 // 256) > 65535:
+        raise ValueError(f"row width {D} exceeds the kernel's grid")
+    out = torch.empty((U, D), dtype=torch.bfloat16, device=rows.device)
+    if U == 0 or D == 0:
+        return out
+    lib = _library()
+    _launch("gather_rows", lib.nrt_gather_rows, rows.device,
+            rows.data_ptr(), idx.data_ptr(), out.data_ptr(), Hp, U, D)
+    return out
+
+
+def _check_pairs(docs: torch.Tensor, contribs: torch.Tensor) -> tuple[int, int]:
+    _check(docs, "docs", torch.int32, 2)
+    _check(contribs, "contribs", torch.float32, 2)
+    if docs.shape != contribs.shape or docs.device != contribs.device:
+        raise ValueError("docs and contribs must match in shape and device")
+    B, N = docs.shape
+    if not _pow2(N) or N >= 2**31 or B > 65535:
+        raise ValueError(f"unsupported merge shape {tuple(docs.shape)}")
+    return B, N
+
+
+def near_stages(docs: torch.Tensor, contribs: torch.Tensor, d0: int,
+                tile: int, m: int = 0) -> None:
+    """Stages d0, d0/2, ..., 1 in place, one block per ``tile`` pairs."""
+    B, N = _check_pairs(docs, contribs)
+    if not (_pow2(tile) and _pow2(d0) and 2 * d0 <= tile and N % tile == 0):
+        raise ValueError(f"bad near_stages tiling: N={N} tile={tile} d0={d0}")
+    if B == 0:
+        return
+    lib = _library()
+    _launch("near_stages", lib.nrt_near_stages, docs.device,
+            docs.data_ptr(), contribs.data_ptr(), B, N, tile, d0, m)
+
+
+def far_stage(docs: torch.Tensor, contribs: torch.Tensor, d: int,
+              m: int = 0) -> None:
+    """One compare-exchange stage at distance d, in place."""
+    B, N = _check_pairs(docs, contribs)
+    if not (_pow2(d) and 2 * d <= N):
+        raise ValueError(f"bad far_stage distance d={d} for N={N}")
+    if B == 0:
+        return
+    lib = _library()
+    _launch("far_stage", lib.nrt_far_stage, docs.device,
+            docs.data_ptr(), contribs.data_ptr(), B, N, d, m)
