@@ -11,14 +11,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 3. kernels vs their plain torch twins on the card at main-path shapes
    (gather_rows at Hp=536, D=1,000,064, U in {32, 128}; near_stages and
    far_stage at B=32, N in 2^15..2^19 with duplicate docs, both sentinels
-   and an all-pad row): outputs must be bit-equal; CUDA-event times.
+   and an all-pad row; the accelerator merge branch on the first B=32
+   batch of phase 5 as the merge path plans it: gather_runs (alternating),
+   the alternating network, finish_mask; far_pair_stage and finish_mask at
+   B=32 and N from 2^15 up to that batch's width): outputs must be
+   bit-equal; CUDA-event times.
 4. index: SyntheticCorpus(1M docs, 100k vocab, 48 draws/doc, seed 42) cut
    into 4 doc-range segments on the card, Searcher.warm builds the dense
    head rows; device memory is printed.
 5. search: 8 single queries through Searcher.search, 4 batches of 32
    through fast_search_batch, one conjunction with a tail term (merge
    path). Launch counters are reset just before and read just after; every
-   kernel must have launched. Latencies at B=1 and B=32.
+   kernel must have launched, and every B=32 batch must have taken the
+   merge path's alternating branch. Latencies at B=1 and B=32.
 6. the answers against an independent numpy BM25 of the same corpus.
 7. ingest ~2,000 text docs through IndexWriter on the card and on the CPU;
    merge results bit-equal, fused results within 1e-6 relative.
@@ -55,6 +60,12 @@ KERNEL_SOURCES = {
                     "nrtsearch_tpu/ops/pallas_merge.py:194"),
     "far_stage": ("nrtsearch_tpu_torch/csrc/bitonic_merge.cu",
                   "nrtsearch_tpu/ops/pallas_merge.py:54"),
+    "far_pair_stage": ("nrtsearch_tpu_torch/csrc/bitonic_merge.cu",
+                       "nrtsearch_tpu/ops/pallas_merge.py:112"),
+    "gather_runs": ("nrtsearch_tpu_torch/csrc/gather_runs.cu",
+                    "nrtsearch_tpu/ops/pallas_merge.py:317"),
+    "finish_mask": ("nrtsearch_tpu_torch/csrc/finish_mask.cu",
+                    "nrtsearch_tpu/ops/pallas_merge.py:450"),
 }
 
 
@@ -111,12 +122,27 @@ def _merge_inputs(gen, B: int, N: int, dev):
     return docs, contribs
 
 
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| over entries where either is finite (both -inf
+    counts as equal)."""
+    a, b = a.double(), b.double()
+    both_inf = torch.isinf(a) & torch.isinf(b) & (a == b)
+    d = torch.where(both_inf, torch.zeros_like(a), (a - b).abs())
+    return float(d.max()) if d.numel() else 0.0
+
+
 def phase_kernels(dev, merge_widths, main_n: int) -> dict:
     from nrtsearch_tpu_torch.ops import bitonic_merge as bm
     from nrtsearch_tpu_torch.ops import dense_fused
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    stats = {name: {"max_abs_err": 0.0} for name in KERNEL_SOURCES}
+    stats = {name: {"max_abs_err": 0.0} for name in ("gather_rows", "near_stages", "far_stage")}
 
     Hp, D = 536, 1_000_064
     rows = torch.rand((Hp, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -175,6 +201,120 @@ def phase_kernels(dev, merge_widths, main_n: int) -> dict:
             stats["near_stages"].update(ms=near_ms, plain_ms=near_plain, shape=[B, N, d0])
             stats["far_stage"].update(ms=far_ms, plain_ms=far_plain, shape=[B, N, far_d])
         del docs, contribs, kd, kc, td, tc
+    return stats
+
+
+def batch_plan(searcher, queries):
+    """The [B, R] run tables and run_len the merge path plans for one batch
+    of term lists (PackedFieldView.search_batch -> PrunedIndex._run_full)."""
+    from nrtsearch_tpu_torch.ops.merge_scoring import plan_run_lists
+
+    view = searcher.packed_view("body")
+    idx = view.index
+    rows = []
+    for q in queries:
+        spec = searcher.fast_query_spec(_match(q))
+        rows.append([
+            (int(idx.run_offsets[r]), int(idx.run_lengths[r]), w)
+            for _t, w, runs in view.term_entries(spec.terms, spec.boost) if w
+            for r in runs if idx.run_lengths[r]
+        ])
+    return plan_run_lists(rows, max_run=int(idx.doc_ids.shape[0]))
+
+
+def phase_accel_kernels(dev, searcher, batch) -> dict:
+    """The merge path's accelerator branch, kernels against twins: the
+    batch's own gather, network and finish, then far_pair_stage and
+    finish_mask at B=32 and N from 2^15 up to the batch's width."""
+    from nrtsearch_tpu_torch.ops import bitonic_merge as bm
+    from nrtsearch_tpu_torch.ops import merge_scoring as ms
+
+    idx = searcher.packed_view("body").index
+    offs, lens, weights, run_len = batch_plan(searcher, batch)
+    B, R = offs.shape
+    width = R * run_len
+    log(f"kernel plan: first B={B} batch -> R={R} run_len={run_len} width {width} "
+        f"(alternating branch from {ms.ALT_MIN_WIDTH}: {width >= ms.ALT_MIN_WIDTH})")
+    if width < ms.ALT_MIN_WIDTH:
+        raise AssertionError("the B=32 batch would not take the alternating branch")
+    tabs = [torch.as_tensor(a, device=dev) for a in (offs, lens, weights)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    stats = {name: {"max_abs_err": 0.0} for name in ("gather_runs", "far_pair_stage", "finish_mask")}
+
+    def hold(name, out, ref, ctx):
+        for o, r in zip(out, ref):
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], _abs_err(o, r))
+            if not _bits_equal(o, r):
+                raise AssertionError(f"{name} differs from its twin: {ctx}")
+
+    gather_args = (idx.doc_ids, idx.impacts, *tabs, run_len, True)
+    kd, kc = ms.gather_runs_accel(*gather_args)
+    td, tc = ms.gather_runs_twin(*gather_args)
+    hold("gather_runs", (kd, kc), (td, tc), f"B={B} R={R} run_len={run_len}")
+    g_ms = cuda_ms(lambda: ms.gather_runs_accel(*gather_args))
+    g_plain = cuda_ms(lambda: ms.gather_runs_twin(*gather_args))
+    stats["gather_runs"].update(ms=g_ms, plain_ms=g_plain, shape=[B, R, run_len])
+    log(f"kernel gather_runs B={B} R={R} run_len={run_len} alternating: bit-equal; "
+        f"{g_ms:.4f} ms, twin {g_plain:.4f} ms")
+
+    t0 = time.perf_counter()
+    md, mc = bm.merge_sorted_runs_alt(kd, kc)            # kernels, in place
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    wd, wc = bm.merge_sorted_runs_alt_twin(td, tc)       # twins, in place
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not (_bits_equal(md, wd) and _bits_equal(mc, wc)):
+        raise AssertionError("the alternating network differs from its twin")
+    if not bool((md[:, 1:] >= md[:, :-1]).all()):
+        raise AssertionError("the alternating network's output is not sorted")
+    log(f"kernel merge_sorted_runs_alt B={B} N={width}: bit-equal and sorted; "
+        f"{1e3 * (t1 - t0):.3f} ms, twins {1e3 * (t2 - t1):.3f} ms (host clock, one run)")
+    del td, tc, wd, wc
+
+    n_terms = torch.randint(1, 4, (B,), generator=gen, device=dev, dtype=torch.int32)
+    for require_all in (False, True):
+        out = ms.finish_mask(md, mc, n_terms, R, require_all)
+        ref = ms.finish_mask_twin(md, mc, n_terms, R, require_all)
+        hold("finish_mask", (out,), (ref,), f"batch, require_all={require_all}")
+        if not bool(torch.isfinite(out).any()):
+            raise AssertionError("finish_mask kept no doc of the batch")
+    f_ms = cuda_ms(lambda: ms.finish_mask(md, mc, n_terms, R, False))
+    f_plain = cuda_ms(lambda: ms.finish_mask_twin(md, mc, n_terms, R, False))
+    stats["finish_mask"].update(ms=f_ms, plain_ms=f_plain, shape=[B, width, R])
+    log(f"kernel finish_mask B={B} N={width} max_seg={R}: bit-equal; {f_ms:.4f} ms, "
+        f"twin {f_plain:.4f} ms")
+    del kd, kc, md, mc
+
+    N = 1 << 15
+    while N <= width:
+        docs, contribs = _merge_inputs(gen, B, N, dev)
+        cases = [(N // 2, 0)] + ([(N // 4, N // 2)] if N // 8 >= bm.near_tile(N) else [])
+        for d, m in cases:
+            kd, kc = docs.clone(), contribs.clone()
+            bm.far_pair_stage(kd, kc, d, m)
+            td, tc = docs.clone(), contribs.clone()
+            bm.far_pair_stage_twin(td, tc, d, m)
+            hold("far_pair_stage", (kd, kc), (td, tc), f"N={N} d={d} m={m}")
+
+        def fresh():
+            return docs.clone(), contribs.clone()
+
+        p_ms = cuda_ms(lambda x, y: bm.far_pair_stage(x, y, N // 2), fresh)
+        p_plain = cuda_ms(lambda x, y: bm.far_pair_stage_twin(x, y, N // 2), fresh)
+        bm.merge_level(docs, contribs, N // 2)            # a sorted stream
+        fk = ms.finish_mask(docs, contribs, n_terms, R, True)
+        ft = ms.finish_mask_twin(docs, contribs, n_terms, R, True)
+        hold("finish_mask", (fk,), (ft,), f"N={N}")
+        fn_ms = cuda_ms(lambda: ms.finish_mask(docs, contribs, n_terms, R, True))
+        fn_plain = cuda_ms(lambda: ms.finish_mask_twin(docs, contribs, n_terms, R, True))
+        log(f"kernel B={B} N={N}: far_pair_stage(d={N // 2}) bit-equal {p_ms:.4f} ms, twin "
+            f"{p_plain:.4f} ms; finish_mask(max_seg={R}, require_all) bit-equal "
+            f"{fn_ms:.4f} ms, twin {fn_plain:.4f} ms")
+        if 2 * N > width:
+            stats["far_pair_stage"].update(ms=p_ms, plain_ms=p_plain, shape=[B, N, N // 2])
+        del docs, contribs, kd, kc, td, tc, fk, ft
+        N *= 2
     return stats
 
 
@@ -239,14 +379,22 @@ def _match(terms, operator="SHOULD"):
                                        "operator": operator}})
 
 
-def phase_search(corpus, searcher, reps: int = 3) -> dict:
-    """The main path. Returns results, latencies and path counts."""
+def sample_search_queries(corpus) -> tuple[list, list]:
+    """Phase 5's queries: 8 singles and 4 batches of 32."""
     singles = corpus.sample_queries(8, TERMS_PER_QUERY)
     batches = [corpus.sample_queries(BATCH, TERMS_PER_QUERY) for _ in range(4)]
+    return singles, batches
+
+
+def phase_search(corpus, searcher, singles, batches, reps: int = 3) -> dict:
+    """The main path. Returns results, latencies, path counts and the merge
+    branch each B=32 batch took."""
+    from nrtsearch_tpu_torch.ops.merge_scoring import MERGE_BRANCH
+
     conj = conjunction_terms(corpus, searcher)
     view = searcher.packed_view("body")
     paths0 = dict(view.path_counts)
-    lat1, lat32 = [], []
+    lat1, lat32, batch_branches = [], [], []
     single_out = batch_out = None
     for _ in range(reps):
         single_out = []
@@ -258,14 +406,16 @@ def phase_search(corpus, searcher, reps: int = 3) -> dict:
         for qs in batches:
             t = time.perf_counter()
             specs = [searcher.fast_query_spec(_match(q)) for q in qs]
+            before = dict(MERGE_BRANCH)
             batch_out.append(searcher.fast_search_batch(specs, TOP_K))
             lat32.append(time.perf_counter() - t)
+            batch_branches.append({k: MERGE_BRANCH[k] - before[k] for k in before})
     conj_out = searcher.search(_match(conj, "MUST"), TOP_K)
     paths = {k: view.path_counts[k] - paths0[k] for k in paths0}
     return {
         "singles": singles, "single_out": single_out, "batches": batches,
         "batch_out": batch_out, "conj": conj, "conj_out": conj_out,
-        "lat1": lat1, "lat32": lat32, "paths": paths,
+        "lat1": lat1, "lat32": lat32, "paths": paths, "batch_branches": batch_branches,
     }
 
 
@@ -359,6 +509,8 @@ def phase_ingest(dev, n_docs: int = 2000) -> dict:
         w.refresh()
         w.add_documents([dict(x) for x in docs[n_docs // 2 :]])
         searchers[name] = Searcher(w.refresh(), fds)
+    from nrtsearch_tpu_torch.ops.merge_scoring import MERGE_BRANCH
+
     checked = 0
     saved = os.environ.get("NRT_FAST_PATH")
     try:
@@ -366,6 +518,7 @@ def phase_ingest(dev, n_docs: int = 2000) -> dict:
             os.environ["NRT_FAST_PATH"] = path
             for qname, (text, op) in INGEST_QUERIES.items():
                 node = _match(text.split(), op)
+                alt0 = MERGE_BRANCH["alt"]
                 g = searchers["gpu"].search(node, 50)
                 c = searchers["cpu"].search(node, 50)
                 ctx = f"ingest {qname}/{path}"
@@ -376,6 +529,13 @@ def phase_ingest(dev, n_docs: int = 2000) -> dict:
                 if (g.total_hits, g.relation) != (c.total_hits, c.relation) or not gd:
                     raise AssertionError(f"{ctx}: hits {g.total_hits} vs {c.total_hits}")
                 if path == "merge":
+                    # the card runs the accelerator branch (unclamped gather),
+                    # the CPU the plain branch (clamping gather): bit-equal
+                    # only because these widths stay below ALT_MIN_WIDTH, so
+                    # both use the plain network, and no run clamps (the
+                    # packed postings carry 2 * 8192 entries of slack)
+                    if MERGE_BRANCH["alt"] != alt0:
+                        raise AssertionError(f"{ctx}: took the alternating branch")
                     if gd != cd or not np.array_equal(gs, cs):
                         raise AssertionError(f"{ctx}: cuda and cpu differ")
                 else:
@@ -421,32 +581,41 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log(f"build: {line.strip()}")
 
-    # 4 (before 3: the main path's tail width picks the timed merge shape)
+    # 4 (before 3: the main path's tail width and first batch pick the
+    # timed merge shapes)
     corpus, searcher = phase_index(dev, NUM_DOCS, VOCAB, DRAWS, SEGMENTS)
     log(f"index: torch.cuda.memory_allocated {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
     main_n = fused_tail_width(searcher)
+    singles, batches = sample_search_queries(corpus)
 
     # 3. kernels vs twins
     widths = sorted({1 << p for p in range(15, 20)} | {main_n})
     stats = phase_kernels(dev, widths, main_n)
+    stats.update(phase_accel_kernels(dev, searcher, batches[0]))
+    torch.cuda.empty_cache()
 
     # 5. search on the main path
     kernels.reset_launch_counts()
     syncs0 = (dense_fused.HOST_SYNCS["window_certificate"],
               merge_scoring.HOST_SYNCS["hierarchical_topk"])
-    res = phase_search(corpus, searcher)
+    branch0 = dict(merge_scoring.MERGE_BRANCH)
+    res = phase_search(corpus, searcher, singles, batches)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     syncs = (dense_fused.HOST_SYNCS["window_certificate"] - syncs0[0],
              merge_scoring.HOST_SYNCS["hierarchical_topk"] - syncs0[1])
+    branches = {k: merge_scoring.MERGE_BRANCH[k] - branch0[k] for k in branch0}
     log(f"search: launches {launches}")
     log(f"search: specs by path {res['paths']}; host syncs window {syncs[0]}, "
-        f"hierarchical_topk {syncs[1]}; window branch {dense_fused.WINDOW_BRANCH}")
-    missing = [k for k, v in launches.items() if v == 0]
+        f"hierarchical_topk {syncs[1]}; window branch {dense_fused.WINDOW_BRANCH}; "
+        f"merge branch {branches}")
+    missing = [k for k in KERNEL_SOURCES if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     if res["paths"]["fused"] == 0 or res["paths"]["merge"] == 0:
         raise AssertionError(f"both paths must serve: {res['paths']}")
+    if any(b != {"alt": 1, "plain": 0} for b in res["batch_branches"]):
+        raise AssertionError(f"a B=32 batch left the alternating branch: {res['batch_branches']}")
     p50_1 = 1e3 * float(np.median(res["lat1"]))
     p50_32 = 1e3 * float(np.median(res["lat32"]))
     log(f"search: p50 latency B=1 {p50_1:.2f} ms (n={len(res['lat1'])}), B=32 "

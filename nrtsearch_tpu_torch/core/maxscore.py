@@ -2,7 +2,9 @@
 (counterpart: nrtsearch_tpu/core/maxscore.py ``PrunedIndex``).
 
 The exact merge path: every query's postings runs go through one batched
-``merge_score_topk`` dispatch (ops/merge_scoring.py). MaxScore pruning
+``merge_score_topk`` dispatch (ops/merge_scoring.py), on its accelerator
+branch when the postings live on CUDA (``use_pallas``, as the reference sets
+it on its TPU). MaxScore pruning
 (``prune=True``: the theta dispatch, the term split, the probe and the
 window certificate) is not ported; the reference's serving default
 (NRT_MAXSCORE=0) never asks for it.
@@ -15,6 +17,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from nrtsearch_tpu_torch.device import on_cuda
 from nrtsearch_tpu_torch.ops.merge_scoring import _pow2, merge_score_topk, plan_run_lists
 
 # impacts block size for per-run upper bounds
@@ -80,6 +83,8 @@ class PrunedIndex:
         self.run_ub = run_upper_bounds(
             device_impacts, self.run_offsets, self.run_lengths
         )
+        # merge_score_topk's accelerator branch (the reference: _on_tpu())
+        self.use_pallas = on_cuda(device_ids)
 
     @property
     def device(self) -> torch.device:
@@ -100,6 +105,7 @@ class PrunedIndex:
             torch.as_tensor(weights, device=dev),
             torch.as_tensor(np.asarray(n_terms, np.int32), device=dev),
             run_len=run_len, k=k_eff, require_all_terms=require_all,
+            use_pallas=self.use_pallas,
         )
         return s.cpu().numpy(), d.cpu().numpy(), h.cpu().numpy()
 

@@ -1,11 +1,12 @@
 // Compare-exchange stages of the bitonic merge over [B, N] (docs, contribs)
 // pairs, in place: `near_stages` (every stage d0, d0/2, ..., 1 inside one
-// shared-memory tile) and `far_stage` (one stage at a distance too long for a
-// tile).
+// shared-memory tile), `far_stage` (one stage at a distance too long for a
+// tile) and `far_pair_stage` (two such stages, d and d/2, in one pass).
 //
-// Replaces: nrtsearch_tpu/ops/pallas_merge.py `near_stages` / `_near_kernel`
-// and `far_stage` / `_far_kernel`, which `merge_level_pallas` composes for
-// ops/merge_scoring.py `merge_sorted_runs`.
+// Replaces: nrtsearch_tpu/ops/pallas_merge.py `near_stages` / `_near_kernel`,
+// `far_stage` / `_far_kernel` and `far_pair_stage` / `_far_pair_kernel`,
+// which `merge_level_pallas` and `merge_sorted_runs_alt` compose for
+// ops/merge_scoring.py `merge_score_topk`.
 //
 // Bound on the card: device-memory traffic. A stage does one compare per pair
 // and moves 8 bytes per pair each way (int32 doc + f32 contrib).
@@ -16,7 +17,10 @@
 // stages cost one read and one write of the tile instead of one each. The TPU
 // tile of 2^17 pairs does not fit the 227 KB a Hopper block can hold, so more
 // stages go to far_stage than on the TPU. far_stage runs one thread per pair
-// (i, i + d) for d >= tile.
+// (i, i + d) for d >= tile. far_pair_stage runs one thread per quad: the
+// four entries i, i + d/2, i + d, i + 3d/2 of one 2d block take both stages
+// in registers (stage d exchanges quarters 0-2 and 1-3, stage d/2 then 0-1
+// and 2-3), so two stages cost one read and one write instead of two each.
 //
 // Tie rule, both kernels: ascending mode swaps only when lo > hi strictly, so
 // equal docs keep their stream order (segmented sums add equal docs in stream
@@ -84,6 +88,46 @@ __global__ void far_stage_kernel(int32_t* __restrict__ docs,
   exchange(docs + base, contribs + base, lo, lo + d, desc);
 }
 
+__device__ __forceinline__ void exchange_regs(int32_t& da, int32_t& db,
+                                              float& ca, float& cb, bool desc) {
+  if ((da > db) != desc) {
+    const int32_t td = da;
+    da = db;
+    db = td;
+    const float tc = ca;
+    ca = cb;
+    cb = tc;
+  }
+}
+
+__global__ void far_pair_stage_kernel(int32_t* __restrict__ docs,
+                                      float* __restrict__ contribs, int n,
+                                      int d, int m) {
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p >= n / 4) return;
+  const int64_t q = d / 2;  // quarter length
+  const int64_t start = (p & ~(q - 1)) * 4;  // the 2d block's first entry
+  const int64_t i = start + (p & (q - 1));
+  const bool desc = m != 0 && (start & m) != 0;
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * n;
+  int32_t* rd = docs + base;
+  float* rc = contribs + base;
+  int32_t d0 = rd[i], d1 = rd[i + q], d2 = rd[i + 2 * q], d3 = rd[i + 3 * q];
+  float c0 = rc[i], c1 = rc[i + q], c2 = rc[i + 2 * q], c3 = rc[i + 3 * q];
+  exchange_regs(d0, d2, c0, c2, desc);  // stage d
+  exchange_regs(d1, d3, c1, c3, desc);
+  exchange_regs(d0, d1, c0, c1, desc);  // stage d/2
+  exchange_regs(d2, d3, c2, c3, desc);
+  rd[i] = d0;
+  rd[i + q] = d1;
+  rd[i + 2 * q] = d2;
+  rd[i + 3 * q] = d3;
+  rc[i] = c0;
+  rc[i + q] = c1;
+  rc[i + 2 * q] = c2;
+  rc[i + 3 * q] = c3;
+}
+
 }  // namespace
 
 // docs int32 [B, n], contribs f32 [B, n], n a multiple of tile, tile a power
@@ -110,6 +154,18 @@ extern "C" int nrt_far_stage(void* docs, void* contribs, int B, int n, int d,
   const int64_t pairs = n / 2;
   dim3 grid(static_cast<unsigned>((pairs + kFarThreads - 1) / kFarThreads), B);
   far_stage_kernel<<<grid, kFarThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(docs), static_cast<float*>(contribs), n, d, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stages d and d/2 (d a power of two, 2 <= d, 2 * d <= n) over [B, n], in
+// place; m = 0 (ascending) or the sort-block size.
+extern "C" int nrt_far_pair_stage(void* docs, void* contribs, int B, int n,
+                                  int d, int m, void* stream) {
+  const int64_t quads = n / 4;
+  dim3 grid(static_cast<unsigned>((quads + kFarThreads - 1) / kFarThreads), B);
+  far_pair_stage_kernel<<<grid, kFarThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(docs), static_cast<float*>(contribs), n, d, m);
   return static_cast<int>(cudaGetLastError());
 }

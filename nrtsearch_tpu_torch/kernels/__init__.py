@@ -8,14 +8,15 @@ with a plain C interface (no PyTorch headers, so the build takes seconds)::
 
 The library goes into ``nrtsearch_tpu_torch/_build/`` under a name keyed by a
 hash of the sources and flags, and is loaded with ctypes: pointers and the
-stream are ``c_void_p``, ints ``c_int``. Every C entry point launches on the
+stream are ``c_void_p``, ints ``c_int`` (a postings length ``c_longlong``).
+Every C entry point launches on the
 current torch stream and returns ``cudaGetLastError()``; the wrappers below
 raise when it is not 0. A failed build raises with nvcc's stderr.
 
 Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel and
 nowhere else, so a run can show that its main path went through the kernels.
 The wrappers take CUDA tensors only; the plain torch twins live beside their
-callers (ops/dense_fused.py, ops/bitonic_merge.py).
+callers (ops/dense_fused.py, ops/bitonic_merge.py, ops/merge_scoring.py).
 """
 
 from __future__ import annotations
@@ -37,7 +38,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-LAUNCHES = {"gather_rows": 0, "near_stages": 0, "far_stage": 0}
+LAUNCHES = {
+    "gather_rows": 0, "near_stages": 0, "far_stage": 0,
+    "gather_runs": 0, "far_pair_stage": 0, "finish_mask": 0,
+}
+# finish_mask: stream entries per block; shared memory holds the tile plus
+# the scan's halo (max_seg - 1 for a power-of-two max_seg)
+FINISH_TILE = 2048
+MAX_SHARED_BYTES = 232_448   # what one Hopper block may use
 # ptxas register / shared-memory report of the last build (nvcc's stderr)
 BUILD_INFO = {"log": "", "seconds": 0.0, "path": ""}
 
@@ -104,11 +112,18 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.nrt_gather_rows.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         lib.nrt_near_stages.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
         lib.nrt_far_stage.argtypes = [vp, vp, ci, ci, ci, ci, vp]
-        for fn in (lib.nrt_gather_rows, lib.nrt_near_stages, lib.nrt_far_stage):
+        lib.nrt_far_pair_stage.argtypes = [vp, vp, ci, ci, ci, ci, vp]
+        lib.nrt_gather_runs.argtypes = [vp, vp, cll, vp, vp, vp, vp, vp,
+                                        ci, ci, ci, ci, vp]
+        lib.nrt_finish_mask.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                        ci, ci, vp]
+        for fn in (lib.nrt_gather_rows, lib.nrt_near_stages, lib.nrt_far_stage,
+                   lib.nrt_far_pair_stage, lib.nrt_gather_runs,
+                   lib.nrt_finish_mask):
             fn.restype = ci
         lib.nrt_error_string.argtypes = [ci]
         lib.nrt_error_string.restype = ctypes.c_char_p
@@ -198,3 +213,94 @@ def far_stage(docs: torch.Tensor, contribs: torch.Tensor, d: int,
     lib = _library()
     _launch("far_stage", lib.nrt_far_stage, docs.device,
             docs.data_ptr(), contribs.data_ptr(), B, N, d, m)
+
+
+def far_pair_stage(docs: torch.Tensor, contribs: torch.Tensor, d: int,
+                   m: int = 0) -> None:
+    """Stages d and d/2 in one pass, in place."""
+    B, N = _check_pairs(docs, contribs)
+    if not (_pow2(d) and d >= 2 and 2 * d <= N):
+        raise ValueError(f"bad far_pair_stage distance d={d} for N={N}")
+    if B == 0:
+        return
+    lib = _library()
+    _launch("far_pair_stage", lib.nrt_far_pair_stage, docs.device,
+            docs.data_ptr(), contribs.data_ptr(), B, N, d, m)
+
+
+def gather_runs(post_docs: torch.Tensor, post_impacts: torch.Tensor,
+                offs: torch.Tensor, lens: torch.Tensor, weights: torch.Tensor,
+                run_len: int, alternating: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, R] run tables -> docs int32 [B, R, run_len], contribs f32
+    (``ops/merge_scoring.gather_runs_twin`` is the plain version)."""
+    _check(post_docs, "post_docs", torch.int32, 1)
+    _check(post_impacts, "post_impacts", torch.float32, 1)
+    _check(offs, "offs", torch.int32, 2)
+    _check(lens, "lens", torch.int32, 2)
+    _check(weights, "weights", torch.float32, 2)
+    if post_docs.shape != post_impacts.shape:
+        raise ValueError("post_docs and post_impacts must match in shape")
+    if not offs.shape == lens.shape == weights.shape:
+        raise ValueError("offs, lens and weights must match in shape")
+    if len({t.device for t in (post_docs, post_impacts, offs, lens, weights)}) != 1:
+        raise ValueError("all gather_runs inputs must be on one device")
+    B, R = offs.shape
+    if not 0 < run_len < 2**31 or B * R * run_len >= 2**40:
+        raise ValueError(f"unsupported gather shape B={B} R={R} run_len={run_len}")
+    dev = post_docs.device
+    out_docs = torch.empty((B, R, run_len), dtype=torch.int32, device=dev)
+    out_contribs = torch.empty((B, R, run_len), dtype=torch.float32, device=dev)
+    if B * R == 0:
+        return out_docs, out_contribs
+    lib = _library()
+    _launch("gather_runs", lib.nrt_gather_runs, dev,
+            post_docs.data_ptr(), post_impacts.data_ptr(), post_docs.shape[0],
+            offs.data_ptr(), lens.data_ptr(), weights.data_ptr(),
+            out_docs.data_ptr(), out_contribs.data_ptr(), B, R, run_len,
+            int(alternating))
+    return out_docs, out_contribs
+
+
+def scan_halo(max_seg: int) -> int:
+    """How far back the segmented scan reaches: 1 + 2 + 4 + ... over its
+    distances d < max_seg."""
+    halo, d = 0, 1
+    while d < max_seg:
+        halo += d
+        d <<= 1
+    return halo
+
+
+def finish_mask(docs: torch.Tensor, contribs: torch.Tensor,
+                n_terms: torch.Tensor, max_seg: int,
+                require_all: bool) -> torch.Tensor:
+    """[B, N] merged stream -> f32 [B, N] masked per-doc sums
+    (``ops/merge_scoring.finish_mask_twin`` is the plain version)."""
+    _check(docs, "docs", torch.int32, 2)
+    _check(contribs, "contribs", torch.float32, 2)
+    _check(n_terms, "n_terms", torch.int32, 1)
+    if docs.shape != contribs.shape or len({docs.device, contribs.device,
+                                            n_terms.device}) != 1:
+        raise ValueError("docs and contribs must match in shape, all on one device")
+    B, N = docs.shape
+    if n_terms.shape[0] != B or N >= 2**31 or B > 65535:
+        raise ValueError(f"unsupported finish shape {tuple(docs.shape)}, "
+                         f"n_terms {tuple(n_terms.shape)}")
+    if max_seg < 1:
+        raise ValueError(f"max_seg must be positive, got {max_seg}")
+    tile, halo = min(FINISH_TILE, N), scan_halo(max_seg)
+    # docs (+ the next entry), sums ping-pong, counts ping-pong (require_all)
+    smem = (tile + halo + 1) * 4 + (tile + halo) * 8 * (2 if require_all else 1)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"finish_mask: max_seg={max_seg} needs {smem} bytes of shared "
+            f"memory per block, more than {MAX_SHARED_BYTES}")
+    out = torch.empty((B, N), dtype=torch.float32, device=docs.device)
+    if B * N == 0:
+        return out
+    lib = _library()
+    _launch("finish_mask", lib.nrt_finish_mask, docs.device,
+            docs.data_ptr(), contribs.data_ptr(), n_terms.data_ptr(),
+            out.data_ptr(), B, N, tile, halo, max_seg, int(require_all), smem)
+    return out

@@ -1,16 +1,22 @@
 """Compare-exchange stages of the bitonic merge, with their CUDA kernels.
 
 Counterpart: nrtsearch_tpu/ops/pallas_merge.py (``far_stage``,
-``near_stages``, ``merge_level_pallas``). The (docs, contribs) pair moves
-together over [B, N]; stages run in place.
+``far_pair_stage``, ``near_stages``, ``merge_level_pallas``,
+``merge_sorted_runs_alt``). The (docs, contribs) pair moves together over
+[B, N]; stages run in place.
 
 - ``near_stages``: every stage d0, d0/2, ..., 1 inside one on-chip tile
   (csrc/bitonic_merge.cu). The TPU tile holds 2^17 pairs in VMEM; a Hopper
   block holds at most 227 KB of shared memory, so the port's tile is
   ``NEAR_TILE`` pairs (64 KB), or the whole row when it is shorter.
 - ``far_stage``: one stage at a distance d >= the tile.
+- ``far_pair_stage``: stages d and d/2 in one read and one write, for
+  d/2 >= the tile.
 - ``merge_level``: one merge level as far stages down to the tile, then one
   near pass (the counterpart of ``merge_level_pallas``).
+- ``merge_sorted_runs_alt``: the alternating-direction merge of runs that
+  alternate ascending/descending; every level compares inside odd m-blocks
+  the other way, so no level reverses a run.
 
 Each has a plain torch twin (``*_twin``). The dispatching functions take the
 twin only for CPU tensors; CUDA tensors go to the kernel, which raises on
@@ -106,3 +112,96 @@ def merge_level(docs: torch.Tensor, contribs: torch.Tensor,
     if d >= 1:
         near_stages(docs, contribs, d)
     return docs, contribs
+
+
+def far_pair_stage_twin(docs: torch.Tensor, contribs: torch.Tensor, d: int,
+                        m: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch stages d and d/2 over [B, N], in place: each 2d block is
+    four quarters q0..q3 of d/2; stage d exchanges (q0, q2) and (q1, q3),
+    stage d/2 then (q0, q1) and (q2, q3). ``m``: alternating-direction
+    sort-block size (0 = ascending); a block compares descending when its
+    start has the m bit set."""
+    B, N = docs.shape
+    if d < 2 or 2 * d > N or d & (d - 1):
+        raise ValueError(f"far_pair_stage needs d a power of two in [2, N/2], got d={d}, N={N}")
+    nblk = N // (2 * d)
+    dq = docs.view(B, nblk, 4, d // 2)
+    cq = contribs.view(B, nblk, 4, d // 2)
+    desc = None
+    if m and m < N:
+        start = torch.arange(nblk, device=docs.device, dtype=torch.int64) * (2 * d)
+        desc = ((start & m) != 0)[None, :, None]
+
+    def ce(a: int, b: int) -> None:
+        lo_d, hi_d = dq[:, :, a, :], dq[:, :, b, :]
+        swap = lo_d > hi_d
+        if desc is not None:
+            swap = swap != desc
+        lo_c, hi_c = cq[:, :, a, :], cq[:, :, b, :]
+        new = (torch.where(swap, hi_d, lo_d), torch.where(swap, lo_d, hi_d),
+               torch.where(swap, hi_c, lo_c), torch.where(swap, lo_c, hi_c))
+        dq[:, :, a, :], dq[:, :, b, :], cq[:, :, a, :], cq[:, :, b, :] = new
+
+    ce(0, 2)
+    ce(1, 3)   # stage d
+    ce(0, 1)
+    ce(2, 3)   # stage d/2
+    return docs, contribs
+
+
+def far_pair_stage(docs: torch.Tensor, contribs: torch.Tensor, d: int,
+                   m: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stages d and d/2 in one pass (requires d/2 >= near_tile(N)), in
+    place."""
+    N = docs.shape[-1]
+    if d // 2 < near_tile(N):
+        raise ValueError(f"far_pair_stage needs d/2 >= {near_tile(N)}, got d={d}")
+    m = m if m < N else 0
+    if on_cuda(docs):
+        kernels.far_pair_stage(docs, contribs, d, m)
+        return docs, contribs
+    return far_pair_stage_twin(docs, contribs, d, m)
+
+
+def _merge_alt(docs, contribs, far_pair, far, near):
+    B, R, L = docs.shape
+    N = R * L
+    docs = docs.reshape(B, N)
+    contribs = contribs.reshape(B, N)
+    tile = near_tile(N)
+    m = 2 * L
+    while m <= N:
+        d = m // 2
+        while d >= tile:
+            if d // 2 >= tile:
+                far_pair(docs, contribs, d, m)
+                d //= 4
+            else:
+                far(docs, contribs, d, m)
+                d //= 2
+        if d >= 1:
+            near(docs, contribs, d, m)
+        m *= 2
+    return docs, contribs
+
+
+def merge_sorted_runs_alt(docs: torch.Tensor, contribs: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, R, L] runs, even runs ascending and odd runs descending (the
+    alternating gather) -> [B, R*L] sorted ascending.
+
+    Level m (= 2L, 4L, ..., N) merges adjacent m/2-blocks, which alternate
+    direction and so are bitonic pairs as they stand: stages m/2 ... 1 with
+    blocks whose start has the m bit set compared descending, so the level's
+    m-blocks alternate again; the last level (m = N) is ascending. Far
+    stages pair up while both distances are at least the tile. The stage
+    sequence is the reference's (pallas_merge.py:486), so the output is
+    bit-equal to it whatever the tile. Works in place on the [B, N] views."""
+    return _merge_alt(docs, contribs, far_pair_stage, far_stage, near_stages)
+
+
+def merge_sorted_runs_alt_twin(docs: torch.Tensor, contribs: torch.Tensor
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``merge_sorted_runs_alt`` over the plain torch twins, on any device."""
+    return _merge_alt(docs, contribs, far_pair_stage_twin, far_stage_twin,
+                      near_stages_twin)

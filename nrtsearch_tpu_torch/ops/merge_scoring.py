@@ -7,9 +7,19 @@ network, summed per doc with a bounded-distance segmented scan, and cut to
 the top k under Lucene's (score desc, docid asc) contract. Scores are exact
 f32 and bit-equal to the reference: every stage keeps its operation order.
 
-On CUDA every merge level goes through the port's kernels
-(ops/bitonic_merge.py), at every width; on the CPU the plain
-``_compare_exchange`` twin runs, as the reference's XLA path does there.
+``merge_score_topk`` has the reference's two branches, chosen by
+``use_pallas`` (the reference's name; default: the postings live on CUDA):
+
+- the accelerator branch (the counterpart of ``merge_scoring.py:372-429``):
+  the unclamped run gather (``gather_runs_accel``); from a merged width of
+  ``ALT_MIN_WIDTH`` on, odd runs come out descending and the
+  alternating-direction network (``bitonic_merge.merge_sorted_runs_alt``)
+  merges them with no per-level reversal, and ``finish_mask`` sums and masks
+  in one pass; below it, the plain network and ``_finish``. On CUDA every
+  step is a kernel; on the CPU the twins run, which is how tests reach it.
+- the plain branch (the reference's XLA path): the clamping ``gather_runs``,
+  the plain network with a reversal per level and the shifted-add scan.
+  On CUDA its merge levels still go through the far/near kernels.
 
 Filters, additive columns, doc-value sorts, count thresholds and flat
 reductions are not ported yet (they come with the general evaluator).
@@ -20,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nrtsearch_tpu_torch import kernels
 from nrtsearch_tpu_torch.device import on_cuda
 from nrtsearch_tpu_torch.ops import bitonic_merge
 from nrtsearch_tpu_torch.ops.topk import topk_lowest_index
@@ -29,6 +40,12 @@ DOC_SENTINEL_LOW = np.int32(-(2**31) + 1)  # front padding (sorts first)
 
 # host syncs taken by _hierarchical_topk's exactness check, one per call
 HOST_SYNCS = {"hierarchical_topk": 0}
+# merged width from which the accelerator branch takes the alternating
+# network: the reference's TILE (pallas_merge.py:31). It picks the network,
+# not a tile, so it keeps the reference's value.
+ALT_MIN_WIDTH = 1 << 17
+# networks taken by the accelerator branch, one per merge_score_topk call
+MERGE_BRANCH = {"alt": 0, "plain": 0}
 
 
 def _pow2(n: int, minimum: int = 1) -> int:
@@ -118,6 +135,43 @@ def gather_runs(post_docs, post_impacts, offs, lens, weights, run_len: int):
     contribs = torch.where(in_run, weights[..., None] * imps,
                            torch.zeros((), dtype=torch.float32, device=dev))
     return docs, contribs
+
+
+def gather_runs_twin(post_docs, post_impacts, offs, lens, weights, run_len: int,
+                     alternating: bool = False):
+    """Plain torch twin of the accelerator gather (``gather_runs_pallas``):
+    [B, R] run tables -> docs int32 [B, R, run_len], contribs f32.
+
+    Position p of a run holds source entry q = p (q = run_len-1-p for an odd
+    run when ``alternating``: the whole run reversed, so it reads
+    descending). Where q < len and the weight is not 0 it holds the posting's
+    doc and ``w * imp``; everywhere else the HIGH sentinel and 0. Nothing is
+    clamped and there is no LOW padding: a run never reads past its own
+    length, which the caller keeps inside the postings."""
+    dev = post_docs.device
+    pos = torch.arange(run_len, device=dev, dtype=torch.int64)
+    q = pos.expand(offs.shape[1], run_len)
+    if alternating:
+        odd = (torch.arange(offs.shape[1], device=dev) % 2 == 1)[:, None]
+        q = torch.where(odd, run_len - 1 - pos, pos)
+    valid = (q < lens[..., None]) & (weights != 0.0)[..., None]
+    idx = torch.where(valid, offs.to(torch.int64)[..., None] + q, 0)
+    docs = torch.where(valid, post_docs[idx],
+                       torch.full((), int(DOC_SENTINEL), dtype=torch.int32, device=dev))
+    contribs = torch.where(valid, weights[..., None] * post_impacts[idx],
+                           torch.zeros((), dtype=torch.float32, device=dev))
+    return docs, contribs
+
+
+def gather_runs_accel(post_docs, post_impacts, offs, lens, weights,
+                      run_len: int, alternating: bool = False):
+    """The accelerator branch's gather: the CUDA kernel for CUDA tensors,
+    ``gather_runs_twin`` for CPU ones."""
+    if on_cuda(post_docs):
+        return kernels.gather_runs(post_docs, post_impacts, offs, lens, weights,
+                                   run_len, alternating)
+    return gather_runs_twin(post_docs, post_impacts, offs, lens, weights,
+                            run_len, alternating)
 
 
 def _compare_exchange(docs, payloads, d: int):
@@ -222,6 +276,30 @@ def segmented_scores(docs_sorted, contribs, max_seg: int):
     return seg_scores, seg_counts, tail, valid
 
 
+def finish_mask_twin(docs_sorted, contribs, n_terms, max_seg: int,
+                     require_all: bool):
+    """Plain torch twin of ``finish_mask_pallas``: [B, N] merged stream ->
+    f32 [B, N], the per-doc sum at each doc's last entry where it is valid,
+    > 0 and (with ``require_all``) counts at least n_terms[b] entries; -inf
+    everywhere else. The sums are ``segmented_scores``'."""
+    seg_scores, seg_counts, tail, valid = segmented_scores(docs_sorted, contribs, max_seg)
+    ok = tail & valid & (seg_scores > 0.0)
+    if require_all:
+        ok = ok & (seg_counts >= n_terms[:, None])
+    return torch.where(ok, seg_scores, float("-inf"))
+
+
+def finish_mask(docs_sorted, contribs, n_terms, max_seg: int, require_all: bool):
+    """One-pass segmented sum and tail mask: the CUDA kernel for CUDA
+    tensors, ``finish_mask_twin`` for CPU ones."""
+    n = docs_sorted.shape[-1]
+    if not 0 < max_seg < n:
+        raise ValueError(f"max_seg must be in (0, {n}), got {max_seg}")
+    if on_cuda(docs_sorted):
+        return kernels.finish_mask(docs_sorted, contribs, n_terms, max_seg, require_all)
+    return finish_mask_twin(docs_sorted, contribs, n_terms, max_seg, require_all)
+
+
 def merge_score_topk(
     post_docs: torch.Tensor,      # int32 [P_pad] doc-sorted postings (flat)
     post_impacts: torch.Tensor,   # float32 [P_pad] impacts, 0 for deleted docs
@@ -233,6 +311,7 @@ def merge_score_topk(
     run_len: int,
     k: int,
     require_all_terms: bool = False,
+    use_pallas: bool | None = None,
     filter_mask=None,
     additive=None,
     sort_keys=None,
@@ -243,19 +322,37 @@ def merge_score_topk(
 ):
     """Scatter-free retrieval. Returns (scores [B, k], docs [B, k],
     hits [B]). Deleted docs carry zero impacts and drop out through the
-    ``score > 0`` mask."""
+    ``score > 0`` mask. ``use_pallas`` picks the accelerator branch (None:
+    when the postings live on CUDA); see the module docstring."""
     if (filter_mask is not None or additive is not None or sort_keys is not None
             or count_threshold is not None or reduce_kinds):
         raise NotImplementedError(
             "filter_mask, additive, sort_keys, count_threshold and reductions "
             "are not ported yet (ROADMAP item 8)"
         )
+    if use_pallas is None:
+        use_pallas = on_cuda(post_docs)
+    R = term_offsets.shape[1]
+    if use_pallas:
+        alt = R * run_len >= ALT_MIN_WIDTH
+        MERGE_BRANCH["alt" if alt else "plain"] += 1
+        docs, contribs = gather_runs_accel(
+            post_docs, post_impacts, term_offsets, term_lengths, term_weights,
+            run_len, alternating=alt,
+        )
+        if not alt:
+            docs, contribs = merge_sorted_runs(docs, contribs)
+            return _finish(docs, contribs, n_terms, k, require_all_terms, max_seg=R)
+        docs, contribs = bitonic_merge.merge_sorted_runs_alt(docs, contribs)
+        masked = finish_mask(docs, contribs, n_terms, R, require_all_terms)
+        total_hits = (masked > float("-inf")).sum(dim=-1, dtype=torch.int32)
+        top_scores, pos = _hierarchical_topk(masked, k)
+        return top_scores, torch.gather(docs, 1, pos), total_hits
     docs, contribs = gather_runs(
         post_docs, post_impacts, term_offsets, term_lengths, term_weights, run_len
     )
     docs, contribs = merge_sorted_runs(docs, contribs)
-    return _finish(docs, contribs, n_terms, k, require_all_terms,
-                   max_seg=term_offsets.shape[1])
+    return _finish(docs, contribs, n_terms, k, require_all_terms, max_seg=R)
 
 
 def _hierarchical_topk(masked: torch.Tensor, k: int):
@@ -291,12 +388,7 @@ def _hierarchical_topk(masked: torch.Tensor, k: int):
 
 def _finish(docs, contribs, n_terms, k: int, require_all_terms: bool,
             max_seg: int):
-    seg_scores, seg_counts, tail, valid = segmented_scores(docs, contribs, max_seg)
-    ok = tail & valid & (seg_scores > 0.0)
-    if require_all_terms:
-        ok = ok & (seg_counts >= n_terms[:, None])
-    masked = torch.where(ok, seg_scores, float("-inf"))
+    masked = finish_mask_twin(docs, contribs, n_terms, max_seg, require_all_terms)
     top_scores, pos = topk_lowest_index(masked, k)
-    top_docs = torch.gather(docs, 1, pos)
-    total_hits = ok.sum(dim=-1, dtype=torch.int32)
-    return top_scores, top_docs, total_hits
+    total_hits = (masked > float("-inf")).sum(dim=-1, dtype=torch.int32)
+    return top_scores, torch.gather(docs, 1, pos), total_hits

@@ -6,7 +6,8 @@ when torch sees no CUDA card (the CPU tier-1 run). On a machine with an H100:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Kernel outputs must be bit-equal to the twins: the network, the tie rule
-and the copy are the same arithmetic-free operations on both.
+and the copy are the same arithmetic-free operations on both, the gather's
+one multiply and the finish scan's adds run in the twins' order.
 """
 
 import numpy as np
@@ -127,3 +128,126 @@ def test_dense_fused_cuda_matches_cpu(cuda_device):
     np.testing.assert_array_equal(gpu[1], cpu[1])
     np.testing.assert_array_equal(gpu[2], cpu[2])
     np.testing.assert_allclose(gpu[0], cpu[0], rtol=1e-6)
+
+
+def _postings(rng, P, max_doc):
+    docs = np.zeros(P + 16384, np.int32)
+    docs[:P] = np.sort(rng.integers(0, max_doc, P))
+    imps = np.zeros(P + 16384, np.float32)
+    imps[:P] = rng.random(P, dtype=np.float32)
+    return torch.from_numpy(docs), torch.from_numpy(imps)
+
+
+def _tables(rng, B, R, run_len, P):
+    offs = rng.integers(0, P - run_len, (B, R)).astype(np.int32)
+    lens = rng.integers(0, run_len + 1, (B, R)).astype(np.int32)
+    w = rng.random((B, R), dtype=np.float32) + 0.5
+    w[0, 1] = 0.0
+    w[B - 1] = 0.0          # a row with no runs
+    return [torch.from_numpy(a) for a in (offs, lens, w)]
+
+
+@pytest.mark.parametrize("run_len", [1024, 65536])
+@pytest.mark.parametrize("alternating", [False, True])
+def test_gather_runs_kernel_equals_twin(cuda_device, run_len, alternating):
+    rng = np.random.default_rng(run_len + alternating)
+    P = 4 * run_len
+    docs, imps = _postings(rng, P, 10 * P)
+    tabs = _tables(rng, 5, 8, run_len, P)
+    kernels.reset_launch_counts()
+    gd, gc = ms.gather_runs_accel(docs.to(cuda_device), imps.to(cuda_device),
+                                  *[t.to(cuda_device) for t in tabs], run_len, alternating)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gather_runs"] == 1
+    cd, cc = ms.gather_runs_twin(docs, imps, *tabs, run_len, alternating)
+    assert torch.equal(gd.cpu(), cd)
+    assert torch.equal(gc.cpu().view(torch.int32), cc.view(torch.int32))
+
+
+@pytest.mark.parametrize("m", [0, 1 << 16, 1 << 17])
+def test_far_pair_stage_kernel_equals_twin(cuda_device, m):
+    rng = np.random.default_rng(m + 1)
+    N = 1 << 18
+    docs = torch.from_numpy(rng.integers(0, 300, size=(3, N)).astype(np.int32))
+    docs[1, ::3] = HIGH
+    contribs = torch.from_numpy(rng.random((3, N), dtype=np.float32))
+    d = m // 2 if m else N // 2
+    gd, gc = docs.to(cuda_device), contribs.to(cuda_device)
+    bm.far_pair_stage(gd, gc, d, m)
+    bm.far_pair_stage_twin(docs, contribs, d, m)
+    assert torch.equal(gd.cpu(), docs)
+    assert torch.equal(gc.cpu(), contribs)
+
+
+@pytest.mark.parametrize("R,L", [(2, 1 << 16), (8, 1 << 14), (4, 1 << 17), (32, 4096)])
+def test_merge_sorted_runs_alt_kernels_equal_twin(cuda_device, R, L):
+    rng = np.random.default_rng(R * L + 3)
+    docs, contribs = _runs(rng, 3, R, L)
+    docs[:, 1::2] = torch.flip(docs[:, 1::2], dims=(-1,))
+    contribs[:, 1::2] = torch.flip(contribs[:, 1::2], dims=(-1,))
+    kernels.reset_launch_counts()
+    gd, gc = bm.merge_sorted_runs_alt(docs.to(cuda_device), contribs.to(cuda_device))
+    torch.cuda.synchronize()
+    if R * L >= 4 * bm.NEAR_TILE:
+        assert kernels.LAUNCHES["far_pair_stage"] > 0
+    cd, cc = bm.merge_sorted_runs_alt(docs.clone(), contribs.clone())
+    assert torch.equal(gd.cpu(), cd)
+    assert torch.equal(gc.cpu().view(torch.int32), cc.view(torch.int32))
+    assert bool((cd[:, 1:] >= cd[:, :-1]).all())
+
+
+@pytest.mark.parametrize("R,N", [(2, 1024), (8, 1024), (64, 1024), (2, 1 << 17),
+                                 (8, 1 << 17), (64, 1 << 17), (1024, 1 << 17)])
+@pytest.mark.parametrize("require_all", [False, True])
+def test_finish_mask_kernel_equals_twin(cuda_device, R, require_all, N):
+    docs, contribs = _runs(np.random.default_rng(R + N), 4, R, N // R)
+    md, mc = ms.merge_sorted_runs(docs, contribs)
+    n_terms = torch.tensor([2, 1, 3, 1], dtype=torch.int32)
+    out = ms.finish_mask(md.to(cuda_device), mc.to(cuda_device),
+                         n_terms.to(cuda_device), R, require_all)
+    ref = ms.finish_mask_twin(md, mc, n_terms, R, require_all)
+    assert torch.equal(out.cpu().view(torch.int32), ref.view(torch.int32))
+    assert bool(torch.isfinite(ref).any())
+
+
+@pytest.mark.parametrize("run_len", [4096, 65536])
+@pytest.mark.parametrize("require_all", [False, True])
+def test_merge_score_topk_cuda_equals_cpu_accel_branch(cuda_device, run_len, require_all):
+    """The accelerator branch on the card (its default for CUDA postings)
+    against the same branch on the CPU (twins): widths 8 x 4096 (plain
+    network) and 8 x 65536 (alternating), bit-equal."""
+    rng = np.random.default_rng(run_len + require_all)
+    P = 3 * run_len
+    docs, imps = _postings(rng, P, P // 2)
+    tabs = _tables(rng, 4, 8, run_len, P)
+    n_terms = torch.tensor([2, 3, 1, 1], dtype=torch.int32)
+    kw = dict(run_len=run_len, k=100, require_all_terms=require_all)
+    before = dict(ms.MERGE_BRANCH)
+    kernels.reset_launch_counts()
+    g = ms.merge_score_topk(docs.to(cuda_device), imps.to(cuda_device),
+                            *[t.to(cuda_device) for t in tabs], n_terms.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    alt = 8 * run_len >= ms.ALT_MIN_WIDTH
+    assert ms.MERGE_BRANCH["alt" if alt else "plain"] == before["alt" if alt else "plain"] + 1
+    assert kernels.LAUNCHES["gather_runs"] == 1
+    assert kernels.LAUNCHES["finish_mask"] == (1 if alt else 0)
+    c = ms.merge_score_topk(docs, imps, *tabs, n_terms, use_pallas=True, **kw)
+    assert torch.equal(g[0].cpu().view(torch.int32), c[0].view(torch.int32))
+    assert torch.equal(g[2].cpu(), c[2])
+    fin = torch.isfinite(c[0])
+    assert torch.equal(g[1].cpu()[fin], c[1][fin])
+
+
+def test_accel_wrappers_refuse_bad_inputs(cuda_device):
+    docs = torch.zeros((2, 1 << 16), dtype=torch.int32, device=cuda_device)
+    contribs = torch.zeros((2, 1 << 16), device=cuda_device)
+    n_terms = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.finish_mask(docs, contribs, n_terms, 1 << 15, True)
+    with pytest.raises(TypeError):
+        kernels.finish_mask(docs, contribs, n_terms.long(), 8, True)
+    with pytest.raises(ValueError):
+        bm.far_pair_stage(docs, contribs, 1024)               # d/2 < tile
+    offs = torch.zeros((2, 4), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(TypeError):
+        kernels.gather_runs(docs[0], contribs[0], offs, offs.int(), contribs[:, :4], 1024)
