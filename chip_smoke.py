@@ -27,6 +27,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 6. the answers against an independent numpy BM25 of the same corpus.
 7. ingest ~2,000 text docs through IndexWriter on the card and on the CPU;
    merge results bit-equal, fused results within 1e-6 relative.
+8. the bucket path (NRT_FAST_PATH=bucket for this phase only) on the same
+   index: gather_pack and sort_finish against their plain versions at the
+   first B=32 batch's plan, bit-equal, CUDA-event times; the 8 singles and
+   4 batches of phase 5 through the merge path (timed), then, with the
+   launch counters reset just before and read just after, through the
+   bucket path: every spec must be served there and both kernels must
+   launch. Answers against the merge path's: equal hit counts, scores
+   within one quantum (1 / scale) per query term, docs equal up to
+   near-ties at the k-th score. p50 at B=1 and B=32 of both paths and the
+   bucket phase's peak device memory.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -66,7 +76,13 @@ KERNEL_SOURCES = {
                     "nrtsearch_tpu/ops/pallas_merge.py:317"),
     "finish_mask": ("nrtsearch_tpu_torch/csrc/finish_mask.cu",
                     "nrtsearch_tpu/ops/pallas_merge.py:450"),
+    "gather_pack": ("nrtsearch_tpu_torch/csrc/gather_pack.cu",
+                    "nrtsearch_tpu/ops/bucket_retrieval.py:293"),
+    "sort_finish": ("nrtsearch_tpu_torch/csrc/bucket_finish.cu",
+                    "nrtsearch_tpu/ops/bucket_retrieval.py:418"),
 }
+# the kernels of phase 8's bucket path; phase 5 drives the others
+BUCKET_KERNELS = ("gather_pack", "sort_finish")
 
 
 def log(msg: str) -> None:
@@ -493,6 +509,19 @@ def _ingest_docs(n: int) -> list[dict]:
     return docs
 
 
+def _with_path(path: str, fn):
+    """Run ``fn()`` with NRT_FAST_PATH set to ``path``, then restore it."""
+    saved = os.environ.get("NRT_FAST_PATH")
+    os.environ["NRT_FAST_PATH"] = path
+    try:
+        return fn()
+    finally:
+        if saved is None:
+            os.environ.pop("NRT_FAST_PATH", None)
+        else:
+            os.environ["NRT_FAST_PATH"] = saved
+
+
 def phase_ingest(dev, n_docs: int = 2000) -> dict:
     """IndexWriter -> refresh on the card and on the CPU; search both."""
     from nrtsearch_tpu_torch.core.searcher import Searcher
@@ -511,49 +540,188 @@ def phase_ingest(dev, n_docs: int = 2000) -> dict:
         searchers[name] = Searcher(w.refresh(), fds)
     from nrtsearch_tpu_torch.ops.merge_scoring import MERGE_BRANCH
 
-    checked = 0
-    saved = os.environ.get("NRT_FAST_PATH")
-    try:
-        for path in ("merge", "fused"):
-            os.environ["NRT_FAST_PATH"] = path
-            for qname, (text, op) in INGEST_QUERIES.items():
-                node = _match(text.split(), op)
-                alt0 = MERGE_BRANCH["alt"]
-                g = searchers["gpu"].search(node, 50)
-                c = searchers["cpu"].search(node, 50)
-                ctx = f"ingest {qname}/{path}"
-                gd = [h.global_ord for h in g.hits]
-                cd = [h.global_ord for h in c.hits]
-                gs = np.array([h.score for h in g.hits], np.float32)
-                cs = np.array([h.score for h in c.hits], np.float32)
-                if (g.total_hits, g.relation) != (c.total_hits, c.relation) or not gd:
-                    raise AssertionError(f"{ctx}: hits {g.total_hits} vs {c.total_hits}")
-                if path == "merge":
-                    # the card runs the accelerator branch (unclamped gather),
-                    # the CPU the plain branch (clamping gather): bit-equal
-                    # only because these widths stay below ALT_MIN_WIDTH, so
-                    # both use the plain network, and no run clamps (the
-                    # packed postings carry 2 * 8192 entries of slack)
-                    if MERGE_BRANCH["alt"] != alt0:
-                        raise AssertionError(f"{ctx}: took the alternating branch")
-                    if gd != cd or not np.array_equal(gs, cs):
-                        raise AssertionError(f"{ctx}: cuda and cpu differ")
-                else:
-                    if len(gd) != len(cd) or np.max(np.abs(gs - cs) / cs) > CPU_GPU_FUSED_REL:
-                        raise AssertionError(f"{ctx}: scores differ beyond 1e-6")
-                    for i, (a, b) in enumerate(zip(gd, cd)):
-                        if a != b and abs(gs[i] - cs[i]) > CPU_GPU_FUSED_REL * cs[i]:
-                            raise AssertionError(f"{ctx}: doc {a} != {b} at rank {i}")
-                checked += 1
-    finally:
-        if saved is None:
-            os.environ.pop("NRT_FAST_PATH", None)
-        else:
-            os.environ["NRT_FAST_PATH"] = saved
+    def check(path: str) -> int:
+        for qname, (text, op) in INGEST_QUERIES.items():
+            node = _match(text.split(), op)
+            alt0 = MERGE_BRANCH["alt"]
+            g = searchers["gpu"].search(node, 50)
+            c = searchers["cpu"].search(node, 50)
+            ctx = f"ingest {qname}/{path}"
+            gd = [h.global_ord for h in g.hits]
+            cd = [h.global_ord for h in c.hits]
+            gs = np.array([h.score for h in g.hits], np.float32)
+            cs = np.array([h.score for h in c.hits], np.float32)
+            if (g.total_hits, g.relation) != (c.total_hits, c.relation) or not gd:
+                raise AssertionError(f"{ctx}: hits {g.total_hits} vs {c.total_hits}")
+            if path == "merge":
+                # the card runs the accelerator branch (unclamped gather),
+                # the CPU the plain branch (clamping gather): bit-equal
+                # only because these widths stay below ALT_MIN_WIDTH, so
+                # both use the plain network, and no run clamps (the
+                # packed postings carry 2 * 8192 entries of slack)
+                if MERGE_BRANCH["alt"] != alt0:
+                    raise AssertionError(f"{ctx}: took the alternating branch")
+                if gd != cd or not np.array_equal(gs, cs):
+                    raise AssertionError(f"{ctx}: cuda and cpu differ")
+            else:
+                if len(gd) != len(cd) or np.max(np.abs(gs - cs) / cs) > CPU_GPU_FUSED_REL:
+                    raise AssertionError(f"{ctx}: scores differ beyond 1e-6")
+                for i, (a, b) in enumerate(zip(gd, cd)):
+                    if a != b and abs(gs[i] - cs[i]) > CPU_GPU_FUSED_REL * cs[i]:
+                        raise AssertionError(f"{ctx}: doc {a} != {b} at rank {i}")
+        return len(INGEST_QUERIES)
+
+    checked = sum(_with_path(path, lambda: check(path)) for path in ("merge", "fused"))
     return {"docs": n_docs, "queries_checked": checked}
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the bucket path
+# ---------------------------------------------------------------------------
+
+
+def _timed_searches(searcher, singles, batches, reps: int = 3) -> dict:
+    lat1, lat32 = [], []
+    single_out = batch_out = None
+    for _ in range(reps):
+        single_out = []
+        for q in singles:
+            t = time.perf_counter()
+            single_out.append(searcher.search(_match(q), TOP_K))
+            lat1.append(time.perf_counter() - t)
+        batch_out = []
+        for qs in batches:
+            t = time.perf_counter()
+            specs = [searcher.fast_query_spec(_match(q)) for q in qs]
+            batch_out.append(searcher.fast_search_batch(specs, TOP_K))
+            lat32.append(time.perf_counter() - t)
+    return {"single_out": single_out, "batch_out": batch_out, "lat1": lat1, "lat32": lat32}
+
+
+def phase_bucket_kernels(dev, view, specs) -> dict:
+    """gather_pack and sort_finish against their plain versions at the plan
+    the bucket path makes for ``specs``."""
+    from nrtsearch_tpu_torch.ops import bucket_retrieval as br
+
+    plan = view.bucket_plan(specs)
+    if plan is None or plan["live"] is None:
+        raise AssertionError("the bucket path refused the first B=32 batch")
+    docs, imps = view.index.doc_ids, view.index.impacts
+    toffs, bounds, wts, n_terms = (torch.as_tensor(plan[k], device=dev) for k in
+                                   ("term_offs", "bounds", "weights", "n_terms"))
+    B, T, m1 = bounds.shape
+    tile, bits = plan["tile"], plan["bits"]
+    stats = {}
+    log(f"bucket plan: first B={B} batch -> T={T} slots, m={m1 - 1} buckets of "
+        f"{1 << bits} docs, tile {tile} (keys {B * (m1 - 1) * tile * 4 / 2**20:.0f} MiB)")
+    args = (docs, imps, toffs, bounds, wts)
+    keys = br.gather_pack(*args, tile=tile, bucket_bits=bits)
+    plain = br.gather_pack_plain(*args, tile=tile, bucket_bits=bits)
+    if not _bits_equal(keys, plain):
+        raise AssertionError("gather_pack differs from its plain version")
+    live = int((keys != int(br.I32_SENT)).sum())
+    ms = cuda_ms(lambda: br.gather_pack(*args, tile=tile, bucket_bits=bits))
+    plain_ms = cuda_ms(lambda: br.gather_pack_plain(*args, tile=tile, bucket_bits=bits))
+    stats["gather_pack"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                            "shape": [B, T, m1 - 1, tile]}
+    log(f"kernel gather_pack B={B} T={T} m={m1 - 1} tile={tile}: bit-equal "
+        f"({live} postings packed); {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    del plain
+    need = torch.randint(1, 3, (B,), device=dev, dtype=torch.int32)
+    for require_all, nt in ((False, n_terms), (True, need)):
+        kw = dict(max_seg=T, m=m1 - 1, bucket_bits=bits, require_all=require_all)
+        rank = br.sort_finish(keys, nt, **kw)
+        ref = br.sort_finish_plain(keys, nt, m=m1 - 1, bucket_bits=bits,
+                                   require_all=require_all)
+        if not _bits_equal(rank, ref):
+            raise AssertionError(f"sort_finish differs from its plain version, "
+                                 f"require_all={require_all}")
+        if not bool((rank != int(br.I32_MIN)).any()):
+            raise AssertionError("sort_finish kept no doc of the batch")
+    kw = dict(m=m1 - 1, bucket_bits=bits, require_all=False)
+    ms = cuda_ms(lambda: br.sort_finish(keys, n_terms, max_seg=T, **kw))
+    plain_ms = cuda_ms(lambda: br.sort_finish_plain(keys, n_terms, **kw))
+    stats["sort_finish"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                            "shape": [B * (m1 - 1), tile, 1 << bits]}
+    log(f"kernel sort_finish [{B * (m1 - 1)}, {tile}] -> [{B}, {(m1 - 1) << bits}]: "
+        f"bit-equal (require_all both ways); {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return stats
+
+
+def _check_bucket_answer(b, mres, tol: float, ctx: str) -> float:
+    """Bucket TopDocs against merge TopDocs: equal hit counts, scores of a
+    doc in both within ``tol``, a doc in one top-k only within ``tol`` of
+    the other's k-th score. Returns the worst score difference."""
+    if b.total_hits != mres.total_hits or b.relation != mres.relation:
+        raise AssertionError(f"{ctx}: bucket hits {b.total_hits} vs merge {mres.total_hits}")
+    bs = {h.global_ord: h.score for h in b.hits}
+    ms = {h.global_ord: h.score for h in mres.hits}
+    if len(bs) != len(ms):
+        raise AssertionError(f"{ctx}: {len(bs)} bucket hits returned vs {len(ms)}")
+    worst = 0.0
+    for d in bs.keys() & ms.keys():
+        worst = max(worst, abs(bs[d] - ms[d]))
+        if abs(bs[d] - ms[d]) > tol:
+            raise AssertionError(f"{ctx}: doc {d} bucket {bs[d]} vs merge {ms[d]}")
+    b_kth = b.hits[-1].score if b.hits else 0.0
+    m_kth = mres.hits[-1].score if mres.hits else 0.0
+    for d in bs.keys() - ms.keys():
+        if bs[d] > m_kth + tol:
+            raise AssertionError(f"{ctx}: doc {d} only in the bucket top-k")
+    for d in ms.keys() - bs.keys():
+        if ms[d] > b_kth + tol:
+            raise AssertionError(f"{ctx}: doc {d} only in the merge top-k")
+    return worst
+
+
+def phase_bucket(dev, searcher, singles, batches, card: str) -> dict:
+    from nrtsearch_tpu_torch import kernels
+
+    view = searcher.packed_view("body")
+    t = time.perf_counter()
+    st = view._bucket_state()
+    torch.cuda.synchronize()
+    log(f"bucket state: {len(st['bounds'])} runs x {st['m'] + 1} bounds "
+        f"({st['bounds'].nbytes / 2**20:.1f} MiB on the host) in "
+        f"{time.perf_counter() - t:.2f} s")
+    stats = phase_bucket_kernels(
+        dev, view, [searcher.fast_query_spec(_match(q)) for q in batches[0]])
+    torch.cuda.empty_cache()
+
+    merge = _with_path("merge", lambda: _timed_searches(searcher, singles, batches))
+    paths0 = dict(view.path_counts)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    bucket = _with_path("bucket", lambda: _timed_searches(searcher, singles, batches))
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in BUCKET_KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    paths = {k: view.path_counts[k] - paths0[k] for k in paths0}
+    n_specs = 3 * (len(singles) + sum(len(b) for b in batches))
+    log(f"bucket: launches {launches}; specs by path {paths}")
+    if paths["bucket"] != n_specs or paths["merge"] or paths["fused"]:
+        raise AssertionError(f"every bucket-phase spec must take the bucket path: {paths}")
+    if not all(launches.values()):
+        raise AssertionError(f"bucket kernels not launched: {launches}")
+
+    worst = 0.0
+    pairs = list(zip(singles, bucket["single_out"], merge["single_out"]))
+    for qs, bo, mo in zip(batches, bucket["batch_out"], merge["batch_out"]):
+        pairs += list(zip(qs, bo, mo))
+    for q, b, mres in pairs:
+        spec = searcher.fast_query_spec(_match(q))
+        scale = float(view.bucket_plan([spec])["scales"][0])
+        worst = max(worst, scale * _check_bucket_answer(
+            b, mres, len(q) / scale, f"bucket {q}"))
+    p50 = {name: (1e3 * float(np.median(r["lat1"])), 1e3 * float(np.median(r["lat32"])))
+           for name, r in (("merge", merge), ("bucket", bucket))}
+    log(f"bucket: {len(pairs)} answers against the merge path: hits equal, worst score "
+        f"difference {worst:.3f} quanta (bound: 1 per query term)")
+    log(f"bucket: p50 B=1 {p50['bucket'][0]:.2f} ms (merge {p50['merge'][0]:.2f}), "
+        f"B=32 {p50['bucket'][1]:.2f} ms (merge {p50['merge'][1]:.2f}); n = "
+        f"{len(bucket['lat1'])} / {len(bucket['lat32'])}; peak device memory "
+        f"{peak / 2**30:.3f} GiB | {card}")
+    return {"stats": stats, "launches": launches}
 
 
 def main() -> int:
@@ -609,7 +777,8 @@ def main() -> int:
     log(f"search: specs by path {res['paths']}; host syncs window {syncs[0]}, "
         f"hierarchical_topk {syncs[1]}; window branch {dense_fused.WINDOW_BRANCH}; "
         f"merge branch {branches}")
-    missing = [k for k in KERNEL_SOURCES if launches.get(k, 0) == 0]
+    missing = [k for k in KERNEL_SOURCES
+               if k not in BUCKET_KERNELS and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     if res["paths"]["fused"] == 0 or res["paths"]["merge"] == 0:
@@ -631,6 +800,11 @@ def main() -> int:
     ing = phase_ingest(dev)
     log(f"ingest: {ing['docs']} docs, {ing['queries_checked']} queries; merge bit-equal, "
         f"fused within {CPU_GPU_FUSED_REL} between cuda and cpu")
+
+    # 8. the bucket path
+    bucket = phase_bucket(dev, searcher, singles, batches, card)
+    stats.update(bucket["stats"])
+    launches.update(bucket["launches"])
 
     table = []
     for name, (src, replaces) in KERNEL_SOURCES.items():

@@ -7,7 +7,8 @@ branch when the postings live on CUDA (``use_pallas``, as the reference sets
 it on its TPU). MaxScore pruning
 (``prune=True``: the theta dispatch, the term split, the probe and the
 window certificate) is not ported; the reference's serving default
-(NRT_MAXSCORE=0) never asks for it.
+(NRT_MAXSCORE=0) never asks for it. ``split_rows`` serves the bucket path's
+per-run bucket bounds (``PackedFieldView._bucket_state``).
 """
 
 from __future__ import annotations
@@ -89,6 +90,38 @@ class PrunedIndex:
     @property
     def device(self) -> torch.device:
         return self.doc_ids.device
+
+    def split_rows(self, offsets, lengths, boundaries) -> np.ndarray:
+        """Per-run doc-boundary split offsets by bisection on the device.
+
+        ``offsets`` / ``lengths``: the runs (the reference takes a list of
+        (offset, length, weight) tuples and ignores the weight);
+        ``boundaries``: ascending doc ids [C-1]. Returns int32 [R, C+1]
+        run-relative split points ([:, 0] = 0, [:, -1] = length): chunk c of
+        run r is [splits[r, c], splits[r, c+1]). Postings are doc-sorted per
+        run, so 32 vectorized bisection steps over [R, C-1] gathers find
+        every run's first posting at or past each boundary; one host pull."""
+        lens_np = np.asarray(lengths, np.int64)
+        R, C1 = len(lens_np), len(boundaries)
+        out = np.zeros((R, C1 + 2), np.int32)
+        if R == 0:
+            return out
+        dev = self.device
+        offs = torch.as_tensor(np.asarray(offsets, np.int64), device=dev)[:, None]
+        lens = torch.as_tensor(lens_np, device=dev)[:, None]
+        bounds = torch.as_tensor(np.asarray(boundaries, np.int64), device=dev)[None, :]
+        lo = torch.zeros((R, C1), dtype=torch.int64, device=dev)
+        hi = lens.expand(R, C1).clone()
+        last = torch.clamp(lens - 1, min=0)
+        for _ in range(32):
+            mid = (lo + hi) >> 1
+            v = self.doc_ids[offs + torch.minimum(mid, last)]
+            go_right = (v < bounds) & (mid < hi)
+            lo = torch.where(go_right, mid + 1, lo)
+            hi = torch.where(go_right, hi, mid)
+        out[:, 1:-1] = lo.cpu().numpy()
+        out[:, -1] = lens_np
+        return out
 
     def _dispatch(self, rows, n_terms, k: int, require_all: bool):
         """One merge_score_topk dispatch over planned run tables; returns

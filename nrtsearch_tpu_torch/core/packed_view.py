@@ -10,8 +10,11 @@ Path choice mirrors the reference: ``NRT_FAST_PATH`` picks it; by default
 the fused dense path (``dense_search_batch``) serves when the index tensors
 live on CUDA (the reference serves it on its accelerator) and the exact
 merge path (``PrunedIndex.search``) on the CPU. Specs the fused path refuses
-go to the merge path, exactly as in the reference. The bucket path and flat
-reductions are not ported yet.
+go to the merge path, exactly as in the reference. ``NRT_FAST_PATH=bucket``
+(or ``NRT_BUCKET=1``) sends plain text batches to the bucket-local path
+(``bucket_search_batch``, ops/bucket_retrieval.py) after the fused attempt
+and before the merge path, as the reference routes it; its scores are
+15-bit quantized. Flat reductions are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ import torch
 
 from nrtsearch_tpu_torch.device import on_cuda
 from nrtsearch_tpu_torch.ops.bm25 import lucene_idf
+from nrtsearch_tpu_torch.ops.bucket_retrieval import (
+    MIN_TILE, QMAX, bucket_search_topk, decode_topk,
+)
 from nrtsearch_tpu_torch.ops.merge_scoring import _pow2
 
 # tail slack of the packed postings: a run gather near the end never clamps
@@ -78,7 +84,7 @@ class PackedFieldView:
         self._dense_build_lock = threading.Lock()
         self._dense_st = None
         # specs served per path over this view's lifetime (reporting)
-        self.path_counts = {"fused": 0, "merge": 0}
+        self.path_counts = {"fused": 0, "bucket": 0, "merge": 0}
 
         run_off_parts, run_len_parts = [], []
         # (segment_idx, tfi, run_index_base) for term lookups
@@ -125,6 +131,137 @@ class PackedFieldView:
                         runs.append(run_base + tid)
             out.append((term, w, runs))
         return out
+
+    # -- bucket-local path (opt-in) ---------------------------------------------
+
+    _BUCKET_MAX_SLOTS = 16
+    _BUCKET_DOCS = 16384
+
+    def _bucket_state(self):
+        """Per-run bucket split offsets for the bucket-local kernels: one
+        bisection over every (run, bucket boundary) pair on the device
+        (``PrunedIndex.split_rows``). Cached per view."""
+        st = getattr(self, "_bucket_st", None)
+        if st is not None:
+            return st
+        bits = self._BUCKET_DOCS.bit_length() - 1
+        m = max(1, _pow2(self.max_doc) // self._BUCKET_DOCS)
+        offs = self.index.run_offsets
+        lens = self.index.run_lengths
+        bounds = np.zeros((len(offs), m + 1), np.int32)
+        if m > 1 and len(offs):
+            boundaries = np.arange(1, m, dtype=np.int64) * self._BUCKET_DOCS
+            bounds[:, 1:-1] = self.index.split_rows(offs, lens, boundaries)[:, 1:-1]
+        bounds[:, -1] = lens
+        st = {"bounds": bounds, "bits": bits, "m": m, "ub": self.index.run_ub}
+        self._bucket_st = st
+        return st
+
+    def bucket_plan(self, specs: Sequence[QuerySpec]):
+        """Host planning of one batch for the bucket path, line for line the
+        reference's (packed_view.py:192-260) except that the quantization
+        scale bounds every query term. Returns None when a spec needs
+        another path (more runs than the slot budget, or a batch that mixes
+        AND and OR), else a dict: per-query ``live`` flags, the [B, T]
+        ``term_offs`` / ``weights``, [B, T, m+1] ``bounds``, ``n_terms``,
+        ``scales``, ``tile``, ``bits``, ``require_all``. ``live`` is None
+        when every spec is a dead conjunction."""
+        if self.total_len == 0:
+            return None
+        st = self._bucket_state()
+        m = st["m"]
+        B = len(specs)
+        run_lengths = self.index.run_lengths
+        per_q: list = []
+        for spec in specs:
+            # filter / additive / sort specs refuse here once QuerySpec
+            # carries those columns (ROADMAP item 8)
+            entries = self.term_entries(spec.terms, spec.boost)
+            if spec.require_all and any(not runs for _, _, runs in entries):
+                per_q.append(None)   # dead: a required term matches nothing
+                continue
+            slots = [(r, w, e) for e, (_, w, runs) in enumerate(entries) if w
+                     for r in runs if run_lengths[r]]
+            if len(slots) > self._BUCKET_MAX_SLOTS:
+                return None
+            n_distinct = len(spec.terms) if spec.require_all else 1
+            per_q.append((slots, spec.require_all, n_distinct))
+        if all(q is None for q in per_q):
+            return {"live": None}
+        req_all = any(q is not None and q[1] for q in per_q)
+        if req_all and not all(q is None or q[1] for q in per_q):
+            return None   # mixed AND/OR batch: one require_all flag per launch
+
+        T = max(1, max(len(q[0]) for q in per_q if q is not None))
+        term_offs = np.zeros((B, T), np.int32)
+        runs = np.full((B, T), -1, np.int64)
+        weights = np.zeros((B, T), np.float32)
+        n_terms = np.ones(B, np.int32)
+        scales = np.ones(B, np.float32)
+        run_offsets = self.index.run_offsets
+        for qi, q in enumerate(per_q):
+            if q is None:
+                continue
+            slots, _ra, n_distinct = q
+            # slot order: heaviest run first
+            slots = sorted(slots, key=lambda s: -int(run_lengths[s[0]]))
+            # quantization scale from per-term bounds (a doc is in at most
+            # one run of a term). The reference keys the bounds by weight
+            # alone, so a repeated term or two terms of equal idf share one
+            # bound and their sums clip at QMAX; keyed by (term, weight) each
+            # query term keeps its own (ROADMAP §3), summed in the same order
+            by_term: dict[tuple[int, float], float] = {}
+            for r, w, e in slots:
+                by_term[e, w] = max(by_term.get((e, w), 0.0), float(st["ub"][r]))
+            smax = sum(w * ub for (_e, w), ub in by_term.items())
+            scale = QMAX / smax if smax > 0 else 1.0
+            scales[qi] = scale
+            n_terms[qi] = n_distinct
+            for ti, (r, w, _e) in enumerate(slots):
+                term_offs[qi, ti] = int(run_offsets[r])
+                runs[qi, ti] = r
+                weights[qi, ti] = w * scale
+        bounds = np.where((runs >= 0)[..., None], st["bounds"][np.maximum(runs, 0)], 0)
+        bounds = bounds.astype(np.int32)
+        lens = bounds[:, :, 1:] - bounds[:, :, :-1]
+        tile = _pow2(int(lens.sum(axis=1).max()), MIN_TILE)
+        return {
+            "live": [q is not None for q in per_q], "term_offs": term_offs,
+            "bounds": bounds, "weights": weights, "n_terms": n_terms,
+            "scales": scales, "tile": tile, "bits": st["bits"],
+            "require_all": req_all,
+        }
+
+    def bucket_search_batch(self, specs: Sequence[QuerySpec], k: int):
+        """Plain text queries on the bucket-local path
+        (ops/bucket_retrieval.py): per (query, bucket) gather + pack, per-doc
+        integer sums and mask, lowest-doc top-k over int32 rank keys. Scores
+        are 15-bit quantized on the query's largest possible score; docs and
+        hit counts are exact over the quantized scores. Returns None when
+        the batch needs the merge path (``bucket_plan``)."""
+        plan = self.bucket_plan(specs)
+        if plan is None:
+            return None
+        if plan["live"] is None:
+            return [_empty(k) for _ in specs]
+        dev = self.index.device
+
+        def t(x):
+            return torch.as_tensor(x, device=dev)
+
+        tk, td, hits = bucket_search_topk(
+            self.index.doc_ids, self.index.impacts, t(plan["term_offs"]),
+            t(plan["bounds"]), t(plan["weights"]), t(plan["n_terms"]),
+            tile=plan["tile"], bucket_bits=plan["bits"], k=k,
+            require_all=plan["require_all"],
+        )
+        scores, docs = decode_topk(tk.cpu().numpy(), td.cpu().numpy(), plan["scales"])
+        hits = hits.cpu().numpy()
+        return [
+            FastResult(scores[qi], docs[qi].astype(np.int64), int(hits[qi]), False)
+            if live else _empty(k)
+            for qi, live in enumerate(plan["live"])
+        ]
 
     # -- dense-head + merge-tail fused path ---------------------------------------
 
@@ -342,7 +479,9 @@ class PackedFieldView:
         """Batched search over all segments in one dispatch per path.
 
         ``NRT_FAST_PATH`` picks the path; unset, the fused dense path when
-        the index lives on CUDA and the merge path on the CPU. ``prune=None``
+        the index lives on CUDA and the merge path on the CPU. The bucket
+        path is opt-in (``NRT_FAST_PATH=bucket`` or ``NRT_BUCKET=1``), as in
+        the reference; what it refuses goes to the merge path. ``prune=None``
         reads NRT_MAXSCORE (default off; pruning is not ported)."""
         path = os.environ.get("NRT_FAST_PATH", "")
         if not path:
@@ -354,6 +493,11 @@ class PackedFieldView:
             res = self.dense_search_batch(specs, k)
             if res is not None:
                 self.path_counts["fused"] += len(specs)
+                return res
+        if path == "bucket" or os.environ.get("NRT_BUCKET", "0") == "1":
+            res = self.bucket_search_batch(specs, k)
+            if res is not None:
+                self.path_counts["bucket"] += len(specs)
                 return res
         B = len(specs)
         if self.total_len == 0:
