@@ -10,12 +10,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 2. build: compile the kernels from nrtsearch_tpu_torch/csrc with nvcc.
 3. kernels vs their plain torch twins on the card at main-path shapes
    (gather_rows at Hp=536, D=1,000,064, U in {32, 128}; near_stages and
-   far_stage at B=32, N in 2^15..2^19 with duplicate docs, both sentinels
-   and an all-pad row; the accelerator merge branch on the first B=32
+   far_stage at B=32, N from 2^15 up to the first B=32 batch's width with
+   duplicate docs, both sentinels and an all-pad row, near_stages also with
+   a direction per pair; the accelerator merge branch on the first B=32
    batch of phase 5 as the merge path plans it: gather_runs (alternating),
    the alternating network, finish_mask; far_pair_stage and finish_mask at
-   B=32 and N from 2^15 up to that batch's width): outputs must be
-   bit-equal; CUDA-event times.
+   B=32 and N from 4 near tiles up to that batch's width): outputs must be
+   bit-equal; CUDA-event times at the batch's shapes (the L2 evicted
+   before each timed launch), each beside its bound (bytes over 3.35 TB/s
+   or operations over 67 TFLOP/s, the larger) and, for gather_rows, beside
+   torch.index_select.
 4. index: SyntheticCorpus(1M docs, 100k vocab, 48 draws/doc, seed 42) cut
    into 4 doc-range segments on the card, Searcher.warm builds the dense
    head rows; device memory is printed.
@@ -23,7 +27,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    through fast_search_batch, one conjunction with a tail term (merge
    path). Launch counters are reset just before and read just after; every
    kernel must have launched, and every B=32 batch must have taken the
-   merge path's alternating branch. Latencies at B=1 and B=32.
+   merge path's alternating branch. Latencies at B=1 and B=32; then
+   torch.profiler over one run of the first B=32 batch: device busy time
+   (and its share of the B=32 p50) and the largest device items.
 6. the answers against an independent numpy BM25 of the same corpus.
 7. ingest ~2,000 text docs through IndexWriter on the card and on the CPU;
    merge results bit-equal, fused results within 1e-6 relative.
@@ -35,8 +41,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    bucket path: every spec must be served there and both kernels must
    launch. Answers against the merge path's: equal hit counts, scores
    within one quantum (1 / scale) per query term, docs equal up to
-   near-ties at the k-th score. p50 at B=1 and B=32 of both paths and the
-   bucket phase's peak device memory.
+   near-ties at the k-th score; a query whose plan shares a scale bound
+   between two slots (a repeated term, or two terms of equal weight) can
+   clip at QMAX, as in the reference, and is held to equal hit counts only.
+   p50 at B=1 and B=32 of both paths and the bucket phase's peak device
+   memory.
+
+Launches per main-path batch: the counters around one fast_search_batch
+of the first B=32 batch (merge path), one B=1 query (fused path) and, for
+the bucket kernels, one bucket batch.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -83,6 +96,38 @@ KERNEL_SOURCES = {
 }
 # the kernels of phase 8's bucket path; phase 5 drives the others
 BUCKET_KERNELS = ("gather_pack", "sort_finish")
+# the one PyTorch call that computes a kernel's function, timed beside it
+# (the port never calls it), or why there is none
+LIBRARY = {
+    "gather_rows": "torch.index_select",
+    "near_stages": "none: no torch call runs a fixed compare-exchange network",
+    "far_stage": "none: no torch call runs one compare-exchange stage",
+    "far_pair_stage": "none: no torch call runs two compare-exchange stages",
+    "gather_runs": "none: no torch call gathers ragged runs with a weight",
+    "finish_mask": "none: no torch call runs a bounded segmented scan",
+    "gather_pack": "none: no torch call packs bucket-local keys",
+    "sort_finish": "none: torch.Tensor.index_add_ sums but ignores the count mask",
+}
+# the card's peaks (H100 SXM data sheet): device memory, and the f32 rate
+# outside the tensor cores, at which one compare-exchange or add counts
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+L2_FLUSH_BYTES = 128 << 20   # written before each timed launch: > the 50 MB L2
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what bounds it."""
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / OPS_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _log2(x: int) -> int:
+    return x.bit_length() - 1
+
+
+def scan_steps(max_seg: int) -> int:
+    """The segmented scan's steps: distances 1, 2, 4, ... below max_seg."""
+    return max(0, (max_seg - 1).bit_length())
 
 
 def log(msg: str) -> None:
@@ -100,10 +145,13 @@ def card_line() -> str:
 def cuda_ms(fn, setup=lambda: (), reps: int = 25, warmup: int = 3) -> float:
     """Median of per-launch CUDA-event times of ``fn(*setup())``, in ms;
     ``setup`` (fresh inputs for in-place kernels) runs outside the timed
-    window."""
+    window, then a write of L2_FLUSH_BYTES evicts the L2, so that no launch
+    finds its input (or the copy setup just made) there."""
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     times = []
     for i in range(warmup + reps):
         args = setup()
+        scratch.zero_()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn(*args)
@@ -144,6 +192,17 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
+def _inplace_bytes(docs: torch.Tensor, contribs: torch.Tensor, fn) -> int:
+    """Bytes an in-place compare-exchange pass must move on this input:
+    every doc read once (the compares), and for each entry it changes the
+    contrib read and both written once; a pair that stays needs no
+    contrib."""
+    x, y = docs.clone(), contribs.clone()
+    fn(x, y)
+    changed = (x != docs) | (y.view(torch.int32) != contribs.view(torch.int32))
+    return 4 * docs.numel() + 12 * int(changed.sum())
+
+
 def _abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """Largest |a - b| over entries where either is finite (both -inf
     counts as equal)."""
@@ -153,7 +212,7 @@ def _abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
-def phase_kernels(dev, merge_widths, main_n: int) -> dict:
+def phase_kernels(dev, merge_widths, batch_n: int) -> dict:
     from nrtsearch_tpu_torch.ops import bitonic_merge as bm
     from nrtsearch_tpu_torch.ops import dense_fused
 
@@ -173,11 +232,14 @@ def phase_kernels(dev, merge_widths, main_n: int) -> dict:
             raise AssertionError(f"gather_rows differs from its twin at U={U}")
         ms = cuda_ms(lambda: dense_fused.gather_rows(rows, idx))
         plain = cuda_ms(lambda: dense_fused._gather_rows_scan(rows, idx))
+        lib = cuda_ms(lambda: torch.index_select(rows, 0, idx))
         gbs = 2 * U * D * 2 / (ms * 1e-3) / 1e9
         log(f"kernel gather_rows Hp={Hp} D={D} U={U}: bit-equal; {ms:.4f} ms "
-            f"({gbs:.0f} GB/s moved), twin {plain:.4f} ms")
+            f"({gbs:.0f} GB/s moved), twin {plain:.4f} ms, index_select {lib:.4f} ms")
         if U == 128:
-            stats["gather_rows"].update(ms=ms, plain_ms=plain, shape=[Hp, D, U])
+            # bytes: the U rows read and written (2 B each), the index
+            stats["gather_rows"].update(ms=ms, plain_ms=plain, library_ms=lib,
+                                        shape=[Hp, D, U], bytes=2 * U * D * 2 + 4 * U, ops=0)
     del rows
 
     B = 32
@@ -198,25 +260,51 @@ def phase_kernels(dev, merge_widths, main_n: int) -> dict:
             raise AssertionError(f"merge level differs from its twin at N={N}")
         if not bool((kd[:, 1:] >= kd[:, :-1]).all()):
             raise AssertionError(f"merge level output not sorted at N={N}")
-        # each timed launch gets a fresh copy of the level's input, so the
-        # in-place stages swap as they do on the main path
+        # each timed launch gets a fresh copy of the input the level hands
+        # it (the stages before it applied), so the in-place stages swap as
+        # they do on the main path
         d0 = bm.near_tile(N) // 2
-        far_d = N // 2
+        far_d = bm.near_tile(N)          # the far stage the merge batch runs
+        far_in = (docs.clone(), contribs.clone())
+        d = N // 2
+        while d > far_d:
+            bm.far_stage(*far_in, d)
+            d //= 2
+        near_in = (far_in[0].clone(), far_in[1].clone())
+        bm.far_stage(*near_in, far_d)
+
+        def fresh_far():
+            return far_in[0].clone(), far_in[1].clone()
 
         def fresh():
-            return docs.clone(), contribs.clone()
+            return near_in[0].clone(), near_in[1].clone()
 
         near_ms = cuda_ms(lambda x, y: bm.near_stages(x, y, d0), fresh)
         near_plain = cuda_ms(lambda x, y: bm.near_stages_twin(x, y, d0), fresh)
-        far_ms = cuda_ms(lambda x, y: bm.far_stage(x, y, far_d), fresh)
-        far_plain = cuda_ms(lambda x, y: bm.far_stage_twin(x, y, far_d), fresh)
+        far_ms = cuda_ms(lambda x, y: bm.far_stage(x, y, far_d), fresh_far)
+        far_plain = cuda_ms(lambda x, y: bm.far_stage_twin(x, y, far_d), fresh_far)
         log(f"kernel merge level B={B} N={N}: bit-equal; near_stages(d0={d0}) "
             f"{near_ms:.4f} ms, twin {near_plain:.4f} ms; far_stage(d={far_d}) "
             f"{far_ms:.4f} ms, twin {far_plain:.4f} ms")
-        if N == main_n:
-            stats["near_stages"].update(ms=near_ms, plain_ms=near_plain, shape=[B, N, d0])
-            stats["far_stage"].update(ms=far_ms, plain_ms=far_plain, shape=[B, N, far_d])
-        del docs, contribs, kd, kc, td, tc
+        if N == batch_n:
+            # bytes: _inplace_bytes (docs read, changed entries moved); ops:
+            # one compare-exchange per pair and stage
+            near_b = _inplace_bytes(*near_in, lambda x, y: bm.near_stages(x, y, d0))
+            far_b = _inplace_bytes(*far_in, lambda x, y: bm.far_stage(x, y, far_d))
+            stats["near_stages"].update(ms=near_ms, plain_ms=near_plain, shape=[B, N, d0],
+                                        bytes=near_b, ops=(_log2(d0) + 1) * B * N // 2)
+            stats["far_stage"].update(ms=far_ms, plain_ms=far_plain, shape=[B, N, far_d],
+                                      bytes=far_b, ops=B * N // 2)
+        if N == 1 << 15:
+            # short runs: one direction per pair (m below the tile)
+            for m in (64, 2048):
+                kd, kc = docs.clone(), contribs.clone()
+                bm.near_stages(kd, kc, m // 2, m)
+                td, tc = bm.near_stages_twin(docs.clone(), contribs.clone(), m // 2, m)
+                if not (_bits_equal(kd, td) and _bits_equal(kc, tc)):
+                    raise AssertionError(f"near_stages differs from its twin at m={m}")
+            log(f"kernel near_stages B={B} N={N} m in (64, 2048): bit-equal")
+        del docs, contribs, kd, kc, td, tc, far_in, near_in
     return stats
 
 
@@ -241,7 +329,7 @@ def batch_plan(searcher, queries):
 def phase_accel_kernels(dev, searcher, batch) -> dict:
     """The merge path's accelerator branch, kernels against twins: the
     batch's own gather, network and finish, then far_pair_stage and
-    finish_mask at B=32 and N from 2^15 up to the batch's width."""
+    finish_mask at B=32 and N from four near tiles up to the batch's width."""
     from nrtsearch_tpu_torch.ops import bitonic_merge as bm
     from nrtsearch_tpu_torch.ops import merge_scoring as ms
 
@@ -269,7 +357,12 @@ def phase_accel_kernels(dev, searcher, batch) -> dict:
     hold("gather_runs", (kd, kc), (td, tc), f"B={B} R={R} run_len={run_len}")
     g_ms = cuda_ms(lambda: ms.gather_runs_accel(*gather_args))
     g_plain = cuda_ms(lambda: ms.gather_runs_twin(*gather_args))
-    stats["gather_runs"].update(ms=g_ms, plain_ms=g_plain, shape=[B, R, run_len])
+    # bytes: the runs' live postings read (doc + impact), the tables, the
+    # [B, R, run_len] docs and contribs written
+    live = int(np.minimum(lens, run_len).sum())
+    stats["gather_runs"].update(ms=g_ms, plain_ms=g_plain, shape=[B, R, run_len],
+                                bytes=8 * live + 12 * B * R + 8 * B * R * run_len,
+                                ops=live)
     log(f"kernel gather_runs B={B} R={R} run_len={run_len} alternating: bit-equal; "
         f"{g_ms:.4f} ms, twin {g_plain:.4f} ms")
 
@@ -297,12 +390,16 @@ def phase_accel_kernels(dev, searcher, batch) -> dict:
             raise AssertionError("finish_mask kept no doc of the batch")
     f_ms = cuda_ms(lambda: ms.finish_mask(md, mc, n_terms, R, False))
     f_plain = cuda_ms(lambda: ms.finish_mask_twin(md, mc, n_terms, R, False))
-    stats["finish_mask"].update(ms=f_ms, plain_ms=f_plain, shape=[B, width, R])
+    # bytes: the stream read (8 B an entry), the scores written (4 B);
+    # ops: one add per entry and scan step
+    stats["finish_mask"].update(ms=f_ms, plain_ms=f_plain, shape=[B, width, R],
+                                bytes=12 * B * width + 4 * B,
+                                ops=B * width * scan_steps(R))
     log(f"kernel finish_mask B={B} N={width} max_seg={R}: bit-equal; {f_ms:.4f} ms, "
         f"twin {f_plain:.4f} ms")
     del kd, kc, md, mc
 
-    N = 1 << 15
+    N = 4 * bm.NEAR_TILE               # the least width far_pair_stage takes
     while N <= width:
         docs, contribs = _merge_inputs(gen, B, N, dev)
         cases = [(N // 2, 0)] + ([(N // 4, N // 2)] if N // 8 >= bm.near_tile(N) else [])
@@ -318,6 +415,7 @@ def phase_accel_kernels(dev, searcher, batch) -> dict:
 
         p_ms = cuda_ms(lambda x, y: bm.far_pair_stage(x, y, N // 2), fresh)
         p_plain = cuda_ms(lambda x, y: bm.far_pair_stage_twin(x, y, N // 2), fresh)
+        pair_b = _inplace_bytes(docs, contribs, lambda x, y: bm.far_pair_stage(x, y, N // 2))
         bm.merge_level(docs, contribs, N // 2)            # a sorted stream
         fk = ms.finish_mask(docs, contribs, n_terms, R, True)
         ft = ms.finish_mask_twin(docs, contribs, n_terms, R, True)
@@ -328,7 +426,8 @@ def phase_accel_kernels(dev, searcher, batch) -> dict:
             f"{p_plain:.4f} ms; finish_mask(max_seg={R}, require_all) bit-equal "
             f"{fn_ms:.4f} ms, twin {fn_plain:.4f} ms")
         if 2 * N > width:
-            stats["far_pair_stage"].update(ms=p_ms, plain_ms=p_plain, shape=[B, N, N // 2])
+            stats["far_pair_stage"].update(ms=p_ms, plain_ms=p_plain, shape=[B, N, N // 2],
+                                           bytes=pair_b, ops=B * N)
         del docs, contribs, kd, kc, td, tc, fk, ft
         N *= 2
     return stats
@@ -433,6 +532,56 @@ def phase_search(corpus, searcher, singles, batches, reps: int = 3) -> dict:
         "batch_out": batch_out, "conj": conj, "conj_out": conj_out,
         "lat1": lat1, "lat32": lat32, "paths": paths, "batch_branches": batch_branches,
     }
+
+
+def profile_batch(searcher, batch) -> dict:
+    """``torch.profiler`` over one ``fast_search_batch`` of ``batch``: the
+    device's busy time (the sum of the durations of every kernel, copy and
+    memset on the card; one stream, so they do not overlap), the largest
+    device items and the traced wall time on the host clock. The tracer's
+    own host cost varies from run to run (tens to hundreds of ms), so the
+    busy share is taken against the untraced latency, not this wall."""
+    specs = [searcher.fast_query_spec(_match(q)) for q in batch]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        searcher.fast_search_batch(specs, TOP_K)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    # device items only: an operator's row would count its kernels again,
+    # and the profiler's own step annotation spans the whole batch on the
+    # device's timeline
+    per_name: dict[str, list] = {}
+    for e in prof.events():
+        annotation = getattr(e, "is_user_annotation", False) or e.name.startswith("ProfilerStep")
+        if e.device_type == torch.autograd.DeviceType.CUDA and not annotation:
+            acc = per_name.setdefault(e.name, [0.0, 0])
+            acc[0] += e.time_range.elapsed_us() / 1e3
+            acc[1] += 1
+    items = sorted(((k, ms, n) for k, (ms, n) in per_name.items()), key=lambda x: -x[1])
+    busy = sum(x[1] for x in items)
+    return {"traced_wall_ms": wall, "device_busy_ms": busy,
+            "top": [[k[:60], ms, n] for k, ms, n in items[:10]]}
+
+
+def launches_per_batch(searcher, single, batch) -> dict:
+    """Kernel launches of one main-path request: the first B=32 batch
+    through fast_search_batch (the merge path's kernels) and one B=1 query
+    (gather_rows, on the fused path)."""
+    from nrtsearch_tpu_torch import kernels
+
+    specs = [searcher.fast_query_spec(_match(q)) for q in batch]
+    kernels.reset_launch_counts()
+    searcher.fast_search_batch(specs, TOP_K)
+    torch.cuda.synchronize()
+    b32 = dict(kernels.LAUNCHES)
+    kernels.reset_launch_counts()
+    searcher.search(_match(single), TOP_K)
+    torch.cuda.synchronize()
+    b1 = dict(kernels.LAUNCHES)
+    log(f"search: launches per B=32 batch {b32}; per B=1 query {b1}")
+    return {k: b1[k] if k == "gather_rows" else b32[k] for k in KERNEL_SOURCES}
 
 
 def _check_topk(td, exact, rel: float, ctx: str) -> int:
@@ -622,8 +771,13 @@ def phase_bucket_kernels(dev, view, specs) -> dict:
     live = int((keys != int(br.I32_SENT)).sum())
     ms = cuda_ms(lambda: br.gather_pack(*args, tile=tile, bucket_bits=bits))
     plain_ms = cuda_ms(lambda: br.gather_pack_plain(*args, tile=tile, bucket_bits=bits))
+    # bytes: the live postings read (doc + impact), the plan tables, the
+    # [B * m, tile] keys written
     stats["gather_pack"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                            "shape": [B, T, m1 - 1, tile]}
+                            "shape": [B, T, m1 - 1, tile],
+                            "bytes": 8 * live + 4 * (toffs.numel() + bounds.numel()
+                                                      + wts.numel()) + 4 * keys.numel(),
+                            "ops": live}
     log(f"kernel gather_pack B={B} T={T} m={m1 - 1} tile={tile}: bit-equal "
         f"({live} postings packed); {ms:.4f} ms, plain {plain_ms:.4f} ms")
     del plain
@@ -641,8 +795,11 @@ def phase_bucket_kernels(dev, view, specs) -> dict:
     kw = dict(m=m1 - 1, bucket_bits=bits, require_all=False)
     ms = cuda_ms(lambda: br.sort_finish(keys, n_terms, max_seg=T, **kw))
     plain_ms = cuda_ms(lambda: br.sort_finish_plain(keys, n_terms, **kw))
+    # bytes: the keys read, the [B, m * 2^bits] rank written
     stats["sort_finish"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                            "shape": [B * (m1 - 1), tile, 1 << bits]}
+                            "shape": [B * (m1 - 1), tile, 1 << bits],
+                            "bytes": 4 * keys.numel() + 4 * B + 4 * B * ((m1 - 1) << bits),
+                            "ops": live}
     log(f"kernel sort_finish [{B * (m1 - 1)}, {tile}] -> [{B}, {(m1 - 1) << bits}]: "
         f"bit-equal (require_all both ways); {ms:.4f} ms, plain {plain_ms:.4f} ms")
     return stats
@@ -674,6 +831,14 @@ def _check_bucket_answer(b, mres, tol: float, ctx: str) -> float:
     return worst
 
 
+def _shares_scale_bound(view, spec) -> bool:
+    """Two slots of one weight on different query terms, or a repeated
+    term: the bucket plan keys its scale bounds by weight."""
+    weights = [w for _t, w, runs in view.term_entries(spec.terms, spec.boost)
+               if w and any(view.index.run_lengths[r] for r in runs)]
+    return len(set(weights)) < len(weights)
+
+
 def phase_bucket(dev, searcher, singles, batches, card: str) -> dict:
     from nrtsearch_tpu_torch import kernels
 
@@ -703,25 +868,39 @@ def phase_bucket(dev, searcher, singles, batches, card: str) -> dict:
         raise AssertionError(f"every bucket-phase spec must take the bucket path: {paths}")
     if not all(launches.values()):
         raise AssertionError(f"bucket kernels not launched: {launches}")
+    specs = [searcher.fast_query_spec(_match(q)) for q in batches[0]]
+    kernels.reset_launch_counts()
+    _with_path("bucket", lambda: searcher.fast_search_batch(specs, TOP_K))
+    per_batch = {k: kernels.LAUNCHES[k] for k in BUCKET_KERNELS}
 
-    worst = 0.0
+    worst, shared = 0.0, 0
     pairs = list(zip(singles, bucket["single_out"], merge["single_out"]))
     for qs, bo, mo in zip(batches, bucket["batch_out"], merge["batch_out"]):
         pairs += list(zip(qs, bo, mo))
     for q, b, mres in pairs:
         spec = searcher.fast_query_spec(_match(q))
+        if _shares_scale_bound(view, spec):
+            # the reference's scale: one bound per weight, so sums can clip
+            # at QMAX and the clipped docs rank by doc id (ROADMAP §3)
+            shared += 1
+            if (b.total_hits, b.relation) != (mres.total_hits, mres.relation):
+                raise AssertionError(f"bucket {q}: hits {b.total_hits} vs merge "
+                                     f"{mres.total_hits}")
+            continue
         scale = float(view.bucket_plan([spec])["scales"][0])
         worst = max(worst, scale * _check_bucket_answer(
             b, mres, len(q) / scale, f"bucket {q}"))
     p50 = {name: (1e3 * float(np.median(r["lat1"])), 1e3 * float(np.median(r["lat32"])))
            for name, r in (("merge", merge), ("bucket", bucket))}
-    log(f"bucket: {len(pairs)} answers against the merge path: hits equal, worst score "
-        f"difference {worst:.3f} quanta (bound: 1 per query term)")
+    log(f"bucket: {len(pairs)} answers against the merge path: hits equal; "
+        f"{len(pairs) - shared} with scores, worst difference {worst:.3f} quanta "
+        f"(bound: 1 per query term); {shared} whose plan shares a scale bound "
+        f"held to hit counts only")
     log(f"bucket: p50 B=1 {p50['bucket'][0]:.2f} ms (merge {p50['merge'][0]:.2f}), "
         f"B=32 {p50['bucket'][1]:.2f} ms (merge {p50['merge'][1]:.2f}); n = "
         f"{len(bucket['lat1'])} / {len(bucket['lat32'])}; peak device memory "
         f"{peak / 2**30:.3f} GiB | {card}")
-    return {"stats": stats, "launches": launches}
+    return {"stats": stats, "launches": launches, "per_batch": per_batch}
 
 
 def main() -> int:
@@ -755,10 +934,12 @@ def main() -> int:
     log(f"index: torch.cuda.memory_allocated {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
     main_n = fused_tail_width(searcher)
     singles, batches = sample_search_queries(corpus)
+    offs, _lens, _w, run_len = batch_plan(searcher, batches[0])
+    batch_n = offs.shape[1] * run_len
 
     # 3. kernels vs twins
-    widths = sorted({1 << p for p in range(15, 20)} | {main_n})
-    stats = phase_kernels(dev, widths, main_n)
+    widths = sorted({1 << p for p in range(15, 20)} | {main_n, batch_n})
+    stats = phase_kernels(dev, widths, batch_n)
     stats.update(phase_accel_kernels(dev, searcher, batches[0]))
     torch.cuda.empty_cache()
 
@@ -789,6 +970,13 @@ def main() -> int:
     p50_32 = 1e3 * float(np.median(res["lat32"]))
     log(f"search: p50 latency B=1 {p50_1:.2f} ms (n={len(res['lat1'])}), B=32 "
         f"{p50_32:.2f} ms (n={len(res['lat32'])}) | {card}")
+    per_batch = launches_per_batch(searcher, singles[0], batches[0])
+    prof = profile_batch(searcher, batches[0])
+    log(f"profile: first B={BATCH} batch, device busy {prof['device_busy_ms']:.3f} ms "
+        f"({100 * prof['device_busy_ms'] / p50_32:.1f}% of the B={BATCH} p50; traced wall "
+        f"{prof['traced_wall_ms']:.3f} ms); top device items {json.dumps(prof['top'])} | {card}")
+    if prof["device_busy_ms"] <= 0:
+        raise AssertionError("the profiled batch ran nothing on the device")
 
     # 6. against the independent numpy answer
     ex = phase_exact(corpus, res)
@@ -805,15 +993,24 @@ def main() -> int:
     bucket = phase_bucket(dev, searcher, singles, batches, card)
     stats.update(bucket["stats"])
     launches.update(bucket["launches"])
+    per_batch.update(bucket["per_batch"])
 
     table = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         st = stats[name]
+        bound_ms, bound_by = bound(st["bytes"], st["ops"])
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": st["max_abs_err"],
-            "ms": st["ms"], "plain_ms": st["plain_ms"], "shape": st["shape"],
+            "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": st.get("library_ms"),
+            "library": LIBRARY[name], "share_of_bound": bound_ms / st["ms"],
+            "launches_per_batch": per_batch[name], "shape": st["shape"],
         })
+        log(f"table {name} {st['shape']}: {st['ms']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, {100 * bound_ms / st['ms']:.1f}%), plain {st['plain_ms']:.4f} ms, "
+            f"library {st.get('library_ms')} ({LIBRARY[name]}); launches {launches[name]}, "
+            f"{per_batch[name]} per batch | {card}")
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

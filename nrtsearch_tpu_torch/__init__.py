@@ -12,9 +12,14 @@ Every Pallas kernel on that path is a hand-written CUDA C++ kernel for Hopper
 kernel has a plain torch twin in the module that calls it; the twin runs only
 for tensors that live on the CPU.
 
-The package imports torch and never jax. From ``nrtsearch_tpu`` it imports
-only backend-free modules: ``analysis``, ``schema``, ``query.plan``,
-``query.text_parser`` and ``utils.smallfloat``.
+The package imports torch and never jax, and nothing of ``nrtsearch_tpu``:
+the reference's backend-free modules it needs are copied whole under the
+same layout (``analysis/``, ``schema/fields.py``, ``query/plan.py``,
+``utils/smallfloat.py``), each naming the file it copies.
+
+Tests: ``python -m pytest tests/test_torch_*.py`` on the CPU (JAX present
+for the reference side); on a machine with an H100, ``python3 chip_smoke.py``
+and ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 """
 
 __version__ = "0.1.0"

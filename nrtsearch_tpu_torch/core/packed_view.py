@@ -180,7 +180,7 @@ class PackedFieldView:
             if spec.require_all and any(not runs for _, _, runs in entries):
                 per_q.append(None)   # dead: a required term matches nothing
                 continue
-            slots = [(r, w, e) for e, (_, w, runs) in enumerate(entries) if w
+            slots = [(r, w) for _, w, runs in entries if w
                      for r in runs if run_lengths[r]]
             if len(slots) > self._BUCKET_MAX_SLOTS:
                 return None
@@ -205,19 +205,19 @@ class PackedFieldView:
             slots, _ra, n_distinct = q
             # slot order: heaviest run first
             slots = sorted(slots, key=lambda s: -int(run_lengths[s[0]]))
-            # quantization scale from per-term bounds (a doc is in at most
-            # one run of a term). The reference keys the bounds by weight
-            # alone, so a repeated term or two terms of equal idf share one
-            # bound and their sums clip at QMAX; keyed by (term, weight) each
-            # query term keeps its own (ROADMAP §3), summed in the same order
-            by_term: dict[tuple[int, float], float] = {}
-            for r, w, e in slots:
-                by_term[e, w] = max(by_term.get((e, w), 0.0), float(st["ub"][r]))
-            smax = sum(w * ub for (_e, w), ub in by_term.items())
+            # quantization scale from per-weight bounds, as the reference
+            # computes it (nrtsearch_tpu/core/packed_view.py:243-247). Its
+            # fault, kept on purpose (ROADMAP §3): a repeated term, or two
+            # terms of equal idf, share one bound, so their sums can pass
+            # QMAX and clip, and the clipped docs rank by doc id
+            by_w: dict[float, float] = {}
+            for r, w in slots:
+                by_w[w] = max(by_w.get(w, 0.0), float(st["ub"][r]))
+            smax = sum(w * ub for w, ub in by_w.items())
             scale = QMAX / smax if smax > 0 else 1.0
             scales[qi] = scale
             n_terms[qi] = n_distinct
-            for ti, (r, w, _e) in enumerate(slots):
+            for ti, (r, w) in enumerate(slots):
                 term_offs[qi, ti] = int(run_offsets[r])
                 runs[qi, ti] = r
                 weights[qi, ti] = w * scale

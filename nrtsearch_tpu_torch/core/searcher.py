@@ -16,8 +16,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from nrtsearch_tpu.query import plan as qp
-from nrtsearch_tpu.schema.fields import FieldDef
+from nrtsearch_tpu_torch.query import plan as qp
+from nrtsearch_tpu_torch.schema.fields import FieldDef
 from nrtsearch_tpu_torch.core.segment import Segment
 from nrtsearch_tpu_torch.device import on_cuda
 from nrtsearch_tpu_torch.query.eval import CollectionStats
@@ -95,7 +95,7 @@ class Searcher:
     def fast_query_spec(self, node: qp.QueryNode):
         """Compile a query node to a fast-path QuerySpec, or None if the
         shape needs the general evaluator."""
-        from nrtsearch_tpu.analysis import get_analyzer
+        from nrtsearch_tpu_torch.analysis import get_analyzer
         from nrtsearch_tpu_torch.core.packed_view import QuerySpec
 
         if isinstance(node, qp.MatchQueryNode):

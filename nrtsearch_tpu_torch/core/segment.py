@@ -23,8 +23,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from nrtsearch_tpu.schema.fields import FieldDef, FieldType
-from nrtsearch_tpu.utils.smallfloat import quantize_length
+from nrtsearch_tpu_torch.schema.fields import FieldDef, FieldType
+from nrtsearch_tpu_torch.utils.smallfloat import quantize_length
 
 _SEG_COUNTER = itertools.count()
 _SEG_TOKEN = uuid.uuid4().hex[:8]

@@ -15,7 +15,7 @@ from typing import Any, Sequence
 
 import torch
 
-from nrtsearch_tpu.schema.fields import FieldDef, FieldType
+from nrtsearch_tpu_torch.schema.fields import FieldDef, FieldType
 from nrtsearch_tpu_torch.core.segment import Segment, SegmentBuilder
 from nrtsearch_tpu_torch.device import resolve_device
 

@@ -44,9 +44,17 @@ LAUNCHES = {
     "gather_runs": 0, "far_pair_stage": 0, "finish_mask": 0,
     "gather_pack": 0, "sort_finish": 0,
 }
-# finish_mask: stream entries per block; shared memory holds the tile plus
-# the scan's halo (max_seg - 1 for a power-of-two max_seg)
-FINISH_TILE = 2048
+# near_stages: the largest tile (2^14 pairs, 128 KB of shared memory)
+NEAR_MAX_TILE = 16384
+# finish_mask: stream entries per block, the scan's halo (max_seg - 1 for a
+# power-of-two max_seg) included, doubled while the halo passes half of it;
+# 16 entries per thread (4096: 256 threads, measured faster than 8192), at
+# most 512 threads (the kernel's launch bound). A longer scan takes the wide
+# kernel: 2048 outputs per block beside the halo, all in shared memory.
+FINISH_WINDOW = 4096
+FINISH_PER_THREAD = 16
+FINISH_MAX_WINDOW = 512 * FINISH_PER_THREAD
+FINISH_WIDE_TILE = 2048
 MAX_SHARED_BYTES = 232_448   # what one Hopper block may use
 # bucket kernels: slots per query (a doc's posting count must fit bits
 # 20-24 of sort_finish's accumulator) and the largest bucket (15-bit ids)
@@ -201,10 +209,14 @@ def _check_pairs(docs: torch.Tensor, contribs: torch.Tensor) -> tuple[int, int]:
 
 def near_stages(docs: torch.Tensor, contribs: torch.Tensor, d0: int,
                 tile: int, m: int = 0) -> None:
-    """Stages d0, d0/2, ..., 1 in place, one block per ``tile`` pairs."""
+    """Stages d0, d0/2, ..., 1 in place, one block per ``tile`` pairs
+    (4 <= tile <= NEAR_MAX_TILE; rows moved as 16-byte vectors)."""
     B, N = _check_pairs(docs, contribs)
-    if not (_pow2(tile) and _pow2(d0) and 2 * d0 <= tile and N % tile == 0):
+    if not (_pow2(tile) and 4 <= tile <= NEAR_MAX_TILE and _pow2(d0)
+            and 2 * d0 <= tile and N % tile == 0):
         raise ValueError(f"bad near_stages tiling: N={N} tile={tile} d0={d0}")
+    if docs.data_ptr() % 16 or contribs.data_ptr() % 16:
+        raise ValueError("near_stages needs 16-byte aligned docs and contribs")
     if B == 0:
         return
     lib = _library()
@@ -297,15 +309,7 @@ def finish_mask(docs: torch.Tensor, contribs: torch.Tensor,
     if n_terms.shape[0] != B or N >= 2**31 or B > 65535:
         raise ValueError(f"unsupported finish shape {tuple(docs.shape)}, "
                          f"n_terms {tuple(n_terms.shape)}")
-    if max_seg < 1:
-        raise ValueError(f"max_seg must be positive, got {max_seg}")
-    tile, halo = min(FINISH_TILE, N), scan_halo(max_seg)
-    # docs (+ the next entry), sums ping-pong, counts ping-pong (require_all)
-    smem = (tile + halo + 1) * 4 + (tile + halo) * 8 * (2 if require_all else 1)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"finish_mask: max_seg={max_seg} needs {smem} bytes of shared "
-            f"memory per block, more than {MAX_SHARED_BYTES}")
+    tile, halo, smem = finish_plan(max_seg, require_all)
     out = torch.empty((B, N), dtype=torch.float32, device=docs.device)
     if B * N == 0:
         return out
@@ -314,6 +318,48 @@ def finish_mask(docs: torch.Tensor, contribs: torch.Tensor,
             docs.data_ptr(), contribs.data_ptr(), n_terms.data_ptr(),
             out.data_ptr(), B, N, tile, halo, max_seg, int(require_all), smem)
     return out
+
+
+def finish_plan(max_seg: int, require_all: bool) -> tuple[int, int, int]:
+    """(tile, halo, smem) of finish_mask's blocks: output entries, the
+    scan's reach before them, dynamic shared memory. A window (tile + halo)
+    of at most FINISH_MAX_WINDOW entries runs the register kernel, a longer
+    one the wide kernel (csrc/finish_mask.cu picks it by the window).
+    Raises when a block would need more than MAX_SHARED_BYTES."""
+    if max_seg < 1:
+        raise ValueError(f"max_seg must be positive, got {max_seg}")
+    halo = scan_halo(max_seg)
+    window = FINISH_WINDOW
+    while 2 * halo > window:
+        window *= 2
+    if window <= FINISH_MAX_WINDOW:
+        return window - halo, halo, finish_smem_bytes(window, max_seg, require_all)
+    window = FINISH_WIDE_TILE + halo
+    smem = 4 * (window + 1) + 8 * window * (2 if require_all else 1)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"finish_mask: max_seg={max_seg} reaches back {halo} entries and "
+            f"needs {smem} bytes of shared memory per block (at most "
+            f"{MAX_SHARED_BYTES})")
+    return FINISH_WIDE_TILE, halo, smem
+
+
+def _pad(n: int) -> int:
+    return n + (n >> 4)
+
+
+def finish_smem_bytes(window: int, max_seg: int, require_all: bool) -> int:
+    """Dynamic shared memory of one finish_mask block (csrc/finish_mask.cu
+    ``smem_bytes``): the window's docs and next doc, its contribs (then its
+    outputs), and two buffers per warp of the entries handed to the next
+    warp, each padded with one word per 16."""
+    span = 1
+    while 2 * span < max_seg:
+        span *= 2
+    span = min(span, 32 * FINISH_PER_THREAD)
+    warps = window // (32 * FINISH_PER_THREAD)
+    return 4 * (_pad(window + 1) + _pad(window)
+                + 2 * warps * _pad(span) * (2 if require_all else 1))
 
 
 def gather_pack(post_docs: torch.Tensor, post_impacts: torch.Tensor,

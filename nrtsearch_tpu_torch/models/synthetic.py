@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from nrtsearch_tpu.utils.smallfloat import quantize_length
+from nrtsearch_tpu_torch.utils.smallfloat import quantize_length
 from nrtsearch_tpu_torch.core.segment import pad_to_bucket
 
 

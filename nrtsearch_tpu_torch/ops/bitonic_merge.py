@@ -6,9 +6,12 @@ Counterpart: nrtsearch_tpu/ops/pallas_merge.py (``far_stage``,
 [B, N]; stages run in place.
 
 - ``near_stages``: every stage d0, d0/2, ..., 1 inside one on-chip tile
-  (csrc/bitonic_merge.cu). The TPU tile holds 2^17 pairs in VMEM; a Hopper
-  block holds at most 227 KB of shared memory, so the port's tile is
-  ``NEAR_TILE`` pairs (64 KB), or the whole row when it is shorter.
+  (csrc/bitonic_merge.cu: registers and warp shuffles, one barrier). The
+  TPU tile holds 2^17 pairs in VMEM; a Hopper block holds at most 227 KB
+  of shared memory, so the port's tile is ``NEAR_TILE`` pairs (128 KB), or
+  the whole row when it is shorter. A 16384-pair tile runs the alternating
+  network of the merge batch ([32, 128 runs of 16384]) in 23 passes
+  against 26 with 8192, and measured faster on the H100 (PERF.md).
 - ``far_stage``: one stage at a distance d >= the tile.
 - ``far_pair_stage``: stages d and d/2 in one read and one write, for
   d/2 >= the tile.
@@ -31,7 +34,7 @@ import torch
 from nrtsearch_tpu_torch import kernels
 from nrtsearch_tpu_torch.device import on_cuda
 
-NEAR_TILE = 8192  # pairs per shared-memory tile: 8192 x (4 + 4) B = 64 KB
+NEAR_TILE = 16384  # pairs per tile: 16384 x (4 + 4) B = 128 KB of shared memory
 
 
 def far_stage_twin(docs: torch.Tensor, contribs: torch.Tensor, d: int,

@@ -1,9 +1,8 @@
 """Query side of the port (counterpart: nrtsearch_tpu/query/).
 
-Query parsing is backend-neutral and shared with the reference:
 ``parse_query`` turns a proto-JSON-shaped query dict into plan nodes
-(nrtsearch_tpu/query/plan.py, which imports neither jax nor torch)."""
+(``plan.py``, the port's own copy of the reference's backend-free parser)."""
 
-from nrtsearch_tpu.query.plan import parse_query
+from nrtsearch_tpu_torch.query.plan import parse_query
 
 __all__ = ["parse_query"]

@@ -57,22 +57,36 @@ def test_merge_sorted_runs_kernels_equal_twins(cuda_device, R, L):
     assert torch.equal(gc.cpu().view(torch.int32), cc.view(torch.int32))
 
 
-@pytest.mark.parametrize("m", [64, 1 << 14])
-def test_alternating_mode_equals_twin(cuda_device, m):
-    rng = np.random.default_rng(m)
-    N = 1 << 15
+# (N, m): m = 0 ascending; m >= the tile (one direction per block); m < the
+# tile (short runs: a direction per pair); N up to the merge batch's width
+NEAR_CASES = [(1 << 15, 64), (1 << 15, 1 << 14), (1 << 13, 0), (1 << 13, 1024),
+              (1 << 16, 0), (1 << 16, 1 << 15), (1 << 16, 256), (1 << 21, 0),
+              (1 << 21, 1 << 16), (1 << 21, 2048)]
+
+
+@pytest.mark.parametrize("N,m", NEAR_CASES)
+def test_alternating_mode_equals_twin(cuda_device, N, m):
+    """Far stages down to the tile, then near_stages, against the twins:
+    duplicate docs, both sentinels and an all-pad row."""
+    rng = np.random.default_rng(m + N)
     docs = torch.from_numpy(rng.integers(0, 500, size=(3, N)).astype(np.int32))
+    docs[0, ::7] = HIGH
+    docs[1, ::5] = LOW
+    docs[2] = HIGH
     contribs = torch.from_numpy(rng.random((3, N), dtype=np.float32))
     gd, gc = docs.to(cuda_device), contribs.to(cuda_device)
-    d = m // 2
+    d = (m or N) // 2
     while d >= bm.near_tile(N):
         bm.far_stage(gd, gc, d, m)
         bm.far_stage_twin(docs, contribs, d, m)
         d //= 2
+    kernels.reset_launch_counts()
     bm.near_stages(gd, gc, d, m)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["near_stages"] == 1
     bm.near_stages_twin(docs, contribs, d, m)
     assert torch.equal(gd.cpu(), docs)
-    assert torch.equal(gc.cpu(), contribs)
+    assert torch.equal(gc.cpu().view(torch.int32), contribs.view(torch.int32))
 
 
 @pytest.mark.parametrize("D", [8, 1024, 40_064])
@@ -180,7 +194,8 @@ def test_far_pair_stage_kernel_equals_twin(cuda_device, m):
     assert torch.equal(gc.cpu(), contribs)
 
 
-@pytest.mark.parametrize("R,L", [(2, 1 << 16), (8, 1 << 14), (4, 1 << 17), (32, 4096)])
+@pytest.mark.parametrize("R,L", [(2, 1 << 16), (8, 1 << 14), (4, 1 << 17), (32, 4096),
+                                 (128, 16384)])
 def test_merge_sorted_runs_alt_kernels_equal_twin(cuda_device, R, L):
     rng = np.random.default_rng(R * L + 3)
     docs, contribs = _runs(rng, 3, R, L)
@@ -197,16 +212,32 @@ def test_merge_sorted_runs_alt_kernels_equal_twin(cuda_device, R, L):
     assert bool((cd[:, 1:] >= cd[:, :-1]).all())
 
 
-@pytest.mark.parametrize("R,N", [(2, 1024), (8, 1024), (64, 1024), (2, 1 << 17),
-                                 (8, 1 << 17), (64, 1 << 17), (1024, 1 << 17)])
+# (R, N, max_seg): R runs merged into N entries, the scan bounded by max_seg;
+# N = 2^17 clips the first window's halo at the row start, 2^21 is the
+# merge batch's width, max_seg = 4096 doubles the block's window, 8192 and
+# 16384 take the wide kernel (16384 with require_all is refused)
+FINISH_CASES = [(2, 1024, 2), (8, 1024, 8), (64, 1024, 64), (2, 1 << 17, 2),
+                (8, 1 << 17, 8), (64, 1 << 17, 64), (1024, 1 << 17, 1024),
+                (1, 1 << 17, 1), (32, 1 << 17, 33), (128, 1 << 17, 128),
+                (1, 1 << 21, 1), (2, 1 << 21, 2), (32, 1 << 21, 33), (128, 1 << 21, 128),
+                (4096, 1 << 17, 4096), (8192, 1 << 17, 8192), (16384, 1 << 17, 16384)]
+
+
+@pytest.mark.parametrize("R,N,max_seg", FINISH_CASES)
 @pytest.mark.parametrize("require_all", [False, True])
-def test_finish_mask_kernel_equals_twin(cuda_device, R, require_all, N):
+def test_finish_mask_kernel_equals_twin(cuda_device, R, require_all, N, max_seg):
     docs, contribs = _runs(np.random.default_rng(R + N), 4, R, N // R)
-    md, mc = ms.merge_sorted_runs(docs, contribs)
+    md, mc = ms.merge_sorted_runs(docs.to(cuda_device), contribs.to(cuda_device))
     n_terms = torch.tensor([2, 1, 3, 1], dtype=torch.int32)
-    out = ms.finish_mask(md.to(cuda_device), mc.to(cuda_device),
-                         n_terms.to(cuda_device), R, require_all)
-    ref = ms.finish_mask_twin(md, mc, n_terms, R, require_all)
+    if max_seg > 8192 and require_all:
+        with pytest.raises(ValueError, match="shared memory"):
+            ms.finish_mask(md, mc, n_terms.to(cuda_device), max_seg, require_all)
+        return
+    kernels.reset_launch_counts()
+    out = ms.finish_mask(md, mc, n_terms.to(cuda_device), max_seg, require_all)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["finish_mask"] == 1
+    ref = ms.finish_mask_twin(md.cpu(), mc.cpu(), n_terms, max_seg, require_all)
     assert torch.equal(out.cpu().view(torch.int32), ref.view(torch.int32))
     assert bool(torch.isfinite(ref).any())
 

@@ -205,6 +205,31 @@ def test_finish_mask_twin_matches_pallas(interpret, R, require_all):
     assert not np.isfinite(out.numpy()[1]).any()
 
 
+@pytest.mark.parametrize("require_all", [False, True])
+def test_finish_plan_range(require_all):
+    """finish_mask's block plan on the card (the plan is host arithmetic):
+    max_seg up to 4096 in a register window of at most 512 threads x 16
+    entries that holds the halo twice; longer scans up to 16384 (8192 with
+    require_all) in the wide kernel's tile of 2048 plus halo; refused only
+    beyond, where a block would need more shared memory than Hopper has."""
+    from nrtsearch_tpu_torch import kernels
+
+    largest = 1 << (13 if require_all else 14)
+    for max_seg in [1 << p for p in range(17)] + [33, 4097]:
+        if max_seg > largest:
+            with pytest.raises(ValueError, match="shared memory"):
+                kernels.finish_plan(max_seg, require_all)
+            continue
+        tile, halo, smem = kernels.finish_plan(max_seg, require_all)
+        window = tile + halo
+        assert halo == kernels.scan_halo(max_seg) and 0 < smem <= kernels.MAX_SHARED_BYTES
+        if max_seg <= 4096:
+            assert window % 512 == 0 and window <= kernels.FINISH_MAX_WINDOW == 8192
+            assert tile >= halo
+        else:
+            assert window > kernels.FINISH_MAX_WINDOW and tile == kernels.FINISH_WIDE_TILE
+
+
 def test_merge_score_topk_plain_accel_branch_matches_reference(interpret):
     """Below ALT_MIN_WIDTH the accelerator branch is the unclamped gather,
     the plain network and ``_finish``: bit-equal to the reference's

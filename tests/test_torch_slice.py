@@ -17,12 +17,14 @@ import numpy as np
 import pytest
 import torch
 
-from nrtsearch_tpu.query.plan import parse_query
-from nrtsearch_tpu.schema.fields import create_field_def
+from nrtsearch_tpu.query.plan import parse_query as ref_parse_query
+from nrtsearch_tpu.schema.fields import create_field_def as ref_create_field_def
 from nrtsearch_tpu_torch.convert import segment_from_numpy
 from nrtsearch_tpu_torch.core.packed_view import QuerySpec
 from nrtsearch_tpu_torch.core.searcher import Searcher as PortSearcher
 from nrtsearch_tpu_torch.core.writer import IndexWriter as PortWriter
+from nrtsearch_tpu_torch.query import parse_query
+from nrtsearch_tpu_torch.schema import create_field_def
 
 FIELDS = {
     "id": {"type": "_ID", "store": True},
@@ -54,8 +56,10 @@ def _wave(ids, rng):
     return docs
 
 
-def _field_defs():
-    return {n: create_field_def(n, spec) for n, spec in FIELDS.items()}
+def _field_defs(create=create_field_def):
+    """The port's field defs; ``create=ref_create_field_def`` gives the
+    reference's own from the same specs (their enums are other classes)."""
+    return {n: create(n, spec) for n, spec in FIELDS.items()}
 
 
 def _arrays(seg, field="body"):
@@ -91,8 +95,8 @@ def searchers(waves):
     from nrtsearch_tpu.core.searcher import Searcher as RefSearcher
     from nrtsearch_tpu.core.writer import IndexWriter as RefWriter
 
-    fds = _field_defs()
-    writer = RefWriter(fds)
+    ref_fds = _field_defs(ref_create_field_def)
+    writer = RefWriter(ref_fds)
     for i, wave in enumerate(waves):
         writer.add_documents([dict(d) for d in wave])
         writer.refresh()
@@ -101,7 +105,7 @@ def searchers(waves):
     segs = writer.refresh()
     assert len(segs) == 3 and sum(s.del_count for s in segs) > 0
     port_segs = [segment_from_numpy(_arrays(s), "cpu") for s in segs]
-    return RefSearcher(segs, fds), PortSearcher(port_segs, fds)
+    return RefSearcher(segs, ref_fds), PortSearcher(port_segs, _field_defs())
 
 
 def _hits(td):
@@ -125,10 +129,9 @@ def _assert_same(ref_td, port_td, path, ctx):
 def test_search_matches_reference(searchers, monkeypatch, path, qname):
     ref, port = searchers
     monkeypatch.setenv("NRT_FAST_PATH", path)
-    node = parse_query(QUERIES[qname])
-    ref_td = ref.search(node, 15)
+    ref_td = ref.search(ref_parse_query(QUERIES[qname]), 15)
     assert ref_td.total_hits > 0
-    _assert_same(ref_td, port.search(node, 15), path, f"{qname}/{path}")
+    _assert_same(ref_td, port.search(parse_query(QUERIES[qname]), 15), path, f"{qname}/{path}")
 
 
 @pytest.mark.parametrize("path", ["merge", "fused"])
@@ -137,9 +140,9 @@ def test_fast_search_batch_matches_reference(searchers, monkeypatch, path):
     monkeypatch.setenv("NRT_FAST_PATH", path)
     rng = random.Random(5)
     texts = [" ".join(rng.sample(WORDS + ["common", "needle"], 3)) for _ in range(8)]
-    nodes = [parse_query({"matchQuery": {"field": "body", "query": t}}) for t in texts]
-    ref_out = ref.fast_search_batch([ref.fast_query_spec(n) for n in nodes], 20)
-    port_out = port.fast_search_batch([port.fast_query_spec(n) for n in nodes], 20)
+    queries = [{"matchQuery": {"field": "body", "query": t}} for t in texts]
+    ref_out = ref.fast_search_batch([ref.fast_query_spec(ref_parse_query(q)) for q in queries], 20)
+    port_out = port.fast_search_batch([port.fast_query_spec(parse_query(q)) for q in queries], 20)
     for i, (r, p) in enumerate(zip(ref_out, port_out)):
         _assert_same(r, p, path, f"batch[{i}]/{path}")
 
