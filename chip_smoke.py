@@ -34,18 +34,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 7. ingest ~2,000 text docs through IndexWriter on the card and on the CPU;
    merge results bit-equal, fused results within 1e-6 relative.
 8. the bucket path (NRT_FAST_PATH=bucket for this phase only) on the same
-   index: gather_pack and sort_finish against their plain versions at the
-   first B=32 batch's plan, bit-equal, CUDA-event times; the 8 singles and
-   4 batches of phase 5 through the merge path (timed), then, with the
-   launch counters reset just before and read just after, through the
-   bucket path: every spec must be served there and both kernels must
-   launch. Answers against the merge path's: equal hit counts, scores
+   index: bucket_rank against its plain version at the first B=32 batch's
+   plan, bit-equal with require_all both ways, CUDA-event times; the 8 singles and 4 batches of phase 5 through
+   the merge path (timed), then, with the launch counters reset just before
+   and read just after, through the bucket path: every spec must be served
+   there and bucket_rank must launch once per bucket batch. Answers against
+   the merge path's: equal hit counts, scores
    within one quantum (1 / scale) per query term, docs equal up to
    near-ties at the k-th score; a query whose plan shares a scale bound
    between two slots (a repeated term, or two terms of equal weight) can
    clip at QMAX, as in the reference, and is held to equal hit counts only.
-   p50 at B=1 and B=32 of both paths and the bucket phase's peak device
-   memory.
+   p50 at B=1 and B=32 of both paths, the bucket phase's peak device
+   memory, and torch.profiler over one bucket run of the first B=32 batch.
 
 Launches per main-path batch: the counters around one fast_search_batch
 of the first B=32 batch (merge path), one B=1 query (fused path) and, for
@@ -89,13 +89,13 @@ KERNEL_SOURCES = {
                     "nrtsearch_tpu/ops/pallas_merge.py:317"),
     "finish_mask": ("nrtsearch_tpu_torch/csrc/finish_mask.cu",
                     "nrtsearch_tpu/ops/pallas_merge.py:450"),
-    "gather_pack": ("nrtsearch_tpu_torch/csrc/gather_pack.cu",
-                    "nrtsearch_tpu/ops/bucket_retrieval.py:293"),
-    "sort_finish": ("nrtsearch_tpu_torch/csrc/bucket_finish.cu",
-                    "nrtsearch_tpu/ops/bucket_retrieval.py:418"),
+    # one kernel for both TPU kernels of the bucket path
+    "bucket_rank": ("nrtsearch_tpu_torch/csrc/bucket_rank.cu",
+                    "nrtsearch_tpu/ops/bucket_retrieval.py:293 (gather_pack_pallas); "
+                    "nrtsearch_tpu/ops/bucket_retrieval.py:418 (sort_finish_pallas)"),
 }
 # the kernels of phase 8's bucket path; phase 5 drives the others
-BUCKET_KERNELS = ("gather_pack", "sort_finish")
+BUCKET_KERNELS = ("bucket_rank",)
 # the one PyTorch call that computes a kernel's function, timed beside it
 # (the port never calls it), or why there is none
 LIBRARY = {
@@ -105,8 +105,8 @@ LIBRARY = {
     "far_pair_stage": "none: no torch call runs two compare-exchange stages",
     "gather_runs": "none: no torch call gathers ragged runs with a weight",
     "finish_mask": "none: no torch call runs a bounded segmented scan",
-    "gather_pack": "none: no torch call packs bucket-local keys",
-    "sort_finish": "none: torch.Tensor.index_add_ sums but ignores the count mask",
+    "bucket_rank": "none: torch.Tensor.index_add_ sums but weighs, quantizes and "
+                   "masks nothing",
 }
 # the card's peaks (H100 SXM data sheet): device memory, and the f32 rate
 # outside the tensor cores, at which one compare-exchange or add counts
@@ -748,8 +748,9 @@ def _timed_searches(searcher, singles, batches, reps: int = 3) -> dict:
 
 
 def phase_bucket_kernels(dev, view, specs) -> dict:
-    """gather_pack and sort_finish against their plain versions at the plan
-    the bucket path makes for ``specs``."""
+    """bucket_rank against its plain version at the plan the bucket path
+    makes for ``specs``."""
+    from nrtsearch_tpu_torch import kernels
     from nrtsearch_tpu_torch.ops import bucket_retrieval as br
 
     plan = view.bucket_plan(specs)
@@ -759,50 +760,37 @@ def phase_bucket_kernels(dev, view, specs) -> dict:
     toffs, bounds, wts, n_terms = (torch.as_tensor(plan[k], device=dev) for k in
                                    ("term_offs", "bounds", "weights", "n_terms"))
     B, T, m1 = bounds.shape
-    tile, bits = plan["tile"], plan["bits"]
-    stats = {}
-    log(f"bucket plan: first B={B} batch -> T={T} slots, m={m1 - 1} buckets of "
-        f"{1 << bits} docs, tile {tile} (keys {B * (m1 - 1) * tile * 4 / 2**20:.0f} MiB)")
+    m, tile, bits = m1 - 1, plan["tile"], plan["bits"]
+    # bytes: the live slots' postings read (doc + impact), the plan tables,
+    # the [B, m * 2^bits] rank written
+    live = int(np.where(plan["weights"][..., None] != 0,
+                        plan["bounds"][..., 1:] - plan["bounds"][..., :-1], 0).sum())
+    tables = 4 * (toffs.numel() + bounds.numel() + wts.numel() + n_terms.numel())
+    rank_bytes = 4 * B * (m << bits)
+    log(f"bucket plan: first B={B} batch -> T={T} slots, m={m} buckets of {1 << bits} "
+        f"docs; bucket_rank reads {8 * live / 2**20:.1f} MiB of postings ({live} live) "
+        f"and writes {rank_bytes / 2**20:.1f} MiB of rank keys (the plain version's key "
+        f"tile: {B * m * tile * 4 / 2**20:.0f} MiB at tile {tile})")
     args = (docs, imps, toffs, bounds, wts)
-    keys = br.gather_pack(*args, tile=tile, bucket_bits=bits)
-    plain = br.gather_pack_plain(*args, tile=tile, bucket_bits=bits)
-    if not _bits_equal(keys, plain):
-        raise AssertionError("gather_pack differs from its plain version")
-    live = int((keys != int(br.I32_SENT)).sum())
-    ms = cuda_ms(lambda: br.gather_pack(*args, tile=tile, bucket_bits=bits))
-    plain_ms = cuda_ms(lambda: br.gather_pack_plain(*args, tile=tile, bucket_bits=bits))
-    # bytes: the live postings read (doc + impact), the plan tables, the
-    # [B * m, tile] keys written
-    stats["gather_pack"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                            "shape": [B, T, m1 - 1, tile],
-                            "bytes": 8 * live + 4 * (toffs.numel() + bounds.numel()
-                                                      + wts.numel()) + 4 * keys.numel(),
-                            "ops": live}
-    log(f"kernel gather_pack B={B} T={T} m={m1 - 1} tile={tile}: bit-equal "
-        f"({live} postings packed); {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    del plain
     need = torch.randint(1, 3, (B,), device=dev, dtype=torch.int32)
     for require_all, nt in ((False, n_terms), (True, need)):
-        kw = dict(max_seg=T, m=m1 - 1, bucket_bits=bits, require_all=require_all)
-        rank = br.sort_finish(keys, nt, **kw)
-        ref = br.sort_finish_plain(keys, nt, m=m1 - 1, bucket_bits=bits,
+        ref = br.bucket_rank_plain(*args, nt, tile=tile, bucket_bits=bits,
                                    require_all=require_all)
-        if not _bits_equal(rank, ref):
-            raise AssertionError(f"sort_finish differs from its plain version, "
+        out = kernels.bucket_rank(*args, nt, bits, require_all)
+        if not _bits_equal(out, ref):
+            raise AssertionError(f"bucket_rank differs from its plain version, "
                                  f"require_all={require_all}")
-        if not bool((rank != int(br.I32_MIN)).any()):
-            raise AssertionError("sort_finish kept no doc of the batch")
-    kw = dict(m=m1 - 1, bucket_bits=bits, require_all=False)
-    ms = cuda_ms(lambda: br.sort_finish(keys, n_terms, max_seg=T, **kw))
-    plain_ms = cuda_ms(lambda: br.sort_finish_plain(keys, n_terms, **kw))
-    # bytes: the keys read, the [B, m * 2^bits] rank written
-    stats["sort_finish"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                            "shape": [B * (m1 - 1), tile, 1 << bits],
-                            "bytes": 4 * keys.numel() + 4 * B + 4 * B * ((m1 - 1) << bits),
-                            "ops": live}
-    log(f"kernel sort_finish [{B * (m1 - 1)}, {tile}] -> [{B}, {(m1 - 1) << bits}]: "
-        f"bit-equal (require_all both ways); {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return stats
+        if not bool((ref != int(br.I32_MIN)).any()):
+            raise AssertionError("bucket_rank kept no doc of the batch")
+        del ref, out
+    ms = cuda_ms(lambda: kernels.bucket_rank(*args, n_terms, bits, False))
+    plain_ms = cuda_ms(lambda: br.bucket_rank_plain(*args, n_terms, tile=tile,
+                                                    bucket_bits=bits, require_all=False))
+    log(f"kernel bucket_rank B={B} T={T} m={m} bits={bits}: bit-equal (require_all both "
+        f"ways); {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"bucket_rank": {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                            "shape": [B, T, m, 1 << bits],
+                            "bytes": 8 * live + tables + rank_bytes, "ops": live}}
 
 
 def _check_bucket_answer(b, mres, tol: float, ctx: str) -> float:
@@ -863,15 +851,19 @@ def phase_bucket(dev, searcher, singles, batches, card: str) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     paths = {k: view.path_counts[k] - paths0[k] for k in paths0}
     n_specs = 3 * (len(singles) + sum(len(b) for b in batches))
-    log(f"bucket: launches {launches}; specs by path {paths}")
+    n_batches = 3 * (len(singles) + len(batches))
+    log(f"bucket: launches {launches} over {n_batches} bucket batches; specs by path {paths}")
     if paths["bucket"] != n_specs or paths["merge"] or paths["fused"]:
         raise AssertionError(f"every bucket-phase spec must take the bucket path: {paths}")
-    if not all(launches.values()):
-        raise AssertionError(f"bucket kernels not launched: {launches}")
+    if any(n != n_batches for n in launches.values()):
+        raise AssertionError(f"bucket kernels must launch once per bucket batch: {launches}")
     specs = [searcher.fast_query_spec(_match(q)) for q in batches[0]]
     kernels.reset_launch_counts()
     _with_path("bucket", lambda: searcher.fast_search_batch(specs, TOP_K))
     per_batch = {k: kernels.LAUNCHES[k] for k in BUCKET_KERNELS}
+    prof = _with_path("bucket", lambda: profile_batch(searcher, batches[0]))
+    if prof["device_busy_ms"] <= 0:
+        raise AssertionError("the profiled bucket batch ran nothing on the device")
 
     worst, shared = 0.0, 0
     pairs = list(zip(singles, bucket["single_out"], merge["single_out"]))
@@ -900,6 +892,10 @@ def phase_bucket(dev, searcher, singles, batches, card: str) -> dict:
         f"B=32 {p50['bucket'][1]:.2f} ms (merge {p50['merge'][1]:.2f}); n = "
         f"{len(bucket['lat1'])} / {len(bucket['lat32'])}; peak device memory "
         f"{peak / 2**30:.3f} GiB | {card}")
+    log(f"bucket profile: first B={BATCH} batch, device busy {prof['device_busy_ms']:.3f} ms "
+        f"({100 * prof['device_busy_ms'] / p50['bucket'][1]:.1f}% of the bucket B={BATCH} "
+        f"p50; traced wall {prof['traced_wall_ms']:.3f} ms); top device items "
+        f"{json.dumps(prof['top'])} | {card}")
     return {"stats": stats, "launches": launches, "per_batch": per_batch}
 
 

@@ -42,7 +42,7 @@ NVCC_FLAGS = (
 LAUNCHES = {
     "gather_rows": 0, "near_stages": 0, "far_stage": 0,
     "gather_runs": 0, "far_pair_stage": 0, "finish_mask": 0,
-    "gather_pack": 0, "sort_finish": 0,
+    "bucket_rank": 0,
 }
 # near_stages: the largest tile (2^14 pairs, 128 KB of shared memory)
 NEAR_MAX_TILE = 16384
@@ -56,9 +56,11 @@ FINISH_PER_THREAD = 16
 FINISH_MAX_WINDOW = 512 * FINISH_PER_THREAD
 FINISH_WIDE_TILE = 2048
 MAX_SHARED_BYTES = 232_448   # what one Hopper block may use
-# bucket kernels: slots per query (a doc's posting count must fit bits
-# 20-24 of sort_finish's accumulator) and the largest bucket (15-bit ids)
+# bucket_rank: slots per query (a doc's posting count must fit bits 20-24
+# of its accumulator), the smallest bucket (rows written as 16-byte vectors)
+# and the largest (15-bit ids)
 BUCKET_MAX_SLOTS = 16
+BUCKET_MIN_BITS = 2
 BUCKET_MAX_BITS = 15
 # ptxas register / shared-memory report of the last build (nvcc's stderr)
 BUILD_INFO = {"log": "", "seconds": 0.0, "path": ""}
@@ -135,13 +137,11 @@ def _library():
                                         ci, ci, ci, ci, vp]
         lib.nrt_finish_mask.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                         ci, ci, vp]
-        lib.nrt_gather_pack.argtypes = [vp, vp, cll, vp, vp, vp, vp,
+        lib.nrt_bucket_rank.argtypes = [vp, vp, cll, vp, vp, vp, vp, vp,
                                         ci, ci, ci, ci, ci, vp]
-        lib.nrt_sort_finish.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         for fn in (lib.nrt_gather_rows, lib.nrt_near_stages, lib.nrt_far_stage,
                    lib.nrt_far_pair_stage, lib.nrt_gather_runs,
-                   lib.nrt_finish_mask, lib.nrt_gather_pack,
-                   lib.nrt_sort_finish):
+                   lib.nrt_finish_mask, lib.nrt_bucket_rank):
             fn.restype = ci
         lib.nrt_error_string.argtypes = [ci]
         lib.nrt_error_string.restype = ctypes.c_char_p
@@ -362,68 +362,46 @@ def finish_smem_bytes(window: int, max_seg: int, require_all: bool) -> int:
                 + 2 * warps * _pad(span) * (2 if require_all else 1))
 
 
-def gather_pack(post_docs: torch.Tensor, post_impacts: torch.Tensor,
+def bucket_rank(post_docs: torch.Tensor, post_impacts: torch.Tensor,
                 toffs: torch.Tensor, bounds: torch.Tensor, wts: torch.Tensor,
-                tile: int, bucket_bits: int) -> torch.Tensor:
-    """[B, T] / [B, T, m+1] bucket plan tables -> int32 [B * m, tile] packed
-    keys (``ops/bucket_retrieval.gather_pack_plain`` is the plain version)."""
+                n_terms: torch.Tensor, bucket_bits: int,
+                require_all: bool) -> torch.Tensor:
+    """[B, T] / [B, T, m+1] bucket plan tables -> int32 [B, m * 2^bucket_bits]
+    rank keys in global doc order, the postings summed straight into each
+    (query, bucket) row's shared-memory accumulator
+    (``ops/bucket_retrieval.bucket_rank_plain`` is the plain version)."""
     _check(post_docs, "post_docs", torch.int32, 1)
     _check(post_impacts, "post_impacts", torch.float32, 1)
     _check(toffs, "toffs", torch.int32, 2)
     _check(bounds, "bounds", torch.int32, 3)
     _check(wts, "wts", torch.float32, 2)
+    _check(n_terms, "n_terms", torch.int32, 1)
     if post_docs.shape != post_impacts.shape:
         raise ValueError("post_docs and post_impacts must match in shape")
+    if post_docs.data_ptr() % 16 or post_impacts.data_ptr() % 16:
+        raise ValueError("bucket_rank reads the postings as 16-byte vectors: "
+                         "post_docs and post_impacts must be 16-byte aligned")
     B, T, m1 = bounds.shape
-    if toffs.shape != (B, T) or wts.shape != (B, T) or m1 < 2:
-        raise ValueError(f"toffs {tuple(toffs.shape)}, wts {tuple(wts.shape)} and "
-                         f"bounds {tuple(bounds.shape)} must be [B, T] and [B, T, m+1]")
-    if len({t.device for t in (post_docs, post_impacts, toffs, bounds, wts)}) != 1:
-        raise ValueError("all gather_pack inputs must be on one device")
+    if toffs.shape != (B, T) or wts.shape != (B, T) or n_terms.shape != (B,) or m1 < 2:
+        raise ValueError(f"toffs {tuple(toffs.shape)}, wts {tuple(wts.shape)}, n_terms "
+                         f"{tuple(n_terms.shape)} and bounds {tuple(bounds.shape)} must "
+                         f"be [B, T], [B] and [B, T, m+1]")
+    if len({t.device for t in (post_docs, post_impacts, toffs, bounds, wts, n_terms)}) != 1:
+        raise ValueError("all bucket_rank inputs must be on one device")
     m = m1 - 1
     if not 0 < T <= BUCKET_MAX_SLOTS:
-        raise ValueError(f"gather_pack takes 1..{BUCKET_MAX_SLOTS} slots, got T={T}")
-    if not 0 < bucket_bits <= BUCKET_MAX_BITS or not 0 < tile < 2**31:
-        raise ValueError(f"unsupported bucket_bits={bucket_bits} or tile={tile}")
+        raise ValueError(f"bucket_rank takes 1..{BUCKET_MAX_SLOTS} slots, got T={T}")
+    if not BUCKET_MIN_BITS <= bucket_bits <= BUCKET_MAX_BITS:
+        raise ValueError(f"bucket_rank takes bucket_bits in {BUCKET_MIN_BITS}.."
+                         f"{BUCKET_MAX_BITS}, got {bucket_bits}")
     if B * m >= 2**31:
         raise ValueError(f"B * m = {B * m} exceeds the kernel's grid")
-    keys = torch.empty((B * m, tile), dtype=torch.int32, device=post_docs.device)
+    rank = torch.empty((B, m << bucket_bits), dtype=torch.int32, device=post_docs.device)
     if B == 0:
-        return keys
-    lib = _library()
-    _launch("gather_pack", lib.nrt_gather_pack, post_docs.device,
-            post_docs.data_ptr(), post_impacts.data_ptr(), post_docs.shape[0],
-            toffs.data_ptr(), bounds.data_ptr(), wts.data_ptr(), keys.data_ptr(),
-            B, T, m, tile, bucket_bits)
-    return keys
-
-
-def sort_finish(keys: torch.Tensor, n_terms: torch.Tensor, max_seg: int, m: int,
-                bucket_bits: int, require_all: bool) -> torch.Tensor:
-    """int32 [B * m, tile] packed keys of ``max_seg`` slots -> int32
-    [B, m * 2^bucket_bits] rank keys in global doc order
-    (``ops/bucket_retrieval.sort_finish_plain`` is the plain version)."""
-    if not 0 < max_seg <= BUCKET_MAX_SLOTS:
-        raise ValueError(f"sort_finish takes keys of 1..{BUCKET_MAX_SLOTS} slots, "
-                         f"got max_seg={max_seg}")
-    _check(keys, "keys", torch.int32, 2)
-    _check(n_terms, "n_terms", torch.int32, 1)
-    if keys.device != n_terms.device:
-        raise ValueError("keys and n_terms must be on one device")
-    nbm, tile = keys.shape
-    B = n_terms.shape[0]
-    if m < 1 or nbm != B * m or nbm >= 2**31:
-        raise ValueError(f"keys {tuple(keys.shape)} must be [B * m, tile] with "
-                         f"B = {B}, m = {m}")
-    if not 0 < bucket_bits <= BUCKET_MAX_BITS:
-        raise ValueError(f"unsupported bucket_bits={bucket_bits}")
-    bd = 1 << bucket_bits
-    smem = bd * 4
-    rank = torch.empty((B, m * bd), dtype=torch.int32, device=keys.device)
-    if nbm == 0:
         return rank
     lib = _library()
-    _launch("sort_finish", lib.nrt_sort_finish, keys.device,
-            keys.data_ptr(), n_terms.data_ptr(), rank.data_ptr(), B, m, tile,
-            bucket_bits, int(require_all), smem)
+    _launch("bucket_rank", lib.nrt_bucket_rank, post_docs.device,
+            post_docs.data_ptr(), post_impacts.data_ptr(), post_docs.shape[0],
+            toffs.data_ptr(), bounds.data_ptr(), wts.data_ptr(), n_terms.data_ptr(),
+            rank.data_ptr(), B, T, m, bucket_bits, int(require_all))
     return rank

@@ -2,34 +2,37 @@
 nrtsearch_tpu/ops/bucket_retrieval.py).
 
 Doc space is cut into buckets of ``bucket_docs`` (a power of two, at most
-32768, so a bucket-local id fits 15 bits). For every (query, bucket) pair:
+32768, so a bucket-local id fits 15 bits). For every (query, bucket) pair the
+reference runs two kernels, which the plain versions here follow:
 
-1. ``gather_pack`` packs the pair's slice of each of the query's T term runs
-   back to back into one int32 key per posting,
+1. ``gather_pack_plain`` packs the pair's slice of each of the query's T
+   term runs back to back into one int32 key per posting,
    ``local_doc << 16 | clip(int(w * imp + 0.5), 1, QMAX)``, padded with
    ``I32_SENT`` to the batch's ``tile``. ``w`` is the term weight already
    multiplied by the query's quantization scale, so a contribution is an
    integer number of quanta of ``QMAX`` over the query's largest possible
    score. A deleted posting (impact 0) packs as ``I32_SENT``.
-2. ``sort_finish`` sums the contributions per local doc, counts the doc's
-   postings, and writes the rank key ``min(sum, QMAX)`` where the doc has a
-   posting, a positive sum and (AND mode) at least ``n_terms[q]`` postings;
-   ``I32_MIN`` everywhere else. The output is dense, [B, m * bucket_docs] in
-   global doc order, so a position is a doc id.
+2. ``sort_finish_plain`` sums the contributions per local doc, counts the
+   doc's postings, and writes the rank key ``min(sum, QMAX)`` where the doc
+   has a posting, a positive sum and (AND mode) at least ``n_terms[q]``
+   postings; ``I32_MIN`` everywhere else. The output is dense,
+   [B, m * bucket_docs] in global doc order, so a position is a doc id.
 
 The reference sorts each key tile with a bitonic network in VMEM and sums
 with a bounded segmented scan; it returns (rank, doc) per tile position.
 The sort exists only to group equal docs. Here the sum is an integer
-scatter-add into a per-bucket accumulator (shared memory on the card), which
-is exact in any order, so the dense rank equals the reference's (rank, doc)
-pairs scattered into an ``I32_MIN`` array. Ties then break to the lower doc
-id as ``lax.top_k``'s lower-index rule does over the reference's layout
-(buckets ascend, docs ascend inside a sorted tile).
+scatter-add into a per-bucket accumulator, which is exact in any order, so
+the dense rank equals the reference's (rank, doc) pairs scattered into an
+``I32_MIN`` array. Ties then break to the lower doc id as ``lax.top_k``'s
+lower-index rule does over the reference's layout (buckets ascend, docs
+ascend inside a sorted tile).
 
-On CUDA tensors ``gather_pack`` and ``sort_finish`` launch the hand-written
-kernels (csrc/gather_pack.cu, csrc/bucket_finish.cu); on CPU tensors their
-plain torch versions run. ``BucketIndex.build``, ``plan_bucket_batch`` and
-``reference_bucket_search`` are not ported: the serving caller is
+``bucket_rank`` is both steps at once. On CUDA tensors it launches one
+hand-written kernel (csrc/bucket_rank.cu) that adds each posting straight
+into the row's shared-memory accumulator, so no key tile exists on the
+card; on CPU tensors it runs ``bucket_rank_plain``, the two plain versions
+composed over the plan's tile. ``BucketIndex.build``, ``plan_bucket_batch``
+and ``reference_bucket_search`` are not ported: the serving caller is
 ``PackedFieldView.bucket_search_batch``, which plans its own batches.
 """
 
@@ -50,7 +53,8 @@ MIN_TILE = 1024                    # smallest key tile (the reference's 8 x 128)
 
 def gather_pack_plain(post_docs, post_impacts, toffs, bounds, wts, *,
                       tile: int, bucket_bits: int) -> torch.Tensor:
-    """Plain torch version of ``gather_pack``: int32 [B * m, tile] keys.
+    """The reference's ``gather_pack_pallas`` in plain torch: int32
+    [B * m, tile] keys.
 
     Row q * m + b holds, back to back in slot order, each slot t's postings
     ``[toffs[q, t] + bounds[q, t, b], toffs[q, t] + bounds[q, t, b + 1])``
@@ -88,21 +92,11 @@ def gather_pack_plain(post_docs, post_impacts, toffs, bounds, wts, *,
     return torch.where(inside & (imps > 0.0), keys, sent)
 
 
-def gather_pack(post_docs, post_impacts, toffs, bounds, wts, *, tile: int,
-                bucket_bits: int) -> torch.Tensor:
-    """[B, T] / [B, T, m+1] plan tables -> int32 [B * m, tile] packed keys:
-    the CUDA kernel for CUDA tensors, ``gather_pack_plain`` for CPU ones."""
-    if on_cuda(post_docs):
-        return kernels.gather_pack(post_docs, post_impacts, toffs, bounds, wts,
-                                   tile, bucket_bits)
-    return gather_pack_plain(post_docs, post_impacts, toffs, bounds, wts,
-                             tile=tile, bucket_bits=bucket_bits)
-
-
 def sort_finish_plain(keys, n_terms, *, m: int, bucket_bits: int,
                       require_all: bool) -> torch.Tensor:
-    """Plain torch version of ``sort_finish``: int32 [B * m, tile] keys ->
-    int32 [B, m * bucket_docs] rank keys in global doc order.
+    """The reference's ``sort_finish_pallas`` in plain torch: int32
+    [B * m, tile] keys -> int32 [B, m * bucket_docs] rank keys in global
+    doc order.
 
     Per local doc of each row: the sum of its postings' contributions (the
     low 16 bits) and their count, both exact int32 scatter-adds. The rank
@@ -127,15 +121,27 @@ def sort_finish_plain(keys, n_terms, *, m: int, bucket_bits: int,
                        torch.full((), int(I32_MIN), dtype=torch.int32, device=dev))
 
 
-def sort_finish(keys, n_terms, *, max_seg: int, m: int, bucket_bits: int,
-                require_all: bool) -> torch.Tensor:
-    """Packed key tiles of ``max_seg`` slots -> dense rank keys
-    [B, m * bucket_docs]: the CUDA kernel for CUDA tensors (at most 16
-    slots), ``sort_finish_plain`` for CPU ones."""
-    if on_cuda(keys):
-        return kernels.sort_finish(keys, n_terms, max_seg, m, bucket_bits, require_all)
-    return sort_finish_plain(keys, n_terms, m=m, bucket_bits=bucket_bits,
-                             require_all=require_all)
+def bucket_rank_plain(post_docs, post_impacts, toffs, bounds, wts, n_terms, *,
+                      tile: int, bucket_bits: int, require_all: bool) -> torch.Tensor:
+    """Plain torch version of ``bucket_rank``: ``sort_finish_plain`` over
+    ``gather_pack_plain``'s [B * m, tile] keys (``tile`` at least the
+    largest row's live postings)."""
+    keys = gather_pack_plain(post_docs, post_impacts, toffs, bounds, wts,
+                             tile=tile, bucket_bits=bucket_bits)
+    return sort_finish_plain(keys, n_terms, m=bounds.shape[2] - 1,
+                             bucket_bits=bucket_bits, require_all=require_all)
+
+
+def bucket_rank(post_docs, post_impacts, toffs, bounds, wts, n_terms, *,
+                tile: int, bucket_bits: int, require_all: bool) -> torch.Tensor:
+    """[B, T] / [B, T, m+1] plan tables -> int32 [B, m * bucket_docs] rank
+    keys in global doc order: the CUDA kernel for CUDA tensors (which needs
+    no ``tile``), ``bucket_rank_plain`` for CPU ones."""
+    if on_cuda(post_docs):
+        return kernels.bucket_rank(post_docs, post_impacts, toffs, bounds, wts,
+                                   n_terms, bucket_bits, require_all)
+    return bucket_rank_plain(post_docs, post_impacts, toffs, bounds, wts, n_terms,
+                             tile=tile, bucket_bits=bucket_bits, require_all=require_all)
 
 
 def bucket_search_topk(post_docs, post_impacts, toffs, bounds, wts, n_terms, *,
@@ -145,12 +151,8 @@ def bucket_search_topk(post_docs, post_impacts, toffs, bounds, wts, n_terms, *,
     [B, k], hits int32 [B]); keys are quantized score sums (dequantize with
     the plan's per-query scale), and ``I32_MIN`` marks an empty slot. The
     bucket count m is ``bounds.shape[2] - 1``."""
-    m = bounds.shape[2] - 1
-    keys = gather_pack(post_docs, post_impacts, toffs, bounds, wts, tile=tile,
-                       bucket_bits=bucket_bits)
-    rank = sort_finish(keys, n_terms, max_seg=bounds.shape[1], m=m,
-                       bucket_bits=bucket_bits, require_all=require_all)
-    del keys
+    rank = bucket_rank(post_docs, post_impacts, toffs, bounds, wts, n_terms,
+                       tile=tile, bucket_bits=bucket_bits, require_all=require_all)
     hits = (rank != int(I32_MIN)).sum(dim=-1, dtype=torch.int32)
     top_keys, top_docs = topk_i32_lowest_index(rank, min(k, rank.shape[1]))
     if top_keys.shape[1] < k:       # fewer docs than k: empty slots

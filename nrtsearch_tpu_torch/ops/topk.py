@@ -28,12 +28,12 @@ def topk_lowest_index(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tens
 def topk_i32_lowest_index(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top k of int32 [B, N] keys with ties to the lower index, as
     ``lax.top_k``: one ``torch.topk`` over the unique int64 keys
-    ``(x << 32) | (2^32 - 1 - index)``. No host sync. Returns (int32 values,
-    int64 indices)."""
+    ``(x << 32) | (2^32 - 1 - index)``, built in place (one int64 copy of
+    x beside x). No host sync. Returns (int32 values, int64 indices)."""
     N = x.shape[-1]
     if k > N or N > _LOW32:
         raise ValueError(f"k={k} must not exceed the width {N} (< 2^32)")
     idx = torch.arange(N, device=x.device, dtype=torch.int64)
-    composite = x.to(torch.int64) * (1 << 32) + (_LOW32 - idx)
+    composite = x.to(torch.int64, copy=True).mul_(1 << 32).add_(_LOW32 - idx)
     top = torch.topk(composite, k, dim=-1).values
     return (top >> 32).to(torch.int32), _LOW32 - (top & _LOW32)

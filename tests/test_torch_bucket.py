@@ -70,9 +70,9 @@ def _ref_keys(docs, imps, idx, plan):
 
 
 def _port_keys(docs, imps, idx, plan):
-    return br.gather_pack(to_torch(docs), to_torch(imps), to_torch(plan.term_offs),
-                          to_torch(plan.bounds), to_torch(plan.weights),
-                          tile=plan.tile, bucket_bits=idx.bucket_bits).numpy()
+    return br.gather_pack_plain(to_torch(docs), to_torch(imps), to_torch(plan.term_offs),
+                                to_torch(plan.bounds), to_torch(plan.weights),
+                                tile=plan.tile, bucket_bits=idx.bucket_bits).numpy()
 
 
 def _gather_case(name):
@@ -144,10 +144,37 @@ def test_sort_finish_plain_matches_pallas(require_all):
         bucket_bits=idx.bucket_bits, n_buckets=idx.n_buckets, interpret=True)
     width = idx.n_buckets << idx.bucket_bits
     ref = _dense_reference_rank(rank, rdocs, B, width)
-    port = br.sort_finish(to_torch(keys), to_torch(n_terms), max_seg=T, m=idx.n_buckets,
-                          bucket_bits=idx.bucket_bits, require_all=require_all).numpy()
+    port = br.sort_finish_plain(to_torch(keys), to_torch(n_terms), m=idx.n_buckets,
+                                bucket_bits=idx.bucket_bits, require_all=require_all).numpy()
     np.testing.assert_array_equal(port, ref)
     assert (port != I32_MIN).sum() > 100
+
+
+@pytest.mark.parametrize("name", ["deletions", "zero_weight"])
+@pytest.mark.parametrize("require_all", [False, True])
+def test_bucket_rank_plain_matches_pallas(name, require_all):
+    """``bucket_rank_plain`` (the plain version of the one CUDA kernel that
+    replaces both reference kernels) == ``gather_pack_pallas`` ->
+    ``sort_finish_pallas`` bit for bit, the reference's (rank, doc) pairs
+    scattered into the dense [B, m * bucket_docs] layout."""
+    docs, imps, idx, plan = _gather_case(name)
+    keys = _ref_keys(docs, imps, idx, plan)
+    B, T = plan.term_offs.shape
+    n_terms = np.array([2, 1, 3], np.int32)[:B]
+    rank, rdocs = ref_br.sort_finish_pallas(
+        jnp.asarray(keys.reshape(B * idx.n_buckets, -1, 128)), jnp.asarray(n_terms),
+        tile=plan.tile, max_seg=T, require_all=require_all,
+        bucket_bits=idx.bucket_bits, n_buckets=idx.n_buckets, interpret=True)
+    ref = _dense_reference_rank(rank, rdocs, B, idx.n_buckets << idx.bucket_bits)
+    port = br.bucket_rank_plain(
+        *map(to_torch, (docs, imps, plan.term_offs, plan.bounds, plan.weights, n_terms)),
+        tile=plan.tile, bucket_bits=idx.bucket_bits, require_all=require_all).numpy()
+    np.testing.assert_array_equal(port, ref)
+    assert (port != I32_MIN).sum() > 100
+    # the CPU dispatcher is the plain version
+    np.testing.assert_array_equal(br.bucket_rank(
+        *map(to_torch, (docs, imps, plan.term_offs, plan.bounds, plan.weights, n_terms)),
+        tile=plan.tile, bucket_bits=idx.bucket_bits, require_all=require_all).numpy(), port)
 
 
 def _both_topk(docs, imps, idx, plan, k, require_all):

@@ -285,20 +285,22 @@ def test_accel_wrappers_refuse_bad_inputs(cuda_device):
         kernels.gather_runs(docs[0], contribs[0], offs, offs.int(), contribs[:, :4], 1024)
 
 
-def _bucket_inputs(seed, B, T, m, bits, density):
-    """Bucket plan tables over B * T doc-sorted runs in [0, m << bits): a
-    tenth of the postings deleted (impact 0), slot 1 of query 0 at weight
-    0, and the last query all weight 0 (its rows are all ``I32_SENT``).
-    Weights reach past QMAX / T, so sums clamp at QMAX."""
+def _bucket_inputs(seed, B, T, m, bits, density, shift=0):
+    """Bucket plan tables over B * T doc-sorted runs in [0, m << bits),
+    behind ``shift`` leading postings: a tenth of the postings deleted
+    (impact 0), slot 1 of query 0 at weight 0, and the last query all
+    weight 0 (its rank rows are all ``I32_MIN``). Weights reach past
+    QMAX / T, so sums clamp at QMAX. Returns the tables and the tile the
+    plain version needs."""
     rng = np.random.default_rng(seed)
     bd, D = 1 << bits, m << bits
     runs = [np.sort(rng.choice(D, size=int(density * D), replace=False)).astype(np.int32)
             for _ in range(B * T)]
-    docs = np.concatenate(runs)
+    docs = np.concatenate([np.zeros(shift, np.int32)] + runs)
     imps = rng.random(len(docs), dtype=np.float32)
     imps[rng.random(len(docs)) < 0.1] = 0.0
     lens = np.array([len(r) for r in runs], np.int64)
-    toffs = (np.cumsum(lens) - lens).astype(np.int32).reshape(B, T)
+    toffs = (shift + np.cumsum(lens) - lens).astype(np.int32).reshape(B, T)
     bounds = np.stack([np.searchsorted(r, np.arange(m + 1) * bd) for r in runs])
     bounds = bounds.astype(np.int32).reshape(B, T, m + 1)
     wts = rng.uniform(100.0, 9000.0, (B, T)).astype(np.float32)
@@ -312,39 +314,42 @@ def _bucket_inputs(seed, B, T, m, bits, density):
     return tabs, tile
 
 
-# (B, T, m, bits, density): T = 16 slots, the largest bucket (15 bits), and
-# four near-full runs per bucket for a tile of 2^16 keys
-BUCKET_SHAPES = [(4, 3, 8, 10, 0.05), (3, 16, 4, 12, 0.3), (2, 2, 2, 15, 0.5),
-                 (2, 4, 2, 14, 0.97)]
+def _slices(tabs):
+    """(start, length) of every live (query, slot, bucket) slice."""
+    _docs, _imps, toffs, bounds, wts = tabs
+    starts = (toffs[..., None] + bounds[..., :-1]).numpy()
+    lens = (bounds[..., 1:] - bounds[..., :-1]).numpy()
+    live = (wts.numpy() != 0)[..., None] & (lens > 0)
+    return starts[live], lens[live]
 
 
-@pytest.mark.parametrize("B,T,m,bits,density", BUCKET_SHAPES)
-def test_gather_pack_kernel_equals_plain(cuda_device, B, T, m, bits, density):
-    tabs, tile = _bucket_inputs(B * T + bits, B, T, m, bits, density)
+# (B, T, m, bits, density, shift): T = 16 slots, the largest bucket (15
+# bits), four near-full runs per bucket (a plain tile of 2^16 keys), slices
+# shorter than one 4-posting vector, and slices behind 3 leading postings
+BUCKET_SHAPES = [(4, 3, 8, 10, 0.05, 0), (3, 16, 4, 12, 0.3, 0), (2, 2, 2, 15, 0.5, 0),
+                 (2, 4, 2, 14, 0.97, 0), (3, 5, 8, 12, 0.0005, 0), (3, 6, 4, 13, 0.2, 3)]
+
+
+@pytest.mark.parametrize("B,T,m,bits,density,shift", BUCKET_SHAPES)
+@pytest.mark.parametrize("require_all", [False, True])
+def test_bucket_rank_kernel_equals_plain(cuda_device, B, T, m, bits, density, shift,
+                                         require_all):
+    tabs, tile = _bucket_inputs(B * T + bits + shift, B, T, m, bits, density, shift)
+    starts, lens = _slices(tabs)
     if density > 0.9:
         assert tile == 1 << 16
-    kernels.reset_launch_counts()
-    out = br.gather_pack(*[t.to(cuda_device) for t in tabs], tile=tile, bucket_bits=bits)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["gather_pack"] == 1
-    ref = br.gather_pack_plain(*tabs, tile=tile, bucket_bits=bits)
-    assert torch.equal(out.cpu(), ref)
-    sent = ref == int(br.I32_SENT)
-    assert bool(sent[-m:].all()) and not bool(sent.all())
-
-
-@pytest.mark.parametrize("B,T,m,bits,density", BUCKET_SHAPES)
-@pytest.mark.parametrize("require_all", [False, True])
-def test_sort_finish_kernel_equals_plain(cuda_device, B, T, m, bits, density, require_all):
-    tabs, tile = _bucket_inputs(B * T + bits, B, T, m, bits, density)
-    keys = br.gather_pack_plain(*tabs, tile=tile, bucket_bits=bits)
+    if density < 0.001:
+        assert (lens < 4).mean() > 0.5                   # mostly scalar ends
+    if shift:
+        assert (starts % 4 != 0).mean() > 0.5            # unaligned vectors
     n_terms = torch.from_numpy(np.arange(B, dtype=np.int32) % T + 1)
-    kw = dict(m=m, bucket_bits=bits, require_all=require_all)
     kernels.reset_launch_counts()
-    out = br.sort_finish(keys.to(cuda_device), n_terms.to(cuda_device), max_seg=T, **kw)
+    out = kernels.bucket_rank(*[t.to(cuda_device) for t in tabs], n_terms.to(cuda_device),
+                              bits, require_all)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["sort_finish"] == 1
-    ref = br.sort_finish_plain(keys, n_terms, **kw)
+    assert kernels.LAUNCHES["bucket_rank"] == 1
+    ref = br.bucket_rank_plain(*tabs, n_terms, tile=tile, bucket_bits=bits,
+                               require_all=require_all)
     assert torch.equal(out.cpu(), ref)
     hit = ref != int(br.I32_MIN)
     assert bool(hit.any()) and not bool(hit[-1].any())
@@ -357,8 +362,10 @@ def test_bucket_search_topk_cuda_equals_cpu(cuda_device):
     n_terms = torch.tensor([2, 5, 1], dtype=torch.int32)
     for require_all in (False, True):
         kw = dict(tile=tile, bucket_bits=12, k=100, require_all=require_all)
+        kernels.reset_launch_counts()
         g = br.bucket_search_topk(*[t.to(cuda_device) for t in tabs],
                                   n_terms.to(cuda_device), **kw)
+        assert kernels.LAUNCHES["bucket_rank"] == 1
         c = br.bucket_search_topk(*tabs, n_terms, **kw)
         for a, b in zip(g, c):
             assert torch.equal(a.cpu(), b)
@@ -366,21 +373,23 @@ def test_bucket_search_topk_cuda_equals_cpu(cuda_device):
 
 
 def test_bucket_wrappers_refuse_bad_inputs(cuda_device):
-    tabs, tile = _bucket_inputs(3, 2, 2, 2, 10, 0.1)
+    tabs, _tile = _bucket_inputs(3, 2, 2, 2, 10, 0.1)
     docs, imps, toffs, bounds, wts = [t.to(cuda_device) for t in tabs]
+    n_terms = torch.ones(2, dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
-        kernels.gather_pack(docs, imps, toffs.long(), bounds, wts, tile, 10)
-    with pytest.raises(ValueError):
-        kernels.gather_pack(docs, imps, toffs, bounds, wts, tile, 16)   # > 15 bits
+        kernels.bucket_rank(docs, imps, toffs.long(), bounds, wts, n_terms, 10, False)
+    with pytest.raises(TypeError):
+        kernels.bucket_rank(docs, imps, toffs, bounds, wts, n_terms.long(), 10, False)
+    for bits in (1, 16):                                             # 2..15 bits
+        with pytest.raises(ValueError):
+            kernels.bucket_rank(docs, imps, toffs, bounds, wts, n_terms, bits, False)
     wide = torch.zeros((2, 17), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):                                  # T = 17
-        kernels.gather_pack(docs, imps, wide, bounds.new_zeros((2, 17, 3)),
-                            wide.float(), tile, 10)
-    keys = torch.zeros((4, tile), dtype=torch.int32, device=cuda_device)
-    n_terms = torch.ones(2, dtype=torch.int32, device=cuda_device)
+        kernels.bucket_rank(docs, imps, wide, bounds.new_zeros((2, 17, 3)),
+                            wide.float(), n_terms, 10, False)
+    with pytest.raises(ValueError):                                  # n_terms [B]
+        kernels.bucket_rank(docs, imps, toffs, bounds, wts, n_terms[:1], 10, False)
+    with pytest.raises(ValueError):                                  # 16-byte aligned
+        kernels.bucket_rank(docs[1:], imps[1:], toffs, bounds, wts, n_terms, 10, False)
     with pytest.raises(ValueError):
-        kernels.sort_finish(keys, n_terms, 17, 2, 10, False)
-    with pytest.raises(ValueError):                                  # B * m != rows
-        kernels.sort_finish(keys, n_terms, 2, 3, 10, False)
-    with pytest.raises(TypeError):
-        kernels.sort_finish(keys, n_terms.long(), 2, 2, 10, False)
+        kernels.bucket_rank(docs, imps, toffs, bounds, wts, n_terms.cpu(), 10, False)
