@@ -47,12 +47,38 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    p50 at B=1 and B=32 of both paths, the bucket phase's peak device
    memory, and torch.profiler over one bucket run of the first B=32 batch.
 
+9. config #3 (BASELINE.json: term + numeric-range filters, doc-value
+   sort, terms facets) on phase 4's index, which carries the stress
+   benchmark's columns (price FLOAT over 0-1000 with 1% missing, ts FLOAT
+   over 0-1e9, tag ATOM with 100 ordinals; numpy draws from the seed): 8
+   singles each of the scored config-#3 tree, the tree sorted by ts
+   descending and a plain match sorted by price ascending (missing first),
+   4 of each served by the fused path (2 head + 2 tail terms) and 4 by the
+   merge path (3 tail terms); one B=32 batch of match queries sharing one
+   ts sort (one group, one dispatch); 8 faceted singles (tag counts + price
+   sum, merge path). Launch counters are reset just before and read just
+   after: gather_rows, near_stages, far_stage, far_pair_stage, gather_runs
+   and finish_mask must all launch, both paths must serve and the merge
+   path must take the alternating branch. Every answer against the numpy
+   oracle (models.synthetic exact_filtered_topk): hits exact, scores
+   within MERGE_REL (merge) or FUSED_REL (fused), sorted keys and docs
+   equal, facet counts equal, the sum within 1e-5 relative. p50 of each
+   form at B=1 and of the sorted B=32 batch, torch.profiler over that
+   batch, _hierarchical_topk's full-sort fallbacks and the peak device
+   memory. Then a 2,000-doc index with doc values (phase 7's documents
+   plus price, tag, a LONG above 2^24 and a multi-valued ATOM) is
+   committed with commit_segments and reopened on the card with
+   open_commit: its filtered, sorted and faceted answers bit-equal.
+
 Launches per main-path batch: the counters around one fast_search_batch
 of the first B=32 batch (merge path), one B=1 query (fused path) and, for
 the bucket kernels, one bucket batch.
 
-The last lines are the kernel table as JSON, the card's name and power
-limit, and {"ok": true, "device": {...}}.
+The last lines are the kernel table as JSON (``launches`` from phase 5's
+run, or phase 8's for bucket_rank; ``launches_config3`` from phase 9's, and
+``launches_per_config3_request`` from one sorted B=32 batch, or for
+gather_rows one fused config-#3 single),
+the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -444,6 +470,21 @@ def body_field_defs():
     return {"body": create_field_def("body", {"type": "TEXT", "search": True})}
 
 
+# BASELINE config #3's doc-value fields (benchmarks/stress_deep_boolean.py:131-136)
+CONFIG3_FIELDS = {
+    "price": {"type": "FLOAT", "storeDocValues": True},
+    "ts": {"type": "FLOAT", "storeDocValues": True},
+    "tag": {"type": "ATOM", "storeDocValues": True},
+}
+
+
+def index_field_defs():
+    from nrtsearch_tpu_torch.schema import create_field_def
+
+    return {**body_field_defs(),
+            **{n: create_field_def(n, spec) for n, spec in CONFIG3_FIELDS.items()}}
+
+
 def phase_index(dev, num_docs: int, vocab: int, draws: int, segments: int):
     from nrtsearch_tpu_torch.convert import segment_from_numpy
     from nrtsearch_tpu_torch.core.searcher import Searcher
@@ -451,10 +492,12 @@ def phase_index(dev, num_docs: int, vocab: int, draws: int, segments: int):
 
     t0 = time.perf_counter()
     corpus = SyntheticCorpus(num_docs, vocab, draws, seed=SEED)
+    columns = corpus.doc_columns(seed=SEED)
     t1 = time.perf_counter()
-    segs = [segment_from_numpy(a, dev) for a in corpus.segment_arrays(segments)]
+    segs = [segment_from_numpy(a, dev, doc_values=dv) for a, dv in zip(
+        corpus.segment_arrays(segments), corpus.segment_doc_values(columns, segments))]
     t2 = time.perf_counter()
-    searcher = Searcher(segs, body_field_defs())
+    searcher = Searcher(segs, index_field_defs())
     searcher.warm(["body"])
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -464,8 +507,9 @@ def phase_index(dev, num_docs: int, vocab: int, draws: int, segments: int):
         f"{segments} segments; corpus {t1 - t0:.1f} s, segments to device "
         f"{t2 - t1:.1f} s, pack + dense rows {t3 - t2:.1f} s")
     log(f"index: {len(st['head_pos'])} head rows x D={st['D']} (+ residual rows: "
-        f"{st['rows_lo'] is not None}), tail_max_df {st['tail_max_df']}")
-    return corpus, searcher
+        f"{st['rows_lo'] is not None}), tail_max_df {st['tail_max_df']}; doc values "
+        f"{', '.join(CONFIG3_FIELDS)} ({sum(c[0].nbytes + c[1].nbytes for c in columns.values()) / 2**20:.1f} MiB)")
+    return corpus, columns, searcher
 
 
 def fused_tail_width(searcher) -> int:
@@ -534,19 +578,26 @@ def phase_search(corpus, searcher, singles, batches, reps: int = 3) -> dict:
     }
 
 
-def profile_batch(searcher, batch) -> dict:
-    """``torch.profiler`` over one ``fast_search_batch`` of ``batch``: the
-    device's busy time (the sum of the durations of every kernel, copy and
-    memset on the card; one stream, so they do not overlap), the largest
-    device items and the traced wall time on the host clock. The tracer's
+def profile_batch(searcher, batch, specs=None) -> dict:
+    """``profile_call`` over one ``fast_search_batch`` of ``batch`` (or of
+    ``specs``, when given)."""
+    if specs is None:
+        specs = [searcher.fast_query_spec(_match(q)) for q in batch]
+    return profile_call(lambda: searcher.fast_search_batch(specs, TOP_K))
+
+
+def profile_call(fn) -> dict:
+    """``torch.profiler`` over one ``fn()``: the device's busy time (the sum
+    of the durations of every kernel, copy and memset on the card; one
+    stream, so they do not overlap), the number of those device items, the
+    largest ones and the traced wall time on the host clock. The tracer's
     own host cost varies from run to run (tens to hundreds of ms), so the
     busy share is taken against the untraced latency, not this wall."""
-    specs = [searcher.fast_query_spec(_match(q)) for q in batch]
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        searcher.fast_search_batch(specs, TOP_K)
+        fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t)
     # device items only: an operator's row would count its kernels again,
@@ -562,6 +613,7 @@ def profile_batch(searcher, batch) -> dict:
     items = sorted(((k, ms, n) for k, (ms, n) in per_name.items()), key=lambda x: -x[1])
     busy = sum(x[1] for x in items)
     return {"traced_wall_ms": wall, "device_busy_ms": busy,
+            "device_items": sum(x[2] for x in items),
             "top": [[k[:60], ms, n] for k, ms, n in items[:10]]}
 
 
@@ -899,6 +951,292 @@ def phase_bucket(dev, searcher, singles, batches, card: str) -> dict:
     return {"stats": stats, "launches": launches, "per_batch": per_batch}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: config #3, the filtered, sorted and faceted forms
+# ---------------------------------------------------------------------------
+
+# the kernels of the port's fused and merge paths, which phase 9 must launch
+CONFIG3_KERNELS = ("gather_rows", "near_stages", "far_stage", "far_pair_stage",
+                   "gather_runs", "finish_mask")
+FACETS = [{"kind": "ordinal", "field": "tag"}, {"kind": "sum", "field": "price"}]
+SUM_REL = 1e-5
+
+
+def config3_singles(corpus, searcher) -> list[tuple[str, list[str]]]:
+    """8 (expected path, terms) pairs: 4 with two head and two tail terms
+    (the fused path: 4 segments x 2 tail terms fill its R = 8 tail runs)
+    and 4 with one head and three tail terms (12 tail runs: the merge
+    path). Tail terms come from the 2,000 most frequent ones, so that
+    matches survive the filters."""
+    head = searcher.packed_view("body")._dense_state()["head_pos"]
+    by_df = np.argsort(-corpus.term_lengths, kind="stable")
+    head_terms = [str(t) for t in by_df if str(t) in head][:200]
+    tail_terms = [str(t) for t in by_df if str(t) not in head][:2000]
+    rng = np.random.default_rng(SEED + 3)
+    out = []
+    for i in range(8):
+        n_head = 2 if i < 4 else 1
+        hs = rng.choice(len(head_terms), n_head, replace=False)
+        ts = rng.choice(len(tail_terms), 4 - n_head, replace=False)
+        out.append(("fused" if i < 4 else "merge",
+                    [head_terms[j] for j in hs] + [tail_terms[j] for j in ts]))
+    return out
+
+
+def _served(view, fn):
+    """``fn()`` and the path that served it (by the view's path counts)."""
+    before = dict(view.path_counts)
+    out = fn()
+    moved = [k for k in before if view.path_counts[k] != before[k]]
+    if len(moved) != 1:
+        raise AssertionError(f"one path must serve each search: {moved}")
+    return out, moved[0]
+
+
+def _check_sorted(td, ex, ctx: str) -> None:
+    keys = np.array([h.sort_key for h in td.hits], np.float32)
+    docs = np.array([h.global_ord for h in td.hits], np.int64)
+    if td.total_hits != ex["hits"] or td.relation != "EQUAL_TO":
+        raise AssertionError(f"{ctx}: hits {td.total_hits} vs exact {ex['hits']}")
+    if not (np.array_equal(keys.view(np.int32), ex["scores"].astype(np.float32).view(np.int32))
+            and np.array_equal(docs, ex["docs"])):
+        raise AssertionError(f"{ctx}: sorted keys or docs differ from the exact answer")
+
+
+def phase_config3(corpus, columns, searcher, batch, card: str) -> dict:
+    """The three config-#3 forms on the card (see the module docstring);
+    launch counters reset just before the searches and read just after."""
+    from dataclasses import replace
+
+    from nrtsearch_tpu_torch import kernels
+    from nrtsearch_tpu_torch.core.searcher import SortSpec
+    from nrtsearch_tpu_torch.models.synthetic import column_clauses, config3_query
+    from nrtsearch_tpu_torch.ops import merge_scoring
+    from nrtsearch_tpu_torch.query import parse_query
+
+    view = searcher.packed_view("body")
+    names = columns["tag"][2]
+    singles = config3_singles(corpus, searcher)
+    trees = [config3_query(terms, names, SEED + i) for i, (_p, terms) in enumerate(singles)]
+    ts_desc, price_asc = SortSpec("ts", reverse=True), SortSpec("price")
+    forms = {
+        "scored": lambda i: searcher.search(parse_query(trees[i]), TOP_K),
+        "sorted_ts": lambda i: searcher.search(parse_query(trees[i]), TOP_K, sort=ts_desc),
+        "sorted_price": lambda i: searcher.search(_match(singles[i][1]), TOP_K, sort=price_asc),
+        "faceted": lambda i: searcher.fast_search_reduce(
+            searcher.compile_batchable(parse_query(trees[i])), TOP_K, FACETS),
+    }
+    batch_specs = [searcher.compile_batchable(_match(q), ts_desc) for q in batch]
+    if len({id(sp.sort[0]) for sp in batch_specs}) != 1:
+        raise AssertionError("the B=32 batch's specs must share one sort key object")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    fallbacks0 = merge_scoring.TOPK_FALLBACKS["hierarchical_topk"]
+    branch0 = dict(merge_scoring.MERGE_BRANCH)
+    paths0 = dict(view.path_counts)
+    lat = {name: [] for name in forms}
+    lat["sorted_b32"] = []
+    # _hierarchical_topk's full-sort fallbacks per form and path
+    falls = {(name, p): 0 for name in lat for p in ("fused", "merge")}
+    out: dict = {}
+    for _rep in range(3):
+        for name, run in forms.items():
+            for i in range(len(singles)):
+                f0 = merge_scoring.TOPK_FALLBACKS["hierarchical_topk"]
+                t = time.perf_counter()
+                res, path = _served(view, lambda: run(i))
+                lat[name].append(time.perf_counter() - t)
+                out[(name, i)] = (res, path)
+                falls[(name, path)] += merge_scoring.TOPK_FALLBACKS["hierarchical_topk"] - f0
+        f0 = merge_scoring.TOPK_FALLBACKS["hierarchical_topk"]
+        t = time.perf_counter()
+        b0 = dict(merge_scoring.MERGE_BRANCH)
+        batch_out = searcher.fast_search_batch(batch_specs, TOP_K)
+        lat["sorted_b32"].append(time.perf_counter() - t)
+        batch_calls = {k: merge_scoring.MERGE_BRANCH[k] - b0[k] for k in b0}
+        falls[("sorted_b32", "merge")] += merge_scoring.TOPK_FALLBACKS["hierarchical_topk"] - f0
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in CONFIG3_KERNELS}
+    fallbacks = merge_scoring.TOPK_FALLBACKS["hierarchical_topk"] - fallbacks0
+    branches = {k: merge_scoring.MERGE_BRANCH[k] - branch0[k] for k in branch0}
+    paths = {k: view.path_counts[k] - paths0[k] for k in paths0}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"config3: launches {launches}; specs by path {paths}; merge branch {branches}; "
+        f"_hierarchical_topk full-sort fallbacks {fallbacks}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"config #3 did not launch {missing}")
+    if not (paths["fused"] and paths["merge"] and branches["alt"]):
+        raise AssertionError(f"both paths and the alternating branch must serve: "
+                             f"{paths} {branches}")
+    if batch_calls != {"alt": 1, "plain": 0}:
+        raise AssertionError(f"the shared-sort B=32 batch must be one alternating "
+                             f"dispatch: {batch_calls}")
+    # launches of one column request, each counted alone: the shared-sort
+    # B=32 batch (merge path) and one scored tree single on each path
+    per_request = {}
+    for label, fn in (("sorted_b32", lambda: searcher.fast_search_batch(batch_specs, TOP_K)),
+                      ("scored_fused", lambda: forms["scored"](0)),
+                      ("scored_merge", lambda: forms["scored"](len(singles) - 1))):
+        kernels.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        per_request[label] = {k: kernels.LAUNCHES[k] for k in CONFIG3_KERNELS}
+    log(f"config3: launches per column request {per_request}")
+
+    # against the independent numpy answer
+    worst = {"fused": 0.0, "merge": 0.0}
+    swaps = 0
+    for i, (want, terms) in enumerate(singles):
+        node = column_clauses(trees[i])
+        for name in forms:
+            res, path = out[(name, i)]
+            expect = "merge" if name == "faceted" else want
+            if path != expect:
+                raise AssertionError(f"{name} single {i} took the {path} path, not {expect}")
+            ctx = f"config3 {name} {terms} ({path})"
+            if name == "sorted_price":
+                ex = corpus.exact_filtered_topk(terms, TOP_K, columns,
+                                                sort=("price", True, False))
+                _check_sorted(res, ex, ctx)
+                continue
+            sort = ("ts", False, False) if name == "sorted_ts" else None
+            ex = corpus.exact_filtered_topk(terms, TOP_K, columns, node, sort=sort,
+                                            facet="tag", total="price")
+            if name == "sorted_ts":
+                _check_sorted(res, ex, ctx)
+                continue
+            td = res[0] if name == "faceted" else res
+            rel = FUSED_REL if path == "fused" else MERGE_REL
+            swaps += _check_topk(td, (ex["scores"], ex["docs"], ex["hits"]), rel, ctx)
+            worst[path] = max(worst[path], _max_rel(td, (ex["scores"],)))
+            if name == "faceted":
+                facets, total = res[1]
+                want_f = {names[j]: int(c) for j, c in enumerate(ex["facet"]) if c}
+                if facets != want_f:
+                    raise AssertionError(f"{ctx}: facet counts differ")
+                if abs(total - ex["total"]) > SUM_REL * abs(ex["total"]):
+                    raise AssertionError(f"{ctx}: price sum {total} vs {ex['total']}")
+    for q, td in zip(batch, batch_out):
+        ex = corpus.exact_filtered_topk(q, TOP_K, columns, sort=("ts", False, False))
+        _check_sorted(td, ex, f"config3 sorted batch {q}")
+    log(f"config3 exact: {len(singles)} x {len(forms)} singles and the B={len(batch)} "
+        f"sorted batch; hits exact; scores worst rel fused {worst['fused']:.3g} "
+        f"(<= {FUSED_REL}), merge {worst['merge']:.3g} (<= {MERGE_REL}); near-tie swaps "
+        f"{swaps}; sorted keys and docs equal; facet counts equal, price sums within "
+        f"{SUM_REL}")
+
+    p50 = {k: 1e3 * float(np.median(v)) for k, v in lat.items()}
+    prof = profile_batch(searcher, batch, specs=batch_specs)
+    if prof["device_busy_ms"] <= 0:
+        raise AssertionError("the profiled sorted batch ran nothing on the device")
+    log(f"config3 p50 B=1: " + ", ".join(f"{k} {v:.2f} ms" for k, v in p50.items()
+                                         if k != "sorted_b32")
+        + f"; sorted B={len(batch)} {p50['sorted_b32']:.2f} ms (n = {len(lat['scored'])} per "
+        f"form, {len(lat['sorted_b32'])} batches); peak device memory {peak / 2**30:.3f} GiB "
+        f"| {card}")
+    log(f"config3 profile: sorted B={len(batch)} batch, device busy "
+        f"{prof['device_busy_ms']:.3f} ms ({100 * prof['device_busy_ms'] / p50['sorted_b32']:.1f}% "
+        f"of its p50; traced wall {prof['traced_wall_ms']:.3f} ms); top device items "
+        f"{json.dumps(prof['top'])} | {card}")
+    for i in (0, len(singles) - 1):
+        one = profile_call(lambda: forms["scored"](i))
+        log(f"config3 profile: scored single {i} ({singles[i][0]} path), device busy "
+            f"{one['device_busy_ms']:.3f} ms in {one['device_items']} device items "
+            f"(traced wall {one['traced_wall_ms']:.3f} ms; p50 of the form "
+            f"{p50['scored']:.2f} ms); top {json.dumps(one['top'][:5])} | {card}")
+    log(f"config3 _hierarchical_topk: {fallbacks} full-sort fallbacks over "
+        f"{3 * (len(singles) * len(forms) + 1)} searches; by form and path "
+        f"{ {f'{k[0]}/{k[1]}': n for k, n in falls.items() if n} } | {card}")
+    # per request as for the main path: gather_rows from a fused single,
+    # the merge path's kernels from the sorted batch
+    return {"launches": launches, "per_request": {
+        k: per_request["scored_fused" if k == "gather_rows" else "sorted_b32"][k]
+        for k in CONFIG3_KERNELS}}
+
+
+def _ingest_docs_with_values(n: int) -> list[dict]:
+    """Phase 7's documents plus doc-value fields: price (f32-exact), tag,
+    a LONG above 2^24 (an f64 column) and a multi-valued ATOM."""
+    rng = np.random.default_rng(SEED + 5)
+    docs = _ingest_docs(n)
+    for i, d in enumerate(docs):
+        d["price"] = str(float(np.float32(rng.uniform(0, 100))))
+        d["tag"] = f"t{int(rng.integers(0, 6))}"
+        d["big"] = str((1 << 25) + 3 * i)
+        d["labels"] = [f"l{int(j)}" for j in rng.integers(0, 5, 1 + i % 3)]
+    return docs
+
+
+def phase_commit(dev, n_docs: int = 2000) -> dict:
+    """IndexWriter on the card -> commit_segments -> open_commit on the
+    card: filtered (an f64 and a multi-valued clause through the eager
+    leaf evaluator), sorted and faceted answers bit-equal before and after."""
+    import tempfile
+
+    from nrtsearch_tpu_torch.core.directory import commit_segments, open_commit
+    from nrtsearch_tpu_torch.core.searcher import Searcher, SortSpec
+    from nrtsearch_tpu_torch.core.writer import IndexWriter
+    from nrtsearch_tpu_torch.query import parse_query
+    from nrtsearch_tpu_torch.schema import create_field_def
+
+    specs = {"id": {"type": "_ID", "store": True},
+             "body": {"type": "TEXT", "search": True},
+             "price": {"type": "FLOAT", "storeDocValues": True},
+             "tag": {"type": "ATOM", "storeDocValues": True},
+             "big": {"type": "LONG", "storeDocValues": True},
+             "labels": {"type": "ATOM", "storeDocValues": True, "multiValued": True}}
+    fds = {n: create_field_def(n, sp) for n, sp in specs.items()}
+    docs = _ingest_docs_with_values(n_docs)
+    w = IndexWriter(fds, dev)
+    w.add_documents(docs[: n_docs // 2])
+    w.refresh()
+    w.add_documents(docs[n_docs // 2 :])
+    before = Searcher(w.refresh(), fds)
+    tree = parse_query({"booleanQuery": {"clauses": [
+        {"occur": "MUST", "query": {"matchQuery": {"field": "body", "query": "common needle beta"}}},
+        {"occur": "FILTER", "query": {"rangeQuery": {"field": "price", "lower": "10",
+                                                      "upper": "80"}}},
+        {"occur": "FILTER", "query": {"rangeQuery": {"field": "big", "lower": "33554500"}}},
+        {"occur": "MUST_NOT", "query": {"termQuery": {"field": "labels", "textValue": "l2"}}},
+        {"occur": "MUST", "query": {"boost": 1.5, "termInSetQuery": {
+            "field": "tag", "textTerms": {"terms": ["t1", "t3"]}}}}]}})
+    plain = _match(["common", "delta"])
+
+    def answers(s):
+        out = []
+        for td in (s.search(tree, 50), s.search(tree, 50, sort=SortSpec("price")),
+                   s.search(plain, 50, sort=SortSpec("tag", reverse=True))):
+            out.append((td.total_hits, [h.global_ord for h in td.hits],
+                        [np.float32(h.score).view(np.int32).item() for h in td.hits],
+                        [h.sort_key for h in td.hits]))
+        td, red = s.fast_search_reduce(s.compile_batchable(tree), 50,
+                                       [{"kind": "ordinal", "field": "labels"},
+                                        {"kind": "sum", "field": "price"}])
+        out.append((td.total_hits, [h.global_ord for h in td.hits], red))
+        return out
+
+    want = answers(before)
+    with tempfile.TemporaryDirectory() as tmp:
+        commit_segments(before.segments, tmp, gen=1, version=1)
+        manifest, segs = open_commit(tmp, dev)
+        n_files = len(os.listdir(tmp))
+    after = Searcher(segs, fds)
+    if any(seg.device != dev for seg in segs):
+        raise AssertionError(f"open_commit must place the segments on {dev}")
+    got = answers(after)
+    if got != want:
+        raise AssertionError("the committed index answers differently after open_commit")
+    if not all(a[0] for a in want):
+        raise AssertionError("a commit-phase search matched nothing")
+    log(f"commit: {n_docs} docs in {len(segs)} segments (gen {manifest.gen}, {n_files} files), "
+        f"reopened on the card: 4 filtered/sorted/faceted answers bit-equal (hits "
+        f"{[a[0] for a in want]})")
+    return {"segments": len(segs)}
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -926,7 +1264,7 @@ def main() -> int:
 
     # 4 (before 3: the main path's tail width and first batch pick the
     # timed merge shapes)
-    corpus, searcher = phase_index(dev, NUM_DOCS, VOCAB, DRAWS, SEGMENTS)
+    corpus, columns, searcher = phase_index(dev, NUM_DOCS, VOCAB, DRAWS, SEGMENTS)
     log(f"index: torch.cuda.memory_allocated {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
     main_n = fused_tail_width(searcher)
     singles, batches = sample_search_queries(corpus)
@@ -991,6 +1329,10 @@ def main() -> int:
     launches.update(bucket["launches"])
     per_batch.update(bucket["per_batch"])
 
+    # 9. config #3 on the same index, then the commit round trip
+    config3 = phase_config3(corpus, columns, searcher, batches[0], card)
+    phase_commit(dev)
+
     table = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         st = stats[name]
@@ -1002,11 +1344,14 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": st.get("library_ms"),
             "library": LIBRARY[name], "share_of_bound": bound_ms / st["ms"],
             "launches_per_batch": per_batch[name], "shape": st["shape"],
+            "launches_config3": config3["launches"].get(name, 0),
+            "launches_per_config3_request": config3["per_request"].get(name, 0),
         })
         log(f"table {name} {st['shape']}: {st['ms']:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}, {100 * bound_ms / st['ms']:.1f}%), plain {st['plain_ms']:.4f} ms, "
             f"library {st.get('library_ms')} ({LIBRARY[name]}); launches {launches[name]}, "
-            f"{per_batch[name]} per batch | {card}")
+            f"{per_batch[name]} per batch, {config3['launches'].get(name, 0)} in config #3 "
+            f"({config3['per_request'].get(name, 0)} per column request) | {card}")
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

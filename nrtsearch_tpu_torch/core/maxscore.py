@@ -7,7 +7,8 @@ branch when the postings live on CUDA (``use_pallas``, as the reference sets
 it on its TPU). MaxScore pruning
 (``prune=True``: the theta dispatch, the term split, the probe and the
 window certificate) is not ported; the reference's serving default
-(NRT_MAXSCORE=0) never asks for it. ``split_rows`` serves the bucket path's
+(NRT_MAXSCORE=0) never asks for it, and flat reductions always take the
+full path there too. ``split_rows`` serves the bucket path's
 per-run bucket bounds (``PackedFieldView._bucket_state``).
 """
 
@@ -64,9 +65,10 @@ class PrunedIndex:
     plus per-run impact upper bounds, and the batched merge search.
 
     Queries are dicts: ``entries`` [(weight, [run_idx, ...])] per term,
-    ``require_all`` bool and ``n_terms`` int. One dispatch serves the batch:
-    the reference groups queries by their filter/additive/sort arrays, which
-    ported specs do not carry yet (ROADMAP item 8)."""
+    ``require_all`` bool, ``n_terms`` int, and optionally ``filter`` /
+    ``additive`` (device [max_doc] columns) and ``sort`` ((keys, ascending)).
+    One dispatch serves each group of queries that share the same column
+    objects (``_group_by_arrays``)."""
 
     def __init__(
         self,
@@ -123,46 +125,62 @@ class PrunedIndex:
         out[:, -1] = lens_np
         return out
 
-    def _dispatch(self, rows, n_terms, k: int, require_all: bool):
+    def _dispatch(self, rows, n_terms, k: int, require_all: bool,
+                  filter_mask=None, additive=None, sort=None,
+                  reduce_cols=(), reduce_kinds=()):
         """One merge_score_topk dispatch over planned run tables; returns
-        host (scores, docs, hits)."""
+        host (scores, docs, hits[, reductions])."""
         offs, lens, weights, run_len = plan_run_lists(
             rows, max_run=int(self.doc_ids.shape[0])
         )
         width = run_len * offs.shape[1]
         k_eff = min(k, max(self.max_doc, 1), width)
         dev = self.device
-        s, d, h = merge_score_topk(
+        out = merge_score_topk(
             self.doc_ids, self.impacts,
             torch.as_tensor(offs, device=dev), torch.as_tensor(lens, device=dev),
             torch.as_tensor(weights, device=dev),
             torch.as_tensor(np.asarray(n_terms, np.int32), device=dev),
             run_len=run_len, k=k_eff, require_all_terms=require_all,
-            use_pallas=self.use_pallas,
+            use_pallas=self.use_pallas, filter_mask=filter_mask, additive=additive,
+            sort_keys=None if sort is None else sort[0],
+            sort_ascending=True if sort is None else bool(sort[1]),
+            reduce_cols=reduce_cols, reduce_kinds=reduce_kinds,
         )
-        return s.cpu().numpy(), d.cpu().numpy(), h.cpu().numpy()
+        host = [t.cpu().numpy() for t in out[:3]]
+        if reduce_kinds:
+            host.append([r.cpu().numpy() for r in out[3]])
+        return host
 
     def search(
         self, queries: Sequence[dict], k: int, prune: bool = False,
-    ) -> list[tuple[np.ndarray, np.ndarray, int, bool]]:
+        reduce_cols=(), reduce_kinds=(),
+    ):
         """Batched full-width search. Returns per query (scores [k] f32 -inf
-        padded, docs [k] int64, total_hits, exact)."""
-        if prune:
+        padded, docs [k] int64, total_hits, exact); with ``reduce_kinds``
+        also the per-query reductions, as (results, reductions)."""
+        if prune and not reduce_kinds:
             raise NotImplementedError(
                 "MaxScore pruning is not ported yet (ROADMAP item 14)"
             )
         B = len(queries)
         results: list = [None] * B
+        reductions: dict[int, list] = {}
         full_idx: list[int] = []
         for i, q in enumerate(queries):
             if not q["entries"]:
                 results[i] = (
                     np.full(k, -np.inf, np.float32), np.zeros(k, np.int64), 0, True,
                 )
+                if reduce_kinds:
+                    reductions[i] = _zero_reductions(reduce_kinds)
             else:
                 full_idx.append(i)
         if full_idx:
-            self._run_full(queries, full_idx, k, results)
+            self._run_full(queries, full_idx, k, results, reduce_cols, reduce_kinds,
+                           reductions)
+        if reduce_kinds:
+            return results, [reductions[i] for i in range(B)]
         return results
 
     @staticmethod
@@ -173,24 +191,63 @@ class PrunedIndex:
         b = _pow2(max(len(rows), 1))
         return rows + [[] for _ in range(b - len(rows))]
 
-    def _run_full(self, queries, idxs, k, results):
-        rows = self._pad_rows([
-            [
-                (int(self.run_offsets[r]), int(self.run_lengths[r]), w)
-                for w, runs in queries[i]["entries"]
-                for r in runs
-                if self.run_lengths[r]
-            ]
-            for i in idxs
-        ])
-        n_terms = [queries[i]["n_terms"] for i in idxs]
-        n_terms = n_terms + [1] * (len(rows) - len(n_terms))
-        req = any(queries[i].get("require_all") for i in idxs)
-        s2, d2, h2 = self._dispatch(rows, n_terms, k, req)
-        for row_i, i in enumerate(idxs):
-            kk = s2[row_i].shape[0]
-            out_s = np.full(k, -np.inf, np.float32)
-            out_d = np.zeros(k, np.int64)
-            out_s[: min(k, kk)] = s2[row_i][:k]
-            out_d[: min(k, kk)] = d2[row_i][:k].astype(np.int64)
-            results[i] = (out_s, out_d, int(h2[row_i]), True)
+    def _run_full(self, queries, idxs, k, results, reduce_cols=(), reduce_kinds=(),
+                  reductions_out=None):
+        for (fmask, addv), gidx in _group_by_arrays([queries[i] for i in idxs], idxs):
+            srt = queries[gidx[0]].get("sort")
+            rows = self._pad_rows([
+                [
+                    (int(self.run_offsets[r]), int(self.run_lengths[r]), w)
+                    for w, runs in queries[i]["entries"]
+                    for r in runs
+                    if self.run_lengths[r]
+                ]
+                for i in gidx
+            ])
+            n_terms = [queries[i]["n_terms"] for i in gidx]
+            n_terms = n_terms + [1] * (len(rows) - len(n_terms))
+            req = any(queries[i].get("require_all") for i in gidx)
+            out = self._dispatch(rows, n_terms, k, req, filter_mask=fmask,
+                                 additive=addv, sort=srt, reduce_cols=reduce_cols,
+                                 reduce_kinds=reduce_kinds)
+            s2, d2, h2 = out[:3]
+            for row_i, i in enumerate(gidx):
+                if reduce_kinds:
+                    reductions_out[i] = [np.asarray(r[row_i]) for r in out[3]]
+                kk = s2[row_i].shape[0]
+                out_s = np.full(k, -np.inf, np.float32)
+                out_d = np.zeros(k, np.int64)
+                out_s[: min(k, kk)] = s2[row_i][:k]
+                out_d[: min(k, kk)] = d2[row_i][:k].astype(np.int64)
+                results[i] = (out_s, out_d, int(h2[row_i]), True)
+
+
+def _zero_reductions(reduce_kinds) -> list:
+    """The reductions of a query that matches nothing."""
+    out = []
+    for kind in reduce_kinds:
+        if kind[0] == "ordinal":
+            out.append(np.zeros(int(kind[1]), np.int32))
+        elif kind[0] == "count":
+            out.append(np.int32(0))
+        elif kind[0] == "sum":
+            out.append(np.float32(0.0))
+        elif kind[0] == "min":
+            out.append(np.float32(np.inf))
+        else:
+            out.append(np.float32(-np.inf))
+    return out
+
+
+def _group_by_arrays(queries, idxs):
+    """Group query indices by (filter, additive, sort) object identity, so
+    that one dispatch shares one [D] column set (per-query [B, D] columns
+    would not fit device memory). Returns [((filter, additive), [i, ...])]."""
+    groups: dict = {}
+    for q, i in zip(queries, idxs):
+        f, a, srt = q.get("filter"), q.get("additive"), q.get("sort")
+        key = (id(f) if f is not None else None,
+               id(a) if a is not None else None,
+               (id(srt[0]), bool(srt[1])) if srt is not None else None)
+        groups.setdefault(key, ((f, a), []))[1].append(i)
+    return list(groups.values())

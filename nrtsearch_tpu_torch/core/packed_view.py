@@ -14,18 +14,26 @@ go to the merge path, exactly as in the reference. ``NRT_FAST_PATH=bucket``
 (or ``NRT_BUCKET=1``) sends plain text batches to the bucket-local path
 (``bucket_search_batch``, ops/bucket_retrieval.py) after the fused attempt
 and before the merge path, as the reference routes it; its scores are
-15-bit quantized. Flat reductions are not ported yet.
+15-bit quantized and it refuses specs with columns, as the reference does.
+
+A spec may carry device columns indexed by global doc ord: a ``filter``
+mask, an ``additive`` score column and a ``sort`` (keys, ascending).
+Specs are grouped by the identity of those objects, one dispatch per group.
+Flat reductions (facet counts, stats) ride the merge path only
+(``search_batch(..., reduce_cols, reduce_kinds)``), over columns laid out
+by ``global_column``.
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field as dc_field
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from nrtsearch_tpu_torch.device import on_cuda
 from nrtsearch_tpu_torch.ops.bm25 import lucene_idf
@@ -40,14 +48,22 @@ GATHER_TILE = 8192
 
 @dataclass(frozen=True)
 class QuerySpec:
-    """One fast-path text query: analyzed terms against one field. (The
-    reference's filter / additive / sort columns come with the filtered and
-    sorted fused variants, ROADMAP item 8.)"""
+    """One fast-path text query: analyzed terms against one field.
+
+    ``filter`` is an optional device bool [max_doc] mask (global ords):
+    docs failing it match nothing. ``additive`` is an optional device f32
+    [max_doc] per-doc score added to matched docs before the top-k (the
+    columnar score of a decomposed boolean tree's non-text MUST clauses).
+    ``sort`` is an optional (keys f32 [max_doc], ascending): matched docs
+    rank by the key instead of the score."""
 
     field: str
     terms: tuple[str, ...]
     require_all: bool = False
     boost: float = 1.0
+    filter: Optional[torch.Tensor] = dc_field(default=None, compare=False, hash=False)
+    additive: Optional[torch.Tensor] = dc_field(default=None, compare=False, hash=False)
+    sort: Optional[tuple] = dc_field(default=None, compare=False, hash=False)
 
 
 @dataclass
@@ -81,6 +97,8 @@ class PackedFieldView:
         self.doc_count = int(searcher.stats.doc_count(field))
         self.stats = searcher.stats
         self.max_doc = int(searcher.max_doc)
+        self._searcher = searcher
+        self._columns: dict[str, dict] = {}
         self._dense_build_lock = threading.Lock()
         self._dense_st = None
         # specs served per path over this view's lifetime (reporting)
@@ -161,8 +179,8 @@ class PackedFieldView:
         """Host planning of one batch for the bucket path, line for line the
         reference's (packed_view.py:192-260) except that the quantization
         scale bounds every query term. Returns None when a spec needs
-        another path (more runs than the slot budget, or a batch that mixes
-        AND and OR), else a dict: per-query ``live`` flags, the [B, T]
+        another path (filter, additive or sort columns, more runs than the
+        slot budget, or a batch that mixes AND and OR), else a dict: per-query ``live`` flags, the [B, T]
         ``term_offs`` / ``weights``, [B, T, m+1] ``bounds``, ``n_terms``,
         ``scales``, ``tile``, ``bits``, ``require_all``. ``live`` is None
         when every spec is a dead conjunction."""
@@ -174,8 +192,8 @@ class PackedFieldView:
         run_lengths = self.index.run_lengths
         per_q: list = []
         for spec in specs:
-            # filter / additive / sort specs refuse here once QuerySpec
-            # carries those columns (ROADMAP item 8)
+            if spec.filter is not None or spec.additive is not None or spec.sort is not None:
+                return None
             entries = self.term_entries(spec.terms, spec.boost)
             if spec.require_all and any(not runs for _, _, runs in entries):
                 per_q.append(None)   # dead: a required term matches nothing
@@ -344,7 +362,10 @@ class PackedFieldView:
     def dense_search_batch(self, specs: Sequence[QuerySpec], k: int):
         """Text queries on the fused dense path (ops/dense_fused.py): compact
         head rows, tail runs through the bitonic merge in exact f32, window
-        or full combine. Returns None when a spec needs the merge path (a
+        or full combine. Filters, additive columns and sorts ride the same
+        dispatch: specs are grouped by the identity of their column objects
+        (and the AND/OR mode), one dispatch per group, each group's columns
+        padded to D. Returns None when a spec needs the merge path (a
         conjunction with a tail term, more than R tail runs), as the
         reference does."""
         from nrtsearch_tpu_torch.ops.dense_fused import dense_fused_topk
@@ -357,12 +378,14 @@ class PackedFieldView:
             return None
         dev = self.index.device
         head_pos = st["head_pos"]
+        D = st["D"]
         B = len(specs)
         run_offs = self.index.run_offsets
         run_lens = self.index.run_lengths
 
-        # one fused dispatch per AND/OR mode (a static flag of the kernel)
-        groups: dict[bool, list[int]] = {}
+        # one fused dispatch per (filter, additive, sort) object set and
+        # AND/OR mode (a static flag of the kernel)
+        groups: dict[tuple, list[int]] = {}
         parsed = []
         for qi, spec in enumerate(specs):
             entries = self.term_entries(spec.terms, spec.boost)
@@ -372,14 +395,25 @@ class PackedFieldView:
             is_and = bool(spec.require_all and distinct > 1 and not dead)
             if is_and and any(t not in head_pos for t, _, _ in live):
                 return None   # conjunction with a tail term: merge path
+            f, a, srt = spec.filter, spec.additive, spec.sort
+            key = (
+                id(f) if f is not None else None,
+                id(a) if a is not None else None,
+                (id(srt[0]), bool(srt[1])) if srt is not None else None,
+                is_and,
+            )
             parsed.append((qi, spec, live, dead, distinct))
-            groups.setdefault(is_and, []).append(qi)
+            groups.setdefault(key, []).append(qi)
+
+        def pad_col(x):
+            n = x.shape[0]
+            return x if n == D else F.pad(x, (0, D - n))
 
         out: list = [_empty(k)] * B
         # shape discipline: U from a 2-value menu with head->tail spill, one
         # fixed tail shape (run_len, R) per snapshot
         u_cap = int(os.environ.get("NRT_DENSE_U", "128"))
-        for is_and, idxs in groups.items():
+        for (*_cols, is_and), idxs in groups.items():
             items = [parsed[i] for i in idxs]
             live_items = [it for it in items if not it[3]]
             if not live_items:
@@ -457,11 +491,19 @@ class PackedFieldView:
             def t(x):
                 return torch.as_tensor(x, device=dev)
 
+            spec0 = live_items[0][1]
+            filt = None if spec0.filter is None else pad_col(spec0.filter)
+            additive = None if spec0.additive is None else pad_col(spec0.additive)
+            sort_keys, sort_ascending = None, True
+            if spec0.sort is not None:
+                sort_keys = pad_col(spec0.sort[0]).to(torch.float32)
+                sort_ascending = bool(spec0.sort[1])
             packed = dense_fused_topk(
                 st["rows"], st["row_max"], self.index.doc_ids, self.index.impacts,
                 t(W), t(row_idx), t(n_req), t(t_offs), t(t_lens), t(t_w),
-                rows_lo=st["rows_lo"], k=k, has_head=has_head, has_tail=any_tail,
-                run_len=run_len, require_all=is_and,
+                filt, additive, sort_keys, st["rows_lo"], k=k, has_head=has_head,
+                has_tail=any_tail, run_len=run_len, require_all=is_and,
+                sort_ascending=sort_ascending,
             )
             scores, docs, hits, exact = decode_packed2(packed, k)
             for gi, (qi, *_rest) in enumerate(live_items):
@@ -473,35 +515,96 @@ class PackedFieldView:
 
     # -- fused batched search -----------------------------------------------------
 
+    # -- global doc-value columns (flat reductions) ------------------------------
+
+    def global_column(self, field: str) -> dict:
+        """Doc-value column laid out by GLOBAL doc ord, for flat reductions
+        over the merge path's match stream: ``values`` (int32 global
+        ordinals, -1 where absent, or f32 for numeric columns, f64 ones
+        included, as the reference casts them), ``present`` and, for
+        ORDINAL columns, ``ord_terms``: the sorted union of the segments'
+        dictionaries. Cached per packed view."""
+        cached = self._columns.get(field)
+        if cached is not None:
+            return cached
+        searcher = self._searcher
+        ord_union: set[str] = set()
+        is_ordinal = False
+        for seg in searcher.segments:
+            dv = seg.doc_values.get(field)
+            if dv is not None and dv.ord_terms is not None:
+                is_ordinal = True
+                ord_union.update(dv.ord_terms)
+        ord_terms = sorted(ord_union)
+        gidx = {t: i for i, t in enumerate(ord_terms)}
+        vals = np.zeros(self.max_doc, np.float64)
+        present = np.zeros(self.max_doc, bool)
+        for idx, seg in enumerate(searcher.segments):
+            dv = seg.doc_values.get(field)
+            if dv is None:
+                continue
+            base = int(searcher.bases[idx])
+            n = seg.num_docs
+            hp = np.asarray(dv.host_present[:n], bool)
+            if is_ordinal:
+                remap = np.array([gidx[t] for t in (dv.ord_terms or [])], np.int64)
+                hv = np.asarray(dv.host_values[:n]).astype(np.int64)
+                if len(remap):
+                    v = np.where(hp, remap[np.clip(hv, 0, len(remap) - 1)], -1)
+                else:
+                    v = np.full(n, -1, np.int64)
+            else:
+                v = np.asarray(dv.host_values[:n]).astype(np.float64)
+            vals[base : base + n] = np.where(hp, v, vals[base : base + n])
+            present[base : base + n] = hp
+        dev = self.index.device if self.index is not None else searcher.segments[0].device
+        out = {
+            "values": torch.as_tensor(vals.astype(np.int32 if is_ordinal else np.float32),
+                                      device=dev),
+            "present": torch.as_tensor(present, device=dev),
+            "ord_terms": ord_terms if is_ordinal else None,
+        }
+        self._columns[field] = out
+        return out
+
+    # -- batched search ------------------------------------------------------------
+
     def search_batch(
         self, specs: Sequence[QuerySpec], k: int, prune: Optional[bool] = None,
-    ) -> list[FastResult]:
-        """Batched search over all segments in one dispatch per path.
+        reduce_cols=(), reduce_kinds=(),
+    ):
+        """Batched search over all segments in one dispatch per path (and
+        column group).
 
         ``NRT_FAST_PATH`` picks the path; unset, the fused dense path when
         the index lives on CUDA and the merge path on the CPU. The bucket
         path is opt-in (``NRT_FAST_PATH=bucket`` or ``NRT_BUCKET=1``), as in
-        the reference; what it refuses goes to the merge path. ``prune=None``
-        reads NRT_MAXSCORE (default off; pruning is not ported)."""
+        the reference; what it refuses goes to the merge path. With
+        ``reduce_kinds`` the batch takes the merge path and returns
+        (results, per-spec reductions). ``prune=None`` reads NRT_MAXSCORE
+        (default off; pruning is not ported)."""
+        from nrtsearch_tpu_torch.core.maxscore import _zero_reductions
+
         path = os.environ.get("NRT_FAST_PATH", "")
         if not path:
             on_dev = self.index is not None and on_cuda(self.index.doc_ids)
             path = "dense" if on_dev else "merge"
         if prune is None:
             prune = os.environ.get("NRT_MAXSCORE", "0") == "1"
-        if path in ("dense", "fused"):
+        if path in ("dense", "fused") and not reduce_kinds:
             res = self.dense_search_batch(specs, k)
             if res is not None:
                 self.path_counts["fused"] += len(specs)
                 return res
-        if path == "bucket" or os.environ.get("NRT_BUCKET", "0") == "1":
+        if (path == "bucket" or os.environ.get("NRT_BUCKET", "0") == "1") \
+                and not reduce_kinds:
             res = self.bucket_search_batch(specs, k)
             if res is not None:
                 self.path_counts["bucket"] += len(specs)
                 return res
         B = len(specs)
-        if self.total_len == 0:
-            return [_empty(k)] * B
+        out = [_empty(k)] * B
+        reds = [_zero_reductions(reduce_kinds)] * B
         queries = []
         dead = [False] * B
         for qi, spec in enumerate(specs):
@@ -514,21 +617,30 @@ class PackedFieldView:
                 "entries": [(w, runs) for _, w, runs in entries if w and runs],
                 "require_all": spec.require_all,
                 "n_terms": len(spec.terms) if spec.require_all else 1,
+                "filter": spec.filter,
+                "additive": spec.additive,
+                "sort": spec.sort,
             })
         # never dispatch empty queries: a zero-run row is wasted width (and
         # faulted the reference's TPU merge kernel)
         live_idx = [
             qi for qi in range(B) if not dead[qi] and queries[qi]["entries"]
         ]
-        out = [_empty(k)] * B
-        if not live_idx:
-            return out
-        self.path_counts["merge"] += len(live_idx)
-        results = self.index.search([queries[qi] for qi in live_idx], k, prune=prune)
-        for si, qi in enumerate(live_idx):
-            s, d, total, count_exact = results[si]
-            out[qi] = FastResult(s, d, total, not count_exact)
-        return out
+        if live_idx:
+            self.path_counts["merge"] += len(live_idx)
+            sub = [queries[qi] for qi in live_idx]
+            if reduce_kinds:
+                results, reds_sub = self.index.search(
+                    sub, k, prune=prune, reduce_cols=reduce_cols,
+                    reduce_kinds=reduce_kinds)
+            else:
+                results = self.index.search(sub, k, prune=prune)
+            for si, qi in enumerate(live_idx):
+                s, d, total, count_exact = results[si]
+                out[qi] = FastResult(s, d, total, not count_exact)
+                if reduce_kinds:
+                    reds[qi] = reds_sub[si]
+        return (out, reds) if reduce_kinds else out
 
 
 def _device_packed(view: PackedFieldView, parts, total_len: int, pad_slack: int):

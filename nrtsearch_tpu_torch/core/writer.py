@@ -3,9 +3,11 @@ nrtsearch_tpu/core/writer.py).
 
 Documents buffer in a host-side SegmentBuilder; ``refresh()`` flushes the
 buffer into a new immutable segment on the writer's device and returns the
-segment list (the caller makes a new Searcher over it). Segments are never
-merged. Deletes, doc-value updates, merges and the upsert of an _ID that is
-already indexed raise ``NotImplementedError`` (ROADMAP item 10).
+segment list (the caller makes a new Searcher over it). Documents carry the
+field types ``SegmentBuilder`` builds: text, _ID, ATOM and numeric fields,
+with doc values where the field stores them. Segments are never merged.
+Deletes, doc-value updates, merges and the upsert of an _ID that is already
+indexed raise ``NotImplementedError`` (ROADMAP item 10).
 """
 
 from __future__ import annotations

@@ -21,8 +21,12 @@ f32 and bit-equal to the reference: every stage keeps its operation order.
   the plain network with a reversal per level and the shifted-add scan.
   On CUDA its merge levels still go through the far/near kernels.
 
-Filters, additive columns, doc-value sorts, count thresholds and flat
-reductions are not ported yet (they come with the general evaluator).
+Both branches take the reference's column arguments in its order
+(``merge_scoring.py:372-462``): a filter gates the merged contributions
+before the finish; flat reductions read the finish's match stream; then
+sort keys replace the masked scores (negated for an ascending sort, and
+negated back after the top-k), or the additive column is added to them; a
+count threshold counts the masked values at or above it.
 """
 
 from __future__ import annotations
@@ -40,6 +44,9 @@ DOC_SENTINEL_LOW = np.int32(-(2**31) + 1)  # front padding (sorts first)
 
 # host syncs taken by _hierarchical_topk's exactness check, one per call
 HOST_SYNCS = {"hierarchical_topk": 0}
+# _hierarchical_topk calls whose check failed and that took the full
+# stable sort (a tie plateau at tau, or fewer than k rows with a match)
+TOPK_FALLBACKS = {"hierarchical_topk": 0}
 # merged width from which the accelerator branch takes the alternating
 # network: the reference's TILE (pallas_merge.py:31). It picks the network,
 # not a tile, so it keeps the reference's value.
@@ -321,38 +328,44 @@ def merge_score_topk(
     reduce_kinds=(),
 ):
     """Scatter-free retrieval. Returns (scores [B, k], docs [B, k],
-    hits [B]). Deleted docs carry zero impacts and drop out through the
-    ``score > 0`` mask. ``use_pallas`` picks the accelerator branch (None:
-    when the postings live on CUDA); see the module docstring."""
-    if (filter_mask is not None or additive is not None or sort_keys is not None
-            or count_threshold is not None or reduce_kinds):
-        raise NotImplementedError(
-            "filter_mask, additive, sort_keys, count_threshold and reductions "
-            "are not ported yet (ROADMAP item 8)"
-        )
+    hits [B]), plus counts [B] of masked values at or above
+    ``count_threshold`` [B] when it is given, or else the list of flat
+    reductions when ``reduce_kinds`` is given (see ``_flat_reductions``).
+    Deleted docs carry zero impacts and drop out through the ``score > 0``
+    mask. ``filter_mask`` (bool [D]), ``additive`` and ``sort_keys`` (f32
+    [D]) are indexed by doc id; with sort keys the returned scores are the
+    keys. ``use_pallas`` picks the accelerator branch (None: when the
+    postings live on CUDA); see the module docstring."""
     if use_pallas is None:
         use_pallas = on_cuda(post_docs)
     R = term_offsets.shape[1]
-    if use_pallas:
-        alt = R * run_len >= ALT_MIN_WIDTH
-        MERGE_BRANCH["alt" if alt else "plain"] += 1
-        docs, contribs = gather_runs_accel(
-            post_docs, post_impacts, term_offsets, term_lengths, term_weights,
-            run_len, alternating=alt,
+    cols = dict(additive=additive, sort_keys=sort_keys, sort_ascending=sort_ascending,
+                count_threshold=count_threshold, reduce_cols=reduce_cols,
+                reduce_kinds=reduce_kinds)
+    if not use_pallas:
+        docs, contribs = gather_runs(
+            post_docs, post_impacts, term_offsets, term_lengths, term_weights, run_len
         )
-        if not alt:
-            docs, contribs = merge_sorted_runs(docs, contribs)
-            return _finish(docs, contribs, n_terms, k, require_all_terms, max_seg=R)
-        docs, contribs = bitonic_merge.merge_sorted_runs_alt(docs, contribs)
-        masked = finish_mask(docs, contribs, n_terms, R, require_all_terms)
-        total_hits = (masked > float("-inf")).sum(dim=-1, dtype=torch.int32)
-        top_scores, pos = _hierarchical_topk(masked, k)
-        return top_scores, torch.gather(docs, 1, pos), total_hits
-    docs, contribs = gather_runs(
-        post_docs, post_impacts, term_offsets, term_lengths, term_weights, run_len
+        docs, contribs = merge_sorted_runs(docs, contribs)
+        if filter_mask is not None:
+            contribs = contribs * _filter_gate(docs, filter_mask)
+        return _finish(docs, contribs, n_terms, k, require_all_terms, max_seg=R, **cols)
+    alt = R * run_len >= ALT_MIN_WIDTH
+    MERGE_BRANCH["alt" if alt else "plain"] += 1
+    docs, contribs = gather_runs_accel(
+        post_docs, post_impacts, term_offsets, term_lengths, term_weights,
+        run_len, alternating=alt,
     )
-    docs, contribs = merge_sorted_runs(docs, contribs)
-    return _finish(docs, contribs, n_terms, k, require_all_terms, max_seg=R)
+    if alt:
+        docs, contribs = bitonic_merge.merge_sorted_runs_alt(docs, contribs)
+    else:
+        docs, contribs = merge_sorted_runs(docs, contribs)
+    if filter_mask is not None:
+        contribs = contribs * _filter_gate(docs, filter_mask)
+    if not alt:
+        return _finish(docs, contribs, n_terms, k, require_all_terms, max_seg=R, **cols)
+    masked = finish_mask(docs, contribs, n_terms, R, require_all_terms)
+    return _rank_topk(masked, docs, k, _hierarchical_topk, **cols)
 
 
 def _hierarchical_topk(masked: torch.Tensor, k: int):
@@ -378,6 +391,7 @@ def _hierarchical_topk(masked: torch.Tensor, k: int):
     safe = ((row_max >= tau).sum(dim=-1) <= r_take).all() & (tau > float("-inf")).all()
     HOST_SYNCS["hierarchical_topk"] += 1
     if not bool(safe.item()):
+        TOPK_FALLBACKS["hierarchical_topk"] += 1
         return topk_lowest_index(masked, k)
     rows_sorted = torch.sort(rm_idx, dim=-1).values
     cand = torch.gather(m3, 1, rows_sorted[..., None].expand(B, r_take, 128))
@@ -386,9 +400,93 @@ def _hierarchical_topk(masked: torch.Tensor, k: int):
     return cs, row * 128 + ci % 128
 
 
+def _filter_gate(docs: torch.Tensor, filter_mask: torch.Tensor) -> torch.Tensor:
+    """Per-entry gate: 1.0 where the doc passes the filter, else 0.0.
+    Sentinel entries read a clamped index; their contribs are already 0."""
+    idx = torch.clamp(docs, 0, filter_mask.shape[0] - 1)
+    return filter_mask[idx].to(torch.float32)
+
+
+def _rank_by_keys(masked, docs, sort_keys, ascending: bool):
+    """Matched entries take their doc's sort key (negated when ascending,
+    so the largest-first top-k ranks them; ties keep the lower position,
+    that is the lower doc id)."""
+    keys = sort_keys[torch.clamp(docs, 0, sort_keys.shape[0] - 1)]
+    if ascending:
+        keys = -keys
+    return torch.where(masked > float("-inf"), keys, float("-inf"))
+
+
+def _flat_reductions(match, docs, reduce_cols, reduce_kinds) -> list:
+    """Flat field reductions over the finish's unique-match stream.
+
+    match: bool [B, W], True exactly at matched docs' tail entries.
+    docs: int32 [B, W] doc ids. reduce_cols: per reduction, (values [D],
+    present [D] or None); ordinal columns hold the global ordinal (-1 where
+    absent). reduce_kinds: per reduction, ("ordinal", n_ords) |
+    ("sum"|"min"|"max",) | ("count",). Returns int32 [B, n_ords] per
+    ordinal reduction, f32 [B] per stat (f64 for an f64 sum), int32 [B] per
+    count."""
+    out = []
+    for (vals, present), kind in zip(reduce_cols, reduce_kinds):
+        if kind[0] == "count":
+            out.append(match.sum(dim=-1, dtype=torch.int32))
+            continue
+        safe = torch.clamp(docs, 0, vals.shape[0] - 1)
+        g = vals[safe]
+        eff = match if present is None else match & present[safe]
+        if kind[0] == "ordinal":
+            n_ords = int(kind[1])
+            gi = g.to(torch.int32)
+            # ordinal n collects every entry that counts for none
+            slot = torch.where(eff & (gi >= 0), gi, n_ords).to(torch.int64)
+            counts = torch.zeros((match.shape[0], n_ords + 1), dtype=torch.int32,
+                                 device=match.device)
+            counts.scatter_add_(1, slot, torch.ones_like(gi))
+            out.append(counts[:, :n_ords])
+        elif kind[0] == "sum":
+            v = g if g.dtype == torch.float64 else g.to(torch.float32)
+            out.append(torch.where(eff, v, 0.0).sum(dim=-1))
+        elif kind[0] == "min":
+            out.append(torch.where(eff, g.to(torch.float32), float("inf")).amin(dim=-1))
+        elif kind[0] == "max":
+            out.append(torch.where(eff, g.to(torch.float32), float("-inf")).amax(dim=-1))
+        else:
+            raise ValueError(f"unknown reduction kind: {kind!r}")
+    return out
+
+
+def _rank_topk(masked, docs, k: int, topk, *, additive=None, sort_keys=None,
+               sort_ascending: bool = True, count_threshold=None, reduce_cols=(),
+               reduce_kinds=()):
+    """The column half of the finish, over a masked stream (the per-doc
+    sum at each matched doc's last entry, -inf elsewhere): hit counts and
+    reductions from the match stream, then sort keys or the additive
+    column, then the top-k by ``topk`` (a top-k with the lower-index tie
+    rule)."""
+    neg = float("-inf")
+    ok = masked > neg
+    total_hits = ok.sum(dim=-1, dtype=torch.int32)
+    reductions = (_flat_reductions(ok, docs, reduce_cols, reduce_kinds)
+                  if reduce_kinds else None)
+    if sort_keys is not None:
+        masked = _rank_by_keys(masked, docs, sort_keys, sort_ascending)
+    elif additive is not None:
+        extra = additive[torch.clamp(docs, 0, additive.shape[0] - 1)]
+        masked = torch.where(ok, masked + extra, neg)
+    top_scores, pos = topk(masked, k)
+    top_docs = torch.gather(docs, 1, pos)
+    if sort_keys is not None and sort_ascending:
+        top_scores = torch.where(top_scores > neg, -top_scores, top_scores)
+    if count_threshold is not None:
+        n_above = (masked >= count_threshold[:, None]).sum(dim=-1, dtype=torch.int32)
+        return top_scores, top_docs, total_hits, n_above
+    if reductions is not None:
+        return top_scores, top_docs, total_hits, reductions
+    return top_scores, top_docs, total_hits
+
+
 def _finish(docs, contribs, n_terms, k: int, require_all_terms: bool,
-            max_seg: int):
+            max_seg: int, **cols):
     masked = finish_mask_twin(docs, contribs, n_terms, max_seg, require_all_terms)
-    top_scores, pos = topk_lowest_index(masked, k)
-    total_hits = (masked > float("-inf")).sum(dim=-1, dtype=torch.int32)
-    return top_scores, torch.gather(docs, 1, pos), total_hits
+    return _rank_topk(masked, docs, k, topk_lowest_index, **cols)

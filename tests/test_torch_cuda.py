@@ -270,6 +270,65 @@ def test_merge_score_topk_cuda_equals_cpu_accel_branch(cuda_device, run_len, req
     assert torch.equal(g[1].cpu()[fin], c[1][fin])
 
 
+def _column_args(case, rng, B, D, dev):
+    """merge_score_topk column arguments: a filter with an additive column
+    and count thresholds; a filter with a descending sort (keys with long
+    tie plateaus and a missing sentinel) and every reduction kind; an
+    ascending sort."""
+    def t(x):
+        return torch.from_numpy(x).to(dev)
+
+    filt = rng.random(D) < 0.7
+    keys = rng.integers(0, 50, D).astype(np.float32)
+    keys[rng.random(D) < 0.01] = np.float32(-1e38)
+    if case == "filter_additive_count":
+        additive = np.where(rng.random(D) < 0.5, 1.5, 0.0).astype(np.float32)
+        return dict(filter_mask=t(filt), additive=t(additive),
+                    count_threshold=t(np.linspace(0.5, 3.0, B).astype(np.float32)))
+    if case == "sort_asc":
+        return dict(sort_keys=t(keys), sort_ascending=True)
+    tags = rng.integers(-1, 12, D).astype(np.int32)
+    vals = (rng.random(D) * 100).astype(np.float32)
+    present = t(tags >= 0)
+    return dict(filter_mask=t(filt), sort_keys=t(keys), sort_ascending=False,
+                reduce_cols=((t(tags), present), (t(vals), None),
+                             (t(np.zeros(1, np.float32)), None), (t(vals), present),
+                             (t(vals), None)),
+                reduce_kinds=(("ordinal", 12), ("sum",), ("count",), ("min",), ("max",)))
+
+
+@pytest.mark.parametrize("run_len", [4096, 65536])
+@pytest.mark.parametrize("case", ["filter_additive_count", "sort_desc_reduce", "sort_asc"])
+def test_merge_score_topk_columns_cuda_equals_cpu(cuda_device, case, run_len):
+    """The column arguments on the card's accelerator branch against the
+    same call on the CPU (twins): bit-equal scores, keys, hits and counts;
+    reduction counts equal, the f32 sum within 1e-6 relative."""
+    rng = np.random.default_rng(run_len + len(case))
+    P = 3 * run_len
+    docs, imps = _postings(rng, P, P // 2)
+    tabs = _tables(rng, 4, 8, run_len, P)
+    n_terms = torch.tensor([2, 3, 1, 1], dtype=torch.int32)
+    kw = dict(run_len=run_len, k=100, require_all_terms=case == "sort_asc")
+    cpu_cols = _column_args(case, np.random.default_rng(7), 4, P // 2, "cpu")
+    gpu_cols = _column_args(case, np.random.default_rng(7), 4, P // 2, cuda_device)
+    g = ms.merge_score_topk(docs.to(cuda_device), imps.to(cuda_device),
+                            *[x.to(cuda_device) for x in tabs], n_terms.to(cuda_device),
+                            **kw, **gpu_cols)
+    c = ms.merge_score_topk(docs, imps, *tabs, n_terms, use_pallas=True, **kw, **cpu_cols)
+    assert torch.equal(g[0].cpu().view(torch.int32), c[0].view(torch.int32))
+    assert torch.equal(g[2].cpu(), c[2]) and int(c[2][:-1].min()) > 0   # row 3: no runs
+    fin = torch.isfinite(c[0])
+    assert torch.equal(g[1].cpu()[fin], c[1][fin])
+    if case == "filter_additive_count":
+        assert torch.equal(g[3].cpu(), c[3])
+    if case == "sort_desc_reduce":
+        for i, (a, b) in enumerate(zip(g[3], c[3])):
+            if i == 1:
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=0)
+            else:
+                assert torch.equal(a.cpu(), b), i
+
+
 def test_accel_wrappers_refuse_bad_inputs(cuda_device):
     docs = torch.zeros((2, 1 << 16), dtype=torch.int32, device=cuda_device)
     contribs = torch.zeros((2, 1 << 16), device=cuda_device)

@@ -204,9 +204,10 @@ def test_port_writer_refuses_unported_operations():
         writer.add_documents([{"id": "1", "body": "common beta"}])
     with pytest.raises(NotImplementedError):
         writer.delete_by_id(["1"])
-    fds = {**_field_defs(), "n": create_field_def("n", {"type": "INT", "storeDocValues": True})}
+    fds = {**_field_defs(), "loc": create_field_def("loc", {"type": "LAT_LON",
+                                                             "storeDocValues": True})}
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        PortWriter(fds, "cpu").add_documents([{"n": "3"}])
+        PortWriter(fds, "cpu").add_documents([{"loc": ["37.7", "-122.4"]}])
 
 
 def test_cuda_device_without_card_raises():
