@@ -9,7 +9,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    power limit (nvidia-smi); keep matmuls at full f32.
 2. build: compile the kernels from nrtsearch_tpu_torch/csrc with nvcc.
 3. kernels vs their plain torch twins on the card at main-path shapes
-   (gather_rows at Hp=536, D=1,000,064, U in {32, 128}; near_stages and
+   (head_scores at Hp=536, D=1,000,064 with the Dekker rows, distinct head
+   rows as the planner picks them and pad slots repeating row 0, (B, U) in
+   {(1, 32), (8, 32), (16, 128), (32, 128)} and one require_all case: S
+   within the f32 summation bound of the plain version, S > 0 and the count
+   C equal; with one weight per query, S within 4 f32 ulps of the exact sum
+   of all four Dekker products; near_stages and
    far_stage at B=32, N from 2^15 up to the first B=32 batch's width with
    duplicate docs, both sentinels and an all-pad row, near_stages also with
    a direction per pair; the accelerator merge branch on the first B=32
@@ -17,9 +22,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the alternating network, finish_mask; far_pair_stage and finish_mask at
    B=32 and N from 4 near tiles up to that batch's width): outputs must be
    bit-equal; CUDA-event times at the batch's shapes (the L2 evicted
-   before each timed launch), each beside its bound (bytes over 3.35 TB/s
-   or operations over 67 TFLOP/s, the larger) and, for gather_rows, beside
-   torch.index_select.
+   before each timed launch, and the card kept busy while the host enqueues
+   it, so that the events time device work), each beside its bound (bytes over 3.35 TB/s
+   or operations over 67 TFLOP/s, the tensor cores' 989 TFLOP/s for
+   head_scores, the larger) and, for head_scores, beside the parent's
+   sequence (two index_select gathers, four bf16 products with f32 out,
+   three adds) and torch.index_select alone.
 4. index: SyntheticCorpus(1M docs, 100k vocab, 48 draws/doc, seed 42) cut
    into 4 doc-range segments on the card, Searcher.warm builds the dense
    head rows; device memory is printed.
@@ -29,7 +37,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    kernel must have launched, and every B=32 batch must have taken the
    merge path's alternating branch. Latencies at B=1 and B=32; then
    torch.profiler over one run of the first B=32 batch: device busy time
-   (and its share of the B=32 p50) and the largest device items.
+   (and its share of the B=32 p50) and the largest device items, and over
+   one fused B=1 single (its device time).
 6. the answers against an independent numpy BM25 of the same corpus.
 7. ingest ~2,000 text docs through IndexWriter on the card and on the CPU;
    merge results bit-equal, fused results within 1e-6 relative.
@@ -57,7 +66,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    merge path (3 tail terms); one B=32 batch of match queries sharing one
    ts sort (one group, one dispatch); 8 faceted singles (tag counts + price
    sum, merge path). Launch counters are reset just before and read just
-   after: gather_rows, near_stages, far_stage, far_pair_stage, gather_runs
+   after: head_scores, near_stages, far_stage, far_pair_stage, gather_runs
    and finish_mask must all launch, both paths must serve and the merge
    path must take the alternating branch. Every answer against the numpy
    oracle (models.synthetic exact_filtered_topk): hits exact, scores
@@ -80,7 +89,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    singles (the facet through the ``facets`` field and a price-sum
    collector, in-dispatch through fast_search_reduce; the tree's filters
    grouped under one FILTER clause, which leaves its matches and scores as
-   they are). gather_rows, near_stages, far_stage, far_pair_stage,
+   they are). head_scores, near_stages, far_stage, far_pair_stage,
    gather_runs and finish_mask must all launch. Every answer against the
    numpy oracle under its path's contract (a concurrent answer under the
    fused one unless no group took the fused path); served p50s, the
@@ -101,7 +110,7 @@ the bucket kernels, one bucket batch.
 The last lines are the kernel table as JSON (``launches`` from phase 5's
 run, or phase 8's for bucket_rank; ``launches_config3`` from phase 9's, and
 ``launches_per_config3_request`` from one sorted B=32 batch, or for
-gather_rows one fused config-#3 single; ``launches_served`` from phase 10's
+head_scores one fused config-#3 single; ``launches_served`` from phase 10's
 served searches),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -128,7 +137,8 @@ MERGE_REL = 1e-5       # exact f32, numpy sums in another order
 CPU_GPU_FUSED_REL = 1e-6
 
 KERNEL_SOURCES = {
-    "gather_rows": ("nrtsearch_tpu_torch/csrc/gather_rows.cu",
+    # the gather of #1 folded into the head products
+    "head_scores": ("nrtsearch_tpu_torch/csrc/head_scores.cu",
                     "nrtsearch_tpu/ops/dense_fused.py:77"),
     "near_stages": ("nrtsearch_tpu_torch/csrc/bitonic_merge.cu",
                     "nrtsearch_tpu/ops/pallas_merge.py:194"),
@@ -150,7 +160,8 @@ BUCKET_KERNELS = ("bucket_rank",)
 # the one PyTorch call that computes a kernel's function, timed beside it
 # (the port never calls it), or why there is none
 LIBRARY = {
-    "gather_rows": "torch.index_select",
+    "head_scores": "none: no single torch call gathers and multiplies; the parent's "
+                   "sequence is timed beside it",
     "near_stages": "none: no torch call runs a fixed compare-exchange network",
     "far_stage": "none: no torch call runs one compare-exchange stage",
     "far_pair_stage": "none: no torch call runs two compare-exchange stages",
@@ -159,16 +170,25 @@ LIBRARY = {
     "bucket_rank": "none: torch.Tensor.index_add_ sums but weighs, quantizes and "
                    "masks nothing",
 }
-# the card's peaks (H100 SXM data sheet): device memory, and the f32 rate
-# outside the tensor cores, at which one compare-exchange or add counts
+# the card's peaks (H100 SXM data sheet): device memory, the f32 rate
+# outside the tensor cores, at which one compare-exchange or add counts, and
+# the dense bf16 tensor-core rate of head_scores' products
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+TENSOR_OPS_PER_S = 989e12
 L2_FLUSH_BYTES = 128 << 20   # written before each timed launch: > the 50 MB L2
+# GPU spin before each timed launch (about 1 ms on an H100), so that the host
+# has enqueued the timed work before the start event runs: the events then
+# time the device's work, not the host's Python before the launch
+SPIN_CYCLES = 2_000_000
+# (B, U) of the fused path's dispatches: an engine single, the batcher's
+# padded groups and a B=32 batch, at the U menu's two widths
+HEAD_SHAPES = ((1, 32), (8, 32), (16, 128), (32, 128))
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, ops_per_s: float = OPS_PER_S) -> tuple[float, str]:
     """The least time the card could take, in ms, and what bounds it."""
-    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / OPS_PER_S
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / ops_per_s
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -197,12 +217,14 @@ def cuda_ms(fn, setup=lambda: (), reps: int = 25, warmup: int = 3) -> float:
     """Median of per-launch CUDA-event times of ``fn(*setup())``, in ms;
     ``setup`` (fresh inputs for in-place kernels) runs outside the timed
     window, then a write of L2_FLUSH_BYTES evicts the L2, so that no launch
-    finds its input (or the copy setup just made) there."""
+    finds its input (or the copy setup just made) there, and a GPU spin of
+    SPIN_CYCLES keeps the card busy while the host enqueues ``fn``."""
     scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     times = []
     for i in range(warmup + reps):
         args = setup()
         scratch.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn(*args)
@@ -263,35 +285,170 @@ def _abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
-def phase_kernels(dev, merge_widths, batch_n: int) -> dict:
-    from nrtsearch_tpu_torch.ops import bitonic_merge as bm
+def parent_head_sequence(rows, rows_lo, idx, w_hi, w_lo, ind_w=None):
+    """The head scores as the parent computed them, the yardstick of
+    head_scores: two row gathers (torch.index_select standing in for the
+    removed copy kernel, which tied or trailed it), four bf16 products with
+    f32 out (the parent's ``_mm``: ``torch.mm(..., out_dtype=torch.float32)``
+    on the card) and three adds; with ``ind_w`` (bf16 W != 0) the indicator
+    product too."""
+    from nrtsearch_tpu_torch.ops.dense_fused import _mm
+
+    ru, lu = torch.index_select(rows, 0, idx), torch.index_select(rows_lo, 0, idx)
+    S = _mm(w_hi, ru) + _mm(w_hi, lu) + _mm(w_lo, ru) + _mm(w_lo, lu)
+    return S, None if ind_w is None else _mm(ind_w, (ru > 0).to(torch.bfloat16))
+
+
+def head_bytes_ops(B: int, U: int, n_rows: int, D: int,
+                   require_all: bool) -> tuple[int, int]:
+    """head_scores' bytes (the n_rows distinct head and residual row slices
+    of its U slots read once, idx and the bf16 weights, S written, and C
+    under require_all) and its tensor-core operations (the [2B, 2U] x
+    [2U, D] product, and the [B, U] x [U, D] count)."""
+    nbytes = (2 * n_rows * D * 2 + 4 * U + 2 * 2 * B * U
+              + B * D * 4 * (2 if require_all else 1))
+    ops = 2 * (2 * B) * (2 * U) * D + (2 * B * U * D if require_all else 0)
+    return nbytes, ops
+
+
+def exact_dekker_check(rows, rows_lo, idx, gen, B: int, U: int) -> float:
+    """head_scores with one weight per query: each S element is one weight
+    times one row, so the four Dekker products are exact and S must equal
+    their f64 sum within EXACT_ULPS * sum|products| (three rounded adds).
+    W_lo * rows_lo alone must pass that tolerance at many elements, so a
+    kernel that dropped any term fails. Returns max |dS| / sum|products|."""
+    from nrtsearch_tpu_torch import kernels
+
+    dev = rows.device
+    slot = torch.randint(0, U - 4, (B,), generator=gen, device=dev)
+    W = torch.zeros((B, U), device=dev)
+    W[torch.arange(B, device=dev), slot] = one_weights(
+        torch.rand((2, B), generator=gen, device=dev))
+    w_hi = W.to(torch.bfloat16)
+    w_lo = (W - w_hi.float()).to(torch.bfloat16)
+    S, _ = kernels.head_scores(rows, rows_lo, idx, w_hi, w_lo, False)
+    r = idx.long()[slot]
+    wh, wl = w_hi.double().gather(1, slot[:, None]), w_lo.double().gather(1, slot[:, None])
+    R, L = rows[r].double(), rows_lo[r].double()
+    scale = (wh.abs() + wl.abs()) * (R.abs() + L.abs())
+    err = (S.double() - (wh + wl) * (R + L)).abs()
+    tol = EXACT_ULPS * scale
+    if int((wl.abs() * L.abs() > 4 * tol).sum()) < 1000:
+        raise AssertionError(f"head_scores exact check cannot see W_lo * rows_lo at B={B} U={U}")
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"head_scores misses a Dekker term at B={B} U={U}: max |dS| / "
+                             f"sum|products| {float((err / scale.clamp_min(1e-30)).max()):.3g}")
+    return float((err / scale.clamp_min(1e-30)).max())
+
+
+def one_weights(u: torch.Tensor) -> torch.Tensor:
+    """f32 weights from uniforms u [2, n]: a bf16 value in [0.25, 4.25) plus
+    0.5-0.95 of half its ulp, so that W_lo is at least 2^-10 of W and the
+    residual products are far above f32 rounding."""
+    w_hi = (0.25 + 4 * u[0]).to(torch.bfloat16).float()
+    return w_hi + (0.5 + 0.45 * u[1]) * torch.exp2(torch.floor(torch.log2(w_hi)) - 8)
+
+
+# the three f32 adds of exact products each round by at most 2^-23 of
+# sum|products| (tensor cores may truncate), plus one for slack
+EXACT_ULPS = 4 * 2.0**-23
+
+
+def phase_head_scores(dev, gen, Hp: int = 536, D: int = 1_000_064) -> dict:
+    """head_scores against head_scores_plain on the card at HEAD_SHAPES
+    (and the require_all count at (16, 128)), the Dekker rows of sparse
+    random impacts, U - 4 distinct head rows (the planner's idx) and 4 pad
+    slots, nonnegative weights: S within 2 * (4U) * 2^-24 * sum|products|
+    of the plain version (the f32 summation bound of both orders), S > 0
+    equal everywhere (nonnegative terms), C bit-equal; with one weight per
+    query, every Dekker term (exact_dekker_check). Times of the kernel, the
+    plain version, the parent's sequence and index_select alone; the bound
+    counts the distinct rows read."""
+    from nrtsearch_tpu_torch import kernels
     from nrtsearch_tpu_torch.ops import dense_fused
 
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    stats = {name: {"max_abs_err": 0.0} for name in ("gather_rows", "near_stages", "far_stage")}
+    f = torch.rand((Hp, D), generator=gen, device=dev)
+    f = torch.where(torch.rand((Hp, D), generator=gen, device=dev) < 0.3, 4 * f, 0.0)
+    rows = f.to(torch.bfloat16)
+    rows_lo = (f - rows.float()).to(torch.bfloat16)
+    del f
+    st = {"max_abs_err": 0.0, "max_rel_err": 0.0, "max_exact_rel_err": 0.0, "shapes": []}
+    cases = [(B, U, False) for B, U in HEAD_SHAPES] + [(16, 128, True)]
+    for B, U, require_all in cases:
+        idx = torch.zeros(U, dtype=torch.int32, device=dev)   # pad slots repeat row 0 ...
+        idx[: U - 4] = torch.argsort(torch.rand(Hp, generator=gen, device=dev))[: U - 4]
+        n_rows = int(idx.unique().numel())
+        W = 0.25 + 4 * torch.rand((B, U), generator=gen, device=dev)
+        W[:, U - 4:] = 0.0                                # ... at weight 0
+        W[0, 0] = 0.0
+        w_hi = W.to(torch.bfloat16)
+        w_lo = (W - w_hi.float()).to(torch.bfloat16)
+        S, C = kernels.head_scores(rows, rows_lo, idx, w_hi, w_lo, require_all)
+        ref_s, ref_c = dense_fused.head_scores_plain(rows, rows_lo, idx, W, require_all)
+        absum = (rows.index_select(0, idx).float().abs()
+                 + rows_lo.index_select(0, idx).float().abs())
+        P = w_hi.float().abs() @ absum + w_lo.float().abs() @ absum
+        del absum
+        err = (S.double() - ref_s.double()).abs()
+        ctx = f"B={B} U={U} require_all={require_all}"
+        if not bool((err <= 2 * (4 * U) * 2.0**-24 * P.double()).all()):
+            raise AssertionError(f"head_scores beyond the summation bound at {ctx}")
+        if not torch.equal(S > 0, ref_s > 0):
+            raise AssertionError(f"head_scores S > 0 differs from the plain version at {ctx}")
+        if require_all and not _bits_equal(C, ref_c):
+            raise AssertionError(f"head_scores C differs from the plain version at {ctx}")
+        if not bool((S > 0).any()):
+            raise AssertionError(f"head_scores matched nothing at {ctx}")
+        abs_err = float(err.max())
+        rel_err = float((err / P.double().clamp_min(1e-30)).max())
+        st["max_abs_err"] = max(st["max_abs_err"], abs_err)
+        st["max_rel_err"] = max(st["max_rel_err"], rel_err)
+        del S, C, ref_s, ref_c, P, err
+        exact_err = exact_dekker_check(rows, rows_lo, idx, gen, B, U)
+        st["max_exact_rel_err"] = max(st["max_exact_rel_err"], exact_err)
+        ind_w = (W != 0).to(torch.bfloat16) if require_all else None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(100):
+            kernels.head_scores(rows, rows_lo, idx, w_hi, w_lo, require_all)
+        host_us = 1e4 * (time.perf_counter() - t)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: kernels.head_scores(rows, rows_lo, idx, w_hi, w_lo, require_all))
+        plain = cuda_ms(lambda: dense_fused.head_scores_plain(rows, rows_lo, idx, W, require_all))
+        parent = cuda_ms(lambda: parent_head_sequence(rows, rows_lo, idx, w_hi, w_lo, ind_w))
+        gather = cuda_ms(lambda: torch.index_select(rows, 0, idx))
+        nbytes, ops = head_bytes_ops(B, U, n_rows, D, require_all)
+        b_ms, b_by = bound(nbytes, ops, TENSOR_OPS_PER_S)
+        one = {"B": B, "U": U, "rows": n_rows, "require_all": require_all, "ms": ms,
+               "plain_ms": plain, "parent_ms": parent, "index_select_ms": gather,
+               "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": abs_err,
+               "max_rel_err": rel_err, "exact_rel_err": exact_err, "host_us": host_us}
+        st["shapes"].append(one)
+        log(f"kernel head_scores Hp={Hp} D={D} {ctx} ({n_rows} distinct rows, Dekker rows): "
+            f"S within the bound (max |dS| {abs_err:.3g}, max |dS| / sum|products| "
+            f"{rel_err:.3g}; the bound allows {2 * 4 * U * 2.0**-24:.3g}), S > 0 equal"
+            f"{', C bit-equal' if require_all else ''}; one weight per query: every Dekker "
+            f"term, |dS| / sum|products| {exact_err:.3g} (allowed {EXACT_ULPS:.3g}); "
+            f"{ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}, {100 * b_ms / ms:.1f}%), plain {plain:.4f} ms, parent's sequence "
+            f"{parent:.4f} ms, index_select of the head rows {gather:.4f} ms; the host "
+            f"enqueues a call in {host_us:.1f} us")
+        if (B, U, require_all) == HEAD_SHAPES[-1] + (False,):
+            st.update(ms=ms, plain_ms=plain, library_ms=None, parent_ms=parent,
+                      index_select_ms=gather, shape=[Hp, D, B, U], bytes=nbytes, ops=ops,
+                      ops_per_s=TENSOR_OPS_PER_S)
+    del rows, rows_lo
+    return st
 
-    Hp, D = 536, 1_000_064
-    rows = torch.rand((Hp, D), generator=gen, device=dev).to(torch.bfloat16)
-    for U in (32, 128):
-        idx = torch.randint(0, Hp, (U,), generator=gen, device=dev, dtype=torch.int32)
-        idx[U - 4 :] = 0   # pad slots repeat row 0
-        out = dense_fused.gather_rows(rows, idx)
-        ref = dense_fused._gather_rows_scan(rows, idx)
-        err = float((out.float() - ref.float()).abs().max())
-        stats["gather_rows"]["max_abs_err"] = max(stats["gather_rows"]["max_abs_err"], err)
-        if not torch.equal(out.view(torch.int16), ref.view(torch.int16)):
-            raise AssertionError(f"gather_rows differs from its twin at U={U}")
-        ms = cuda_ms(lambda: dense_fused.gather_rows(rows, idx))
-        plain = cuda_ms(lambda: dense_fused._gather_rows_scan(rows, idx))
-        lib = cuda_ms(lambda: torch.index_select(rows, 0, idx))
-        gbs = 2 * U * D * 2 / (ms * 1e-3) / 1e9
-        log(f"kernel gather_rows Hp={Hp} D={D} U={U}: bit-equal; {ms:.4f} ms "
-            f"({gbs:.0f} GB/s moved), twin {plain:.4f} ms, index_select {lib:.4f} ms")
-        if U == 128:
-            # bytes: the U rows read and written (2 B each), the index
-            stats["gather_rows"].update(ms=ms, plain_ms=plain, library_ms=lib,
-                                        shape=[Hp, D, U], bytes=2 * U * D * 2 + 4 * U, ops=0)
-    del rows
+
+def phase_kernels(dev, merge_widths, batch_n: int, head: bool = True) -> dict:
+    from nrtsearch_tpu_torch.ops import bitonic_merge as bm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    stats = {name: {"max_abs_err": 0.0} for name in ("near_stages", "far_stage")}
+    if head:
+        stats["head_scores"] = phase_head_scores(dev, gen)
+        torch.cuda.empty_cache()
 
     B = 32
     for N in merge_widths:
@@ -617,24 +774,32 @@ def profile_call(fn) -> dict:
     stream, so they do not overlap), the number of those device items, the
     largest ones and the traced wall time on the host clock. The tracer's
     own host cost varies from run to run (tens to hundreds of ms), so the
-    busy share is taken against the untraced latency, not this wall."""
+    busy share is taken against the untraced latency, not this wall. A
+    trace that comes back with no device item at all (the tracer now and
+    then returns an empty device buffer) is taken once more; the callers
+    raise if that one is empty too."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t)
-    # device items only: an operator's row would count its kernels again,
-    # and the profiler's own step annotation spans the whole batch on the
-    # device's timeline
-    per_name: dict[str, list] = {}
-    for e in prof.events():
-        annotation = getattr(e, "is_user_annotation", False) or e.name.startswith("ProfilerStep")
-        if e.device_type == torch.autograd.DeviceType.CUDA and not annotation:
-            acc = per_name.setdefault(e.name, [0.0, 0])
-            acc[0] += e.time_range.elapsed_us() / 1e3
-            acc[1] += 1
+    for _ in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t)
+        # device items only: an operator's row would count its kernels
+        # again, and the profiler's own step annotation spans the whole
+        # batch on the device's timeline
+        per_name: dict[str, list] = {}
+        for e in prof.events():
+            annotation = (getattr(e, "is_user_annotation", False)
+                          or e.name.startswith("ProfilerStep"))
+            if e.device_type == torch.autograd.DeviceType.CUDA and not annotation:
+                acc = per_name.setdefault(e.name, [0.0, 0])
+                acc[0] += e.time_range.elapsed_us() / 1e3
+                acc[1] += 1
+        if per_name:
+            break
+        log("profile: the trace held no device item; tracing once more")
     items = sorted(((k, ms, n) for k, (ms, n) in per_name.items()), key=lambda x: -x[1])
     busy = sum(x[1] for x in items)
     return {"traced_wall_ms": wall, "device_busy_ms": busy,
@@ -645,7 +810,7 @@ def profile_call(fn) -> dict:
 def launches_per_batch(searcher, single, batch) -> dict:
     """Kernel launches of one main-path request: the first B=32 batch
     through fast_search_batch (the merge path's kernels) and one B=1 query
-    (gather_rows, on the fused path)."""
+    (head_scores, on the fused path)."""
     from nrtsearch_tpu_torch import kernels
 
     specs = [searcher.fast_query_spec(_match(q)) for q in batch]
@@ -658,7 +823,7 @@ def launches_per_batch(searcher, single, batch) -> dict:
     torch.cuda.synchronize()
     b1 = dict(kernels.LAUNCHES)
     log(f"search: launches per B=32 batch {b32}; per B=1 query {b1}")
-    return {k: b1[k] if k == "gather_rows" else b32[k] for k in KERNEL_SOURCES}
+    return {k: b1[k] if k == "head_scores" else b32[k] for k in KERNEL_SOURCES}
 
 
 def _check_topk(td, exact, rel: float, ctx: str) -> int:
@@ -981,7 +1146,7 @@ def phase_bucket(dev, searcher, singles, batches, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # the kernels of the port's fused and merge paths, which phase 9 must launch
-CONFIG3_KERNELS = ("gather_rows", "near_stages", "far_stage", "far_pair_stage",
+CONFIG3_KERNELS = ("head_scores", "near_stages", "far_stage", "far_pair_stage",
                    "gather_runs", "finish_mask")
 FACETS = [{"kind": "ordinal", "field": "tag"}, {"kind": "sum", "field": "price"}]
 SUM_REL = 1e-5
@@ -1175,10 +1340,10 @@ def phase_config3(corpus, columns, searcher, batch, card: str) -> dict:
     log(f"config3 _hierarchical_topk: {fallbacks} full-sort fallbacks over "
         f"{3 * (len(singles) * len(forms) + 1)} searches; by form and path "
         f"{ {f'{k[0]}/{k[1]}': n for k, n in falls.items() if n} } | {card}")
-    # per request as for the main path: gather_rows from a fused single,
+    # per request as for the main path: head_scores from a fused single,
     # the merge path's kernels from the sorted batch
     return {"launches": launches, "per_request": {
-        k: per_request["scored_fused" if k == "gather_rows" else "sorted_b32"][k]
+        k: per_request["scored_fused" if k == "head_scores" else "sorted_b32"][k]
         for k in CONFIG3_KERNELS}}
 
 
@@ -1800,6 +1965,13 @@ def main() -> int:
         f"{prof['traced_wall_ms']:.3f} ms); top device items {json.dumps(prof['top'])} | {card}")
     if prof["device_busy_ms"] <= 0:
         raise AssertionError("the profiled batch ran nothing on the device")
+    one = profile_call(lambda: searcher.search(_match(singles[0]), TOP_K))
+    log(f"profile: fused B=1 single, device busy {one['device_busy_ms']:.3f} ms in "
+        f"{one['device_items']} device items ({100 * one['device_busy_ms'] / p50_1:.1f}% of "
+        f"the B=1 p50; traced wall {one['traced_wall_ms']:.3f} ms); top device items "
+        f"{json.dumps(one['top'][:6])} | {card}")
+    if one["device_busy_ms"] <= 0:
+        raise AssertionError("the profiled single ran nothing on the device")
 
     # 6. against the independent numpy answer
     ex = phase_exact(corpus, res)
@@ -1828,7 +2000,7 @@ def main() -> int:
     table = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         st = stats[name]
-        bound_ms, bound_by = bound(st["bytes"], st["ops"])
+        bound_ms, bound_by = bound(st["bytes"], st["ops"], st.get("ops_per_s", OPS_PER_S))
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": st["max_abs_err"],
@@ -1840,9 +2012,15 @@ def main() -> int:
             "launches_per_config3_request": config3["per_request"].get(name, 0),
             "launches_served": served["launches"].get(name, 0),
         })
+        if name == "head_scores":
+            table[-1].update({k: st[k] for k in ("parent_ms", "index_select_ms", "max_rel_err",
+                                                 "max_exact_rel_err", "shapes")})
         log(f"table {name} {st['shape']}: {st['ms']:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}, {100 * bound_ms / st['ms']:.1f}%), plain {st['plain_ms']:.4f} ms, "
-            f"library {st.get('library_ms')} ({LIBRARY[name]}); launches {launches[name]}, "
+            f"library {st.get('library_ms')} ({LIBRARY[name]})"
+            + (f", parent's sequence {st['parent_ms']:.4f} ms, index_select "
+               f"{st['index_select_ms']:.4f} ms" if "parent_ms" in st else "")
+            + f"; launches {launches[name]}, "
             f"{per_batch[name]} per batch, {config3['launches'].get(name, 0)} in config #3 "
             f"({config3['per_request'].get(name, 0)} per column request), "
             f"{served['launches'].get(name, 0)} served | {card}")

@@ -47,7 +47,7 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {
-    "gather_rows": 0, "near_stages": 0, "far_stage": 0,
+    "head_scores": 0, "near_stages": 0, "far_stage": 0,
     "gather_runs": 0, "far_pair_stage": 0, "finish_mask": 0,
     "bucket_rank": 0,
 }
@@ -149,7 +149,7 @@ def _bind(so: Path) -> None:
     global _lib
     lib = ctypes.CDLL(str(so))
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.nrt_gather_rows.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+    lib.nrt_head_scores.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.nrt_near_stages.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
     lib.nrt_far_stage.argtypes = [vp, vp, ci, ci, ci, ci, vp]
     lib.nrt_far_pair_stage.argtypes = [vp, vp, ci, ci, ci, ci, vp]
@@ -159,7 +159,7 @@ def _bind(so: Path) -> None:
                                     ci, ci, vp]
     lib.nrt_bucket_rank.argtypes = [vp, vp, cll, vp, vp, vp, vp, vp,
                                     ci, ci, ci, ci, ci, vp]
-    for fn in (lib.nrt_gather_rows, lib.nrt_near_stages, lib.nrt_far_stage,
+    for fn in (lib.nrt_head_scores, lib.nrt_near_stages, lib.nrt_far_stage,
                lib.nrt_far_pair_stage, lib.nrt_gather_runs,
                lib.nrt_finish_mask, lib.nrt_bucket_rank):
         fn.restype = ci
@@ -194,25 +194,56 @@ def _pow2(n: int) -> bool:
     return n > 0 and n & (n - 1) == 0
 
 
-def gather_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """bf16 rows [Hp, D], int32 idx [U] -> bf16 [U, D] = rows[idx]."""
+def head_scores(rows: torch.Tensor, rows_lo: torch.Tensor | None, idx: torch.Tensor,
+                w_hi: torch.Tensor, w_lo: torch.Tensor | None, need_count: bool
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """bf16 rows [Hp, D] (and residual rows_lo), int32 idx [U], bf16 w_hi
+    (and w_lo) [B, U] -> f32 S [B, D] = w_hi·rows[idx] + w_hi·rows_lo[idx]
+    + w_lo·rows[idx] + w_lo·rows_lo[idx] (only the first term without
+    rows_lo) and, when ``need_count``, f32 C [B, D] = (W != 0)·(rows[idx] > 0),
+    in one launch that never writes rows[idx]
+    (``ops/dense_fused.head_scores_plain`` is the plain version). Any U: the
+    kernel streams its weights through a window of shared memory; a B or D
+    its grid cannot cover fails the launch (csrc/head_scores.cu)."""
     _check(rows, "rows", torch.bfloat16, 2)
     _check(idx, "idx", torch.int32, 1)
-    if idx.device != rows.device:
-        raise ValueError("rows and idx must be on the same device")
+    _check(w_hi, "w_hi", torch.bfloat16, 2)
+    if (rows_lo is None) != (w_lo is None):
+        raise ValueError("rows_lo and w_lo come together")
+    ins = [rows, idx, w_hi]
+    if rows_lo is not None:
+        _check(rows_lo, "rows_lo", torch.bfloat16, 2)
+        _check(w_lo, "w_lo", torch.bfloat16, 2)
+        if rows_lo.shape != rows.shape or w_lo.shape != w_hi.shape:
+            raise ValueError(f"rows_lo {tuple(rows_lo.shape)} and w_lo {tuple(w_lo.shape)} "
+                             f"must match rows {tuple(rows.shape)} and w_hi {tuple(w_hi.shape)}")
+        ins += [rows_lo, w_lo]
+    if len({t.device for t in ins}) != 1:
+        raise ValueError("all head_scores inputs must be on one device")
     Hp, D = rows.shape
-    U = idx.shape[0]
-    if D % 8 or rows.data_ptr() % 16:
+    B, U = w_hi.shape
+    if idx.shape[0] != U:
+        raise ValueError(f"idx has {idx.shape[0]} entries, w_hi {U} columns")
+    if D % 8 or any(t.data_ptr() % 16 for t in (rows, rows_lo) if t is not None):
         raise ValueError(f"rows need D % 8 == 0 and 16-byte alignment (D={D})")
-    if -(-D // 8 // 256) > 65535:
-        raise ValueError(f"row width {D} exceeds the kernel's grid")
-    out = torch.empty((U, D), dtype=torch.bfloat16, device=rows.device)
-    if U == 0 or D == 0:
-        return out
+    if max(Hp, B, U, D) >= 2**31:
+        raise ValueError(f"head_scores shape beyond int32: Hp={Hp} B={B} U={U} D={D}")
+    dev = rows.device
+    S = torch.empty((B, D), dtype=torch.float32, device=dev)
+    C = torch.empty((B, D), dtype=torch.float32, device=dev) if need_count else None
+    if B == 0 or D == 0:
+        return S, C
+    if U == 0:
+        S.zero_()
+        if C is not None:
+            C.zero_()
+        return S, C
     lib = _library()
-    _launch("gather_rows", lib.nrt_gather_rows, rows.device,
-            rows.data_ptr(), idx.data_ptr(), out.data_ptr(), Hp, U, D)
-    return out
+    _launch("head_scores", lib.nrt_head_scores, dev,
+            rows.data_ptr(), None if rows_lo is None else rows_lo.data_ptr(),
+            idx.data_ptr(), w_hi.data_ptr(), None if w_lo is None else w_lo.data_ptr(),
+            S.data_ptr(), None if C is None else C.data_ptr(), Hp, U, B, D)
+    return S, C
 
 
 def _check_pairs(docs: torch.Tensor, contribs: torch.Tensor) -> tuple[int, int]:

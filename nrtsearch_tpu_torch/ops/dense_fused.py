@@ -2,10 +2,12 @@
 
 Counterpart: nrtsearch_tpu/ops/dense_fused.py (``gather_rows``,
 ``dense_fused_topk``). Head terms (df >= min_df) are dense bf16 impact rows
-[Hp, D]; a batch gathers just its U rows (``gather_rows``, the CUDA kernel in
-csrc/gather_rows.cu) and scores them with bf16 products accumulated in f32.
-The Dekker residual rows recover ~f32 head scores with three more compact
-products. Tail terms are exact f32 postings runs through the bitonic merge
+[Hp, D]; a batch scores just its U rows with bf16 products accumulated in
+f32, and the Dekker residual rows recover ~f32 head scores with three more
+products (``head_scores``: on the card one kernel, csrc/head_scores.cu, that
+reads each gathered row slice once and never writes the [U, D] gather;
+``head_scores_plain``, the reference's gather and products, elsewhere). Tail
+terms are exact f32 postings runs through the bitonic merge
 (ops/merge_scoring.py). The combine is either the candidate window under
 its theta certificate (plain OR queries) or the full combine at every tail
 position.
@@ -51,17 +53,9 @@ _NEG = float(NEG_INF)
 
 
 def _gather_rows_scan(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain torch twin of the row-gather kernel: rows[idx]."""
+    """Plain torch row gather rows[idx] (the reference's scan gather). Pad
+    slots in ``idx`` may repeat row 0; their weights are zero."""
     return rows.index_select(0, idx.to(torch.int64))
-
-
-def gather_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Compact row gather rows[idx] -> [U, D]. Pad slots in ``idx`` may
-    repeat row 0; their weights are zero. The CUDA kernel for CUDA
-    tensors, the torch twin for CPU tensors."""
-    if on_cuda(rows):
-        return kernels.gather_rows(rows, idx)
-    return _gather_rows_scan(rows, idx)
 
 
 def cuda_bf16_mm_f32_out() -> bool:
@@ -81,6 +75,46 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if cuda_bf16_mm_f32_out():
             return torch.mm(a, b, out_dtype=torch.float32)
     return torch.mm(a.float(), b.float())
+
+
+def head_scores_plain(rows, rows_lo, row_idx, W, require_all: bool):
+    """Plain torch version of the head-scores kernel, in the reference's
+    order: gather the U rows, S = W_hi·R (+ W_hi·L + W_lo·R + W_lo·L with
+    the Dekker rows), W quantized through bf16; C = (W != 0)·(R > 0) for
+    the all-head conjunction, else None."""
+    rows_used = _gather_rows_scan(rows, row_idx)         # [U, D] bf16
+    # W always quantizes through bf16 (the dense score contract)
+    W_hi = W.to(torch.bfloat16)
+    S = _mm(W_hi, rows_used)                             # [B, D] f32
+    if rows_lo is not None:
+        # Dekker-style correction: three more compact products recover the
+        # bf16 quantization of both operands, lo-lo term included
+        lo_used = _gather_rows_scan(rows_lo, row_idx)
+        W_lo = (W - W_hi.float()).to(torch.bfloat16)
+        S = S + _mm(W_hi, lo_used) + _mm(W_lo, rows_used) + _mm(W_lo, lo_used)
+    C = None
+    if require_all:
+        ind = (rows_used > 0).to(torch.bfloat16)
+        Wind = (W != 0.0).to(torch.bfloat16)
+        C = _mm(Wind, ind)
+    return S, C
+
+
+def head_scores(rows, rows_lo, row_idx, W, require_all: bool):
+    """Head scores S f32 [B, D] of weights W f32 [B, U] over the head rows
+    ``row_idx`` (and, with ``require_all``, the count C f32 [B, D] of each
+    query's head terms a doc holds; else None). The CUDA kernel for CUDA
+    tensors, ``head_scores_plain`` for CPU tensors; inputs on two devices
+    raise."""
+    ins = [rows, row_idx, W] + ([] if rows_lo is None else [rows_lo])
+    if len({t.device for t in ins}) != 1:
+        raise ValueError(f"head_scores inputs on several devices: "
+                         f"{sorted({str(t.device) for t in ins})}")
+    if not on_cuda(rows):
+        return head_scores_plain(rows, rows_lo, row_idx, W, require_all)
+    W_hi = W.to(torch.bfloat16)
+    W_lo = None if rows_lo is None else (W - W_hi.float()).to(torch.bfloat16)
+    return kernels.head_scores(rows, rows_lo, row_idx, W_hi, W_lo, require_all)
 
 
 def dense_fused_topk(
@@ -120,21 +154,9 @@ def dense_fused_topk(
     filt_b = None if filt is None else filt.to(torch.bool)
 
     if has_head:
-        rows_used = gather_rows(rows, row_idx)           # [U, D] bf16
-        # W always quantizes through bf16 (the dense score contract)
-        W_hi = W.to(torch.bfloat16)
-        S = _mm(W_hi, rows_used)                         # [B, D] f32
-        if rows_lo is not None:
-            # Dekker-style correction: three more compact products recover
-            # the bf16 quantization of both operands, lo-lo term included
-            lo_used = gather_rows(rows_lo, row_idx)
-            W_lo = (W - W_hi.float()).to(torch.bfloat16)
-            S = S + _mm(W_hi, lo_used) + _mm(W_lo, rows_used) + _mm(W_lo, lo_used)
+        S, C = head_scores(rows, rows_lo, row_idx, W, require_all)   # [B, D] f32
         matched = S > 0.0
         if require_all:
-            ind = (rows_used > 0).to(torch.bfloat16)
-            Wind = (W != 0.0).to(torch.bfloat16)
-            C = _mm(Wind, ind)
             matched = matched & (C >= n_req[:, None].float())
         if filt_b is not None:
             matched = matched & filt_b[None, :]

@@ -5,9 +5,11 @@ when torch sees no CUDA card (the CPU tier-1 run). On a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Kernel outputs must be bit-equal to the twins: the network, the tie rule
-and the copy are the same arithmetic-free operations on both, the gather's
-one multiply and the finish scan's adds run in the twins' order.
+Kernel outputs must be bit-equal to the twins: the network and the tie rule
+are the same arithmetic-free operations on both, the gather's one multiply
+and the finish scan's adds run in the twins' order. The head scores are the
+exception: tensor-core products sum in another order than cuBLAS, so S is
+held to the f32 summation bound and its count C (small integers) bit-equal.
 """
 
 import numpy as np
@@ -89,22 +91,151 @@ def test_alternating_mode_equals_twin(cuda_device, N, m):
     assert torch.equal(gc.cpu().view(torch.int32), contribs.view(torch.int32))
 
 
-@pytest.mark.parametrize("D", [8, 1024, 40_064])
-def test_gather_rows_equals_twin(cuda_device, D):
-    rng = np.random.default_rng(D)
-    rows = torch.from_numpy(rng.random((40, D), dtype=np.float32)).to(torch.bfloat16)
-    idx = torch.tensor([3, 0, 39, 3, 0, 0], dtype=torch.int32)
-    out = dense_fused.gather_rows(rows.to(cuda_device), idx.to(cuda_device))
-    assert torch.equal(out.cpu().view(torch.int16), rows[idx.long()].view(torch.int16))
+def _head_inputs(seed, B, U, D, Hp=48, residual=True):
+    """Sparse impact rows (the first 64 docs in none) split into bf16 head
+    and Dekker residual rows; U slots, the last two pads repeating row 0 at
+    weight 0; weights in (0, 4) with one zero and one negative weight."""
+    rng = np.random.default_rng(seed)
+    f = np.where(rng.random((Hp, D)) < 0.3, rng.random((Hp, D)) * 3, 0).astype(np.float32)
+    f[:, :64] = 0.0
+    rows = torch.from_numpy(f).to(torch.bfloat16)
+    rows_lo = (torch.from_numpy(f) - rows.float()).to(torch.bfloat16) if residual else None
+    idx = rng.integers(0, Hp, U).astype(np.int32)
+    idx[-2:] = 0
+    W = (rng.random((B, U)) * 4).astype(np.float32)
+    W[:, -2:] = 0.0
+    W[0, 0] = 0.0
+    W[-1, min(1, U - 3)] = -1.5
+    return rows, rows_lo, torch.from_numpy(idx), torch.from_numpy(W)
+
+
+def _head_bound(rows, rows_lo, idx, W):
+    """2 * (4U) * 2^-24 * sum|products| per element: the f32 summation bound
+    of the kernel's order plus the plain version's."""
+    W_hi = W.to(torch.bfloat16).double()
+    R = rows.double()[idx.long()]
+    P = W_hi.abs() @ R.abs()
+    if rows_lo is not None:
+        W_lo = (W - W_hi.float()).to(torch.bfloat16).double()
+        L = rows_lo.double()[idx.long()]
+        P += W_hi.abs() @ L.abs() + W_lo.abs() @ R.abs() + W_lo.abs() @ L.abs()
+    return 2 * (4 * idx.shape[0]) * 2.0**-24 * P
+
+
+# (residual rows, require_all)
+HEAD_MODES = [(True, False), (False, False), (True, True), (False, True)]
+
+
+@pytest.mark.parametrize("residual,require_all", HEAD_MODES)
+@pytest.mark.parametrize("D", [128, 4096, 40_064])
+@pytest.mark.parametrize("U", [8, 32, 40, 128])
+@pytest.mark.parametrize("B", [1, 3, 8, 17, 32])
+def test_head_scores_kernel_equals_plain(cuda_device, B, U, D, residual, require_all):
+    """The head-scores kernel against head_scores_plain on the same card:
+    S within the summation bound (tensor-core and cuBLAS orders differ),
+    S > 0 equal wherever the bound decides the sign, C bit-equal, and a
+    second launch bit-equal to the first (no atomics)."""
+    rows, rows_lo, idx, W = _head_inputs(B * 7 + U * 3 + D, B, U, D, residual=residual)
+    g = [None if t is None else t.to(cuda_device) for t in (rows, rows_lo, idx, W)]
+    kernels.reset_launch_counts()
+    S, C = dense_fused.head_scores(*g, require_all)
+    S2, C2 = dense_fused.head_scores(*g, require_all)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["head_scores"] == 2
+    ref_s, ref_c = dense_fused.head_scores_plain(*g, require_all)
+    bound = _head_bound(rows, rows_lo, idx, W)
+    err = (S.cpu().double() - ref_s.cpu().double()).abs()
+    assert bool((err <= bound).all()), float((err / bound.clamp_min(1e-30)).max())
+    decided = ref_s.cpu().double().abs() > bound
+    assert torch.equal((S.cpu() > 0)[decided], (ref_s.cpu() > 0)[decided])
+    assert bool((S.cpu() > 0).any()) and bool((S.cpu()[:, :64] == 0).all())
+    assert torch.equal(S.view(torch.int32), S2.view(torch.int32))
+    if require_all:
+        assert torch.equal(C.cpu(), ref_c.cpu()) and torch.equal(C, C2)
+    else:
+        assert C is None and C2 is None
+
+
+@pytest.mark.parametrize("B", [33, 70])
+def test_head_scores_kernel_query_chunks(cuda_device, B):
+    """More than 32 queries: one launch, a grid row per 32 queries."""
+    rows, rows_lo, idx, W = _head_inputs(B, B, 40, 4096)
+    g = [t.to(cuda_device) for t in (rows, rows_lo, idx, W)]
+    kernels.reset_launch_counts()
+    S, C = dense_fused.head_scores(*g, True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["head_scores"] == 1
+    ref_s, ref_c = dense_fused.head_scores_plain(*g, True)
+    err = (S.cpu().double() - ref_s.cpu().double()).abs()
+    assert bool((err <= _head_bound(rows, rows_lo, idx, W)).all())
+    assert torch.equal(C, ref_c)
+
+
+@pytest.mark.parametrize("U", [513, 1100, 2048])
+@pytest.mark.parametrize("B", [8, 32])
+def test_head_scores_kernel_wide_u(cuda_device, B, U):
+    """U past the kernel's 512-column weight window (any U that
+    NRT_DENSE_U gives): the window reloads as each tile's k-steps reach it;
+    S within the bound, C bit-equal."""
+    rows, rows_lo, idx, W = _head_inputs(B + U, B, U, 4096)
+    g = [t.to(cuda_device) for t in (rows, rows_lo, idx, W)]
+    kernels.reset_launch_counts()
+    S, C = dense_fused.head_scores(*g, True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["head_scores"] == 1
+    ref_s, ref_c = dense_fused.head_scores_plain(*g, True)
+    err = (S.cpu().double() - ref_s.cpu().double()).abs()
+    assert bool((err <= _head_bound(rows, rows_lo, idx, W)).all())
+    assert torch.equal(C, ref_c)
+
+
+@pytest.mark.parametrize("U", [32, 128, 1100])
+@pytest.mark.parametrize("B", [1, 17, 32])
+def test_head_scores_kernel_keeps_every_dekker_term(cuda_device, B, U):
+    """One weight per query: each S element is one weight times one row, so
+    the four Dekker products are exact and S must equal their f64 sum within
+    4 * 2^-23 * sum|products| (three rounded adds); W_lo * rows_lo alone is
+    far above that at many elements, so a kernel that dropped any of the
+    four terms fails."""
+    rows, rows_lo, idx, W = _head_inputs(B * 11 + U, B, U, 4096)
+    rng = np.random.default_rng(B + U)
+    W = torch.zeros((B, U))
+    w_hi = torch.from_numpy(0.25 + 4 * rng.random(B)).float().to(torch.bfloat16).float()
+    W[torch.arange(B), torch.from_numpy(rng.integers(0, U - 2, B))] = \
+        w_hi + torch.from_numpy(0.5 + 0.45 * rng.random(B)).float() * \
+        torch.exp2(torch.floor(torch.log2(w_hi)) - 8)      # W_lo >= 2^-10 W
+    w_hi = W.to(torch.bfloat16)
+    w_lo = (W - w_hi.float()).to(torch.bfloat16)
+    Wh, Wl = w_hi.double(), w_lo.double()
+    R, L = rows.double()[idx.long()], rows_lo.double()[idx.long()]
+    exact = (Wh + Wl) @ (R + L)
+    tol = 4 * 2.0**-23 * ((Wh.abs() + Wl.abs()) @ (R.abs() + L.abs()))
+    assert int(((Wl.abs() @ L.abs()) > 4 * tol).sum()) > 8
+    S, _ = dense_fused.head_scores(rows.to(cuda_device), rows_lo.to(cuda_device),
+                                   idx.to(cuda_device), W.to(cuda_device), False)
+    err = (S.cpu().double() - exact).abs()
+    assert bool((err <= tol).all()), float((err / tol.clamp_min(1e-30)).max())
 
 
 def test_kernel_wrappers_refuse_bad_inputs(cuda_device):
     rows = torch.zeros((4, 12), dtype=torch.bfloat16, device=cuda_device)
     idx = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    w = torch.zeros((3, 2), dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError):
-        kernels.gather_rows(rows, idx)                       # D % 8 != 0
+        kernels.head_scores(rows, None, idx, w, None, False)          # D % 8 != 0
+    rows = rows[:, :8].contiguous()
     with pytest.raises(TypeError):
-        kernels.gather_rows(rows[:, :8].float().contiguous(), idx)
+        kernels.head_scores(rows.float(), None, idx, w, None, False)
+    with pytest.raises(TypeError):
+        kernels.head_scores(rows, None, idx, w.float(), None, False)
+    with pytest.raises(ValueError):                                   # idx [U]
+        kernels.head_scores(rows, None, idx[:1], w, None, False)
+    with pytest.raises(ValueError):                                   # w_lo [B, U]
+        kernels.head_scores(rows, rows, idx, w, w[:2], False)
+    with pytest.raises(ValueError):                                   # rows_lo with w_lo
+        kernels.head_scores(rows, rows, idx, w, None, False)
+    with pytest.raises(RuntimeError, match="invalid argument"):       # > 65535 grid rows
+        kernels.head_scores(rows, None, idx, w.new_zeros((32 * 65535 + 1, 2)), None, False)
     docs = torch.zeros((2, 1024), dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
         kernels.far_stage(docs, docs, 512)                   # contribs not f32
@@ -115,10 +246,10 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda_device):
 
 
 def test_dense_fused_cuda_matches_cpu(cuda_device):
-    """The fused search on the card (kernels + bf16 products with f32 out)
-    against the same inputs on the CPU (twins + f32 products): docs and
-    hits equal, scores within 1e-6 relative (the products sum in another
-    order)."""
+    """The fused search on the card (kernels, the head scores in one
+    head_scores launch) against the same inputs on the CPU (plain versions,
+    f32 products): docs and hits equal, scores within 1e-6 relative (the
+    products sum in another order)."""
     from nrtsearch_tpu_torch.ops.dense_head import decode_packed2
 
     rng = np.random.default_rng(4)
@@ -138,10 +269,39 @@ def test_dense_fused_cuda_matches_cpu(cuda_device):
     args = [rows, row_max, post_docs, post_imps, W, row_idx, n_req, offs, lens, wts]
     kw = dict(k=10, has_head=True, has_tail=True, run_len=512)
     cpu = decode_packed2(dense_fused.dense_fused_topk(*args, None, None, None, rows_lo, **kw), 10)
+    kernels.reset_launch_counts()
     gpu = decode_packed2(dense_fused.dense_fused_topk(
         *[a.to(cuda_device) for a in args], None, None, None, rows_lo.to(cuda_device), **kw), 10)
+    assert kernels.LAUNCHES["head_scores"] == 1
     np.testing.assert_array_equal(gpu[1], cpu[1])
     np.testing.assert_array_equal(gpu[2], cpu[2])
+    np.testing.assert_allclose(gpu[0], cpu[0], rtol=1e-6)
+
+
+def test_dense_fused_head_is_one_kernel_launch(cuda_device, monkeypatch):
+    """On the card the head scores come from the kernel alone: the plain
+    gather and products are never called, one head_scores launch per fused
+    dispatch (an all-head conjunction, so the count C rides it too)."""
+    from nrtsearch_tpu_torch.ops.dense_head import decode_packed2
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the plain head path ran on CUDA tensors")
+
+    rows, rows_lo, idx, W = _head_inputs(11, 4, 32, 4096)
+    row_max = rows.float().amax(dim=1)
+    empty_i = torch.zeros((4, 1), dtype=torch.int32)
+    args = [rows, row_max, torch.zeros(16, dtype=torch.int32), torch.zeros(16), W, idx,
+            torch.full((4,), 2, dtype=torch.int32), empty_i, empty_i, torch.zeros((4, 1))]
+    kw = dict(k=10, has_head=True, has_tail=False, run_len=0, require_all=True)
+    cpu = decode_packed2(dense_fused.dense_fused_topk(*args, None, None, None, rows_lo, **kw), 10)
+    monkeypatch.setattr(dense_fused, "_gather_rows_scan", refuse)
+    monkeypatch.setattr(dense_fused, "_mm", refuse)
+    kernels.reset_launch_counts()
+    gpu = decode_packed2(dense_fused.dense_fused_topk(
+        *[a.to(cuda_device) for a in args], None, None, None, rows_lo.to(cuda_device), **kw), 10)
+    assert kernels.LAUNCHES["head_scores"] == 1
+    np.testing.assert_array_equal(gpu[2], cpu[2])
+    assert int(cpu[2].min()) > 0
     np.testing.assert_allclose(gpu[0], cpu[0], rtol=1e-6)
 
 

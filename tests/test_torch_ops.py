@@ -202,12 +202,13 @@ def test_hierarchical_topk_matches_reference(k):
 
 
 def test_gather_rows_twin_matches_scan():
-    """Twin row gather == the reference's scan gather: bit-equal (bf16)."""
+    """The plain row gather inside head_scores_plain == the reference's scan
+    gather: bit-equal (bf16)."""
     rng = np.random.default_rng(0)
     rows = jnp.asarray(rng.random((64, 512)).astype(np.float32)).astype(jnp.bfloat16)
     idx = np.array([5, 0, 63, 7, 7, 0, 12, 31], np.int32)
     ref = ref_fused._gather_rows_scan(rows, jnp.asarray(idx))
-    out = port_fused.gather_rows(to_torch(rows), to_torch(idx))
+    out = port_fused._gather_rows_scan(to_torch(rows), to_torch(idx))
     np.testing.assert_array_equal(
         out.view(torch.int16).numpy(), np.asarray(ref).view(np.int16)
     )
