@@ -102,6 +102,31 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    answer bit for bit. Last, ``python -m nrtsearch_tpu_torch.server`` as a
    child process with no --device answers status and a search on a small
    index, and its log names the CUDA device.
+11. replication on the card: phase 4's index committed and opened by a
+   PRIMARY node (primaryGen 1, in-process); a REPLICA node with its own
+   indexDir registers (addReplicas, through a primary discovery file),
+   copies the commit over recvRawFile and installs it onto the card (the
+   initial sync's seconds and bytes printed). With the launch counters
+   reset just before and read just after, phase 5's 8 singles and its
+   first B=32 batch as 32 concurrent clients, 3 times, to the replica
+   alone: head_scores, near_stages, far_stage, far_pair_stage, gather_runs
+   and finish_mask must all launch; every answer meets the numpy oracle
+   under its path's contract and each single is bit-equal to the primary's
+   at the same version; served B=1 p50 of both nodes. Then 2,000 documents
+   in 8 addDocuments + refresh rounds on the primary: per round the
+   replication lag (refresh returned to replicaCurrentSearchingVersion),
+   the replica's install seconds and the bytes copied, p50 and max; a
+   search pinned to a version the replica lacks waits for it; 'needle'
+   answers the new docs. The primary commits, stops and restarts with
+   primaryGen 2 and restore; the replica follows the discovery file to it
+   and answers its documents. Peak device memory with both 1M-doc nodes
+   and after the 8 installs. Then an isolated replica: a primary with
+   bucketName over a FakeS3Server on loopback, a replica with no primary
+   address restores from and polls the object store and answers bit for
+   bit as the primary. Last, a primary and a replica as ``python -m
+   nrtsearch_tpu_torch.server`` children with no --device, driven through
+   ``python -m nrtsearch_tpu_torch.cli``: the replica answers what the
+   primary indexed and both logs name the CUDA device.
 
 Launches per main-path batch: the counters around one fast_search_batch
 of the first B=32 batch (merge path), one B=1 query (fused path) and, for
@@ -111,7 +136,8 @@ The last lines are the kernel table as JSON (``launches`` from phase 5's
 run, or phase 8's for bucket_rank; ``launches_config3`` from phase 9's, and
 ``launches_per_config3_request`` from one sorted B=32 batch, or for
 head_scores one fused config-#3 single; ``launches_served`` from phase 10's
-served searches),
+served searches, ``launches_replica`` from phase 11's searches sent to the
+replica alone),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
@@ -1810,45 +1836,97 @@ def _faceted_request(tree: dict):
     return req
 
 
+class _Children:
+    """``python -m nrtsearch_tpu_torch.server`` child processes of this
+    checkout, each logging to a file; ``stop()`` ends every one."""
+
+    def __init__(self):
+        self.here = os.path.dirname(os.path.abspath(__file__))
+        self.env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [self.here, *filter(None, [os.environ.get("PYTHONPATH")])]))
+        self.procs, self.logs = {}, {}
+
+    def start(self, name: str, log_path: str, *args: str) -> None:
+        self.logs[name] = log_path
+        with open(log_path, "w") as log_f:
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "nrtsearch_tpu_torch.server", *args],
+                cwd=self.here, env=self.env, stdout=log_f, stderr=subprocess.STDOUT)
+
+    def status(self, name: str, port: int, deadline: float):
+        """The child's status answer, polled until it answers; fails if the
+        child exits or the deadline passes."""
+        from nrtsearch_tpu_torch.client import NrtsearchClient
+
+        with NrtsearchClient(f"localhost:{port}") as client:
+            while True:
+                try:
+                    return client.status()
+                except Exception:
+                    proc = self.procs[name]
+                    if proc.poll() is not None or time.time() > deadline:
+                        raise AssertionError(
+                            f"the {name} child did not answer: rc {proc.poll()}\n"
+                            + open(self.logs[name]).read()[-4000:])
+                    time.sleep(0.5)
+
+    def cuda_lines(self) -> dict:
+        """Each child's log line that names the CUDA device; fails if one
+        names none."""
+        named = {}
+        for name, path in self.logs.items():
+            text = open(path).read()
+            lines = [ln for ln in text.splitlines() if "indexes on cuda" in ln]
+            if not lines:
+                raise AssertionError(f"the {name} child's log names no CUDA device:\n"
+                                     + text[-4000:])
+            named[name] = lines[0].strip()
+        return named
+
+    def stop(self) -> None:
+        for proc in self.procs.values():
+            proc.terminate()
+        for proc in self.procs.values():
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
+def _free_ports(n: int) -> list[int]:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("localhost", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
 def phase_served_process(card: str) -> dict:
     """``python -m nrtsearch_tpu_torch.server cfg.yaml`` as a child process
     with no --device: it must serve on the card, answer status and a search
     on a small index, and name the CUDA device in its log."""
-    import socket
     import tempfile
 
     from nrtsearch_tpu_torch.client import NrtsearchClient
     from nrtsearch_tpu_torch.gen import pb
 
-    here = os.path.dirname(os.path.abspath(__file__))
+    children = _Children()
     with tempfile.TemporaryDirectory(prefix="served_child_") as tmp:
         cfg = os.path.join(tmp, "cfg.yaml")
         with open(cfg, "w") as f:
             f.write(f"stateDir: {tmp}/state\nindexDir: {tmp}/index\n")
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            port = sock.getsockname()[1]
-        log_path = os.path.join(tmp, "server.log")
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [here, *filter(None, [os.environ.get("PYTHONPATH")])]))
-        with open(log_path, "w") as log_f:
-            proc = subprocess.Popen(
-                [sys.executable, "-m", "nrtsearch_tpu_torch.server", cfg, "--port", str(port)],
-                cwd=here, env=env, stdout=log_f, stderr=subprocess.STDOUT)
+        (port,) = _free_ports(1)
+        children.start("server", os.path.join(tmp, "server.log"), cfg, "--port", str(port))
         client = NrtsearchClient(f"localhost:{port}")
         try:
-            deadline = time.time() + 180
             t = time.perf_counter()
-            while True:
-                try:
-                    health = client.status().health
-                    break
-                except Exception:
-                    if proc.poll() is not None or time.time() > deadline:
-                        raise AssertionError(
-                            f"the child server did not answer: rc {proc.poll()}\n"
-                            + open(log_path).read()[-4000:])
-                    time.sleep(0.5)
+            health = children.status("server", port, time.time() + 180).health
             up_s = time.perf_counter() - t
             if health != pb.TransferStatusCode.Done:
                 raise AssertionError(f"child status {health}")
@@ -1876,19 +1954,555 @@ def phase_served_process(card: str) -> dict:
                 raise AssertionError(f"child search: {resp.totalHits.value} hits, want {want}")
         finally:
             client.close()
-            proc.terminate()
-            try:
-                proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=30)
-        text = open(log_path).read()
-        named = [ln for ln in text.splitlines() if "indexes on cuda" in ln]
-        if not named:
-            raise AssertionError("the child server's log names no CUDA device:\n" + text[-4000:])
+            children.stop()
+        named = children.cuda_lines()["server"]
         log(f"served child: python -m nrtsearch_tpu_torch.server answered status after "
-            f"{up_s:.1f} s and a search ({want} hits); its log: {named[0].strip()} | {card}")
+            f"{up_s:.1f} s and a search ({want} hits); its log: {named} | {card}")
         return {"up_s": up_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: replication on the card
+# ---------------------------------------------------------------------------
+
+REPLICA_ROUND_S = 120.0    # a replica that has not installed a point by then fails
+
+
+def _node(root: str, name: str, extra: dict | None = None, *, dev, state: str):
+    """An in-process NrtsearchServer on ``dev`` (port 0) and its client."""
+    from nrtsearch_tpu_torch.client import NrtsearchClient
+    from nrtsearch_tpu_torch.config import NrtsearchConfig
+    from nrtsearch_tpu_torch.server.grpc_server import NrtsearchServer
+
+    config = NrtsearchConfig.from_dict({
+        **SERVED_CONFIG, "stateDir": state, "indexDir": f"{root}/{name}_index",
+        "nodeName": name, **(extra or {})})
+    server = NrtsearchServer(config, device=dev)
+    return server, NrtsearchClient(f"localhost:{server.start(0)}")
+
+
+class _Installs:
+    """Times every IndexRuntime.install_point of the process, split into the
+    file copies it runs (ReplicationService._fetch_files, which the merge
+    pre-copy also runs), the segment loads (index_runtime.load_segment) and
+    the rest (the searcher's publish): measurement only, the wrapped
+    functions are called as they are. ``installs`` holds one dict per
+    install, ``fetches`` (start, seconds, bytes) per copy."""
+
+    def __init__(self):
+        import threading
+
+        from nrtsearch_tpu_torch.server import index_runtime
+        from nrtsearch_tpu_torch.server.replication import ReplicationService
+
+        self.installs, self.fetches = [], []
+        self._orig = (index_runtime.IndexRuntime.install_point,
+                      ReplicationService._fetch_files, index_runtime.load_segment)
+        install, fetch, load = self._orig
+        loads = threading.local()
+
+        def timed_fetch(service, rt, client, index_name, files):
+            t = time.perf_counter()
+            fetch(service, rt, client, index_name, files)
+            nbytes = sum(os.path.getsize(os.path.join(rt.index_dir, f)) for f in files)
+            self.fetches.append((t, time.perf_counter() - t, nbytes))
+
+        def timed_load(*args, **kw):
+            t = time.perf_counter()
+            seg = load(*args, **kw)
+            loads.s = getattr(loads, "s", 0.0) + time.perf_counter() - t
+            return seg
+
+        def timed_install(rt, point, file_fetcher=None):
+            n0, t = len(self.fetches), time.perf_counter()
+            loads.s = 0.0
+            ok = install(rt, point, file_fetcher)
+            if rt.device.type == "cuda":
+                torch.cuda.synchronize(rt.device)
+            copied = self.fetches[n0:]
+            self.installs.append({"s": time.perf_counter() - t, "ok": ok, "load_s": loads.s,
+                                  "copy_s": sum(f[1] for f in copied),
+                                  "bytes": sum(f[2] for f in copied)})
+            return ok
+
+        index_runtime.IndexRuntime.install_point = timed_install
+        index_runtime.load_segment = timed_load
+        ReplicationService._fetch_files = timed_fetch
+
+    def close(self) -> None:
+        from nrtsearch_tpu_torch.server import index_runtime
+        from nrtsearch_tpu_torch.server.replication import ReplicationService
+
+        (index_runtime.IndexRuntime.install_point, ReplicationService._fetch_files,
+         index_runtime.load_segment) = self._orig
+
+
+def _wait_version(rclient, index: str, version: int, what: str) -> float:
+    """Seconds until the replica's replicaCurrentSearchingVersion reaches
+    ``version``; fails after REPLICA_ROUND_S."""
+    t = time.perf_counter()
+    while True:
+        got = rclient.replica_current_searching_version(index).version
+        if got >= version:
+            return time.perf_counter() - t
+        if time.perf_counter() - t > REPLICA_ROUND_S:
+            raise AssertionError(f"{what}: the replica stayed at version {got}, "
+                                 f"the primary is at {version}")
+        time.sleep(0.01)
+
+
+def _hits_bits(resp) -> tuple:
+    """A response's answer, bit for bit: hit count, relation, docs, scores."""
+    return (resp.totalHits.value, resp.totalHits.relation,
+            [(h.luceneDocId, np.float32(h.score).view(np.int32).item()) for h in resp.hits])
+
+
+def phase_replication(dev, corpus, columns, searcher, singles, batch, card: str) -> dict:
+    """Phase 11 (see the module docstring): a PRIMARY and a REPLICA node of
+    the 1M-doc index in this process, push replication, the replica's served
+    main path (launch counters reset just before its searches and read just
+    after), NRT ingest, a new primary incarnation; then an isolated replica
+    through S3 and a primary-replica pair of child processes."""
+    import shutil
+    import tempfile
+    import threading
+
+    from nrtsearch_tpu_torch import kernels
+    from nrtsearch_tpu_torch.core.directory import commit_segments
+    from nrtsearch_tpu_torch.gen import pb
+    from nrtsearch_tpu_torch.server.replication import ReplicationClient
+
+    root = tempfile.mkdtemp(prefix="replication_")
+    state = f"{root}/state"
+    discovery = f"{root}/primary.json"
+    nodes, clients = [], []
+    installs = _Installs()
+
+    def close(node, client):
+        client.close()
+        node.stop()
+        nodes.remove(node)
+        clients.remove(client)
+
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        # 1. the primary opens phase 4's index, committed where startIndex opens it
+        primary, pc = _node(root, "primary", dev=dev, state=state)
+        nodes.append(primary)
+        clients.append(pc)
+        pc.create_index(SERVED_INDEX)
+        pc.register_fields(pb.FieldDefRequest(indexName=SERVED_INDEX, field=[
+            pb.Field(name=n, **{k: (pb.FieldType.Value(v) if k == "type" else v)
+                                for k, v in spec.items()}) for n, spec in SERVED_FIELDS]))
+        index_dir = os.path.join(primary.config.index_dir,
+                                 primary.global_state.index_ids[SERVED_INDEX])
+        commit_segments(searcher.segments, index_dir, gen=1, version=1, primary_gen=1)
+        ls = pb.LiveSettingsV2Request(indexName=SERVED_INDEX)
+        ls.liveSettings.maxMergedSegmentMB.value = 1
+        ls.liveSettings.segmentsPerTier.value = 6
+        ls.liveSettings.maxRefreshSec.value = 3600.0
+        pc.live_settings_v2(ls)
+        t = time.perf_counter()
+        pc.start_index(pb.StartIndexRequest(indexName=SERVED_INDEX, mode=pb.Mode.PRIMARY,
+                                            primaryGen=1))
+        p_open = time.perf_counter() - t
+        p_rt = primary.global_state.runtimes[SERVED_INDEX]
+        with open(discovery, "w") as f:
+            json.dump({"host": "localhost", "port": primary.replication_port}, f)
+
+        # 2. the replica registers and copies the commit over recvRawFile
+        replica, rc = _node(root, "replica", dev=dev, state=state)
+        nodes.append(replica)
+        clients.append(rc)
+        rrc = ReplicationClient(f"localhost:{replica.replication_port}")
+        t = time.perf_counter()
+        rc.start_index(pb.StartIndexRequest(indexName=SERVED_INDEX, mode=pb.Mode.REPLICA,
+                                            primaryDiscoveryFile=discovery))
+        sync_s = time.perf_counter() - t
+        r_rt = replica.global_state.runtimes[SERVED_INDEX]
+        if (r_rt.searcher.version != p_rt.searcher.version
+                or r_rt.searcher.num_docs != NUM_DOCS
+                or any(s.device != dev for s in r_rt.searcher.segments)
+                or not installs.installs):
+            raise AssertionError(
+                f"initial sync: replica at version {r_rt.searcher.version} with "
+                f"{r_rt.searcher.num_docs} docs on {[str(s.device) for s in r_rt.searcher.segments]}"
+                f", primary at {p_rt.searcher.version}")
+        first = installs.installs[-1]
+        log(f"replication: primary startIndex opened the committed {NUM_DOCS}-doc index in "
+            f"{p_open:.2f} s; the replica's startIndex (addReplicas, recvCopyState, "
+            f"recvRawFile of {first['bytes'] / 2**30:.3f} GiB in "
+            f"{len(os.listdir(r_rt.index_dir))} files, install onto the card) took "
+            f"{sync_s:.2f} s: copy {first['copy_s']:.2f} s "
+            f"({first['bytes'] / 2**20 / max(first['copy_s'], 1e-9):.1f} MiB/s), install "
+            f"{first['s'] - first['copy_s']:.2f} s (segment loads {first['load_s']:.2f} s) "
+            f"| {card}")
+
+        # 3. the replica serves the main path, counted alone
+        client_of = {"replica": rc, "primary": pc}
+
+        def singles_on(side):
+            out, lat = [], []
+            for q in singles:
+                t = time.perf_counter()
+                out.append(client_of[side].search(_request(_match_dict(q))))
+                lat.append(time.perf_counter() - t)
+            return out, lat
+
+        singles_on("replica")       # first searches pack the view and build the rows
+        singles_on("primary")
+        r_view = r_rt.searcher.packed_view("body")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        r_lat, r_single_paths, r_out, b_out = [], [], [], []
+        b_fused = 0
+        for rep in range(3):
+            for q in singles:
+                before = dict(r_view.path_counts)
+                t = time.perf_counter()
+                resp = rc.search(_request(_match_dict(q)))
+                r_lat.append(time.perf_counter() - t)
+                if rep == 0:
+                    r_single_paths.append(
+                        next(k for k in before if r_view.path_counts[k] != before[k]))
+                    r_out.append(resp)
+            before = r_view.path_counts["fused"]
+            outs, _secs = _concurrent(
+                lambda i: rc.search(_request(_match_dict(batch[i]))), len(batch))
+            b_fused += r_view.path_counts["fused"] - before
+            b_out.append(outs)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        log(f"replication: the replica's served launches {launches} (8 singles and "
+            f"{len(batch)} concurrent clients, 3 times; read without a lock: lower bounds)")
+        missing = [k for k in CONFIG3_KERNELS if launches.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"the replica's served path did not launch {missing}")
+        p_out, p_lat = [], []
+        for rep in range(3):
+            out, lat = singles_on("primary")
+            p_lat.extend(lat)
+            if rep == 0:
+                p_out = out
+        if p_rt.searcher.version != r_rt.searcher.version:
+            raise AssertionError("the primary moved during the replica's singles")
+        for q, r, p_ in zip(singles, r_out, p_out):
+            if _hits_bits(r) != _hits_bits(p_):
+                raise AssertionError(f"replica single {q} differs from the primary's")
+        worst, swaps = {"fused": 0.0, "merge": 0.0}, 0
+        for q, resp, path in zip(singles, r_out, r_single_paths):
+            rel = FUSED_REL if path == "fused" else MERGE_REL
+            td, ex = _served_td(resp), corpus.exact_topk(q, TOP_K)
+            swaps += _check_topk(td, ex, rel, f"replica single {q} ({path})")
+            worst[path] = max(worst[path], _max_rel(td, ex))
+        b_rel = MERGE_REL if b_fused == 0 else FUSED_REL
+        for outs in b_out:
+            for q, resp in zip(batch, outs):
+                swaps += _check_topk(_served_td(resp), corpus.exact_topk(q, TOP_K), b_rel,
+                                     f"replica concurrent {q}")
+        r_p50, p_p50 = 1e3 * float(np.median(r_lat)), 1e3 * float(np.median(p_lat))
+        torch.cuda.synchronize()
+        two_nodes = torch.cuda.max_memory_allocated(dev)
+        log(f"replication: the replica's {len(singles)} singles bit-equal to the primary's "
+            f"at version {r_rt.searcher.version} (docs, order, hits, scores); singles "
+            f"({r_single_paths}) and 3 x {len(batch)} concurrent answers against the numpy "
+            f"oracle: worst rel fused {worst['fused']:.3g}, merge {worst['merge']:.3g}, "
+            f"concurrent within {b_rel}; near-tie swaps {swaps}")
+        log(f"replication: served B=1 p50 replica {r_p50:.2f} ms, primary {p_p50:.2f} ms "
+            f"(n={len(r_lat)} each); peak device memory with both 1M-doc nodes "
+            f"{two_nodes / 2**30:.3f} GiB ({(two_nodes - base) / 2**30:.3f} GiB above the "
+            f"phase's start, which holds phase 4's index) | {card}")
+
+        # 4. NRT ingest: 8 addDocuments + refresh rounds on the primary
+        docs = _served_ingest_docs(2000)
+        step = len(docs) // SERVED_CHUNKS
+        needle = _request(_match_dict(["needle"]), k=200)
+        lags, inst, copied, pinned = [], [], [], []
+        for c in range(SERVED_CHUNKS):
+            pc.add_documents(_add_requests(docs[c * step:(c + 1) * step]))
+            n_inst = len(installs.installs)
+            f0 = len(installs.fetches)
+            pc.refresh(SERVED_INDEX)
+            t_ref = time.perf_counter()
+            version = p_rt.searcher.version
+            want = sum("needle" in d["body"].split() for d in docs[:(c + 1) * step])
+            behind = rrc.replica_current_searching_version(SERVED_INDEX).version < version
+            box = {}
+            if behind:
+                req = _request(_match_dict(["needle"]), k=200)
+                req.version = version
+
+                def run_pinned(req=req):
+                    try:
+                        box["resp"] = rc.search(req)
+                    except Exception as e:  # noqa: BLE001 - raised below
+                        box["error"] = e
+
+                th = threading.Thread(target=run_pinned)
+                th.start()
+            lag = _wait_version(rrc, SERVED_INDEX, version, f"ingest round {c}")
+            if behind:
+                th.join(timeout=REPLICA_ROUND_S)
+                if "resp" not in box:
+                    raise AssertionError(f"round {c}: the pinned search failed: {box}")
+                got = box["resp"]
+                if got.searchState.searcherVersion != version or got.totalHits.value != want:
+                    raise AssertionError(
+                        f"round {c}: the search pinned to version {version} answered version "
+                        f"{got.searchState.searcherVersion} with {got.totalHits.value} hits, "
+                        f"want {want}")
+                pinned.append(c)
+            lags.append(lag)
+            new = installs.installs[n_inst:]
+            if not new or not all(i["ok"] for i in new):
+                raise AssertionError(f"round {c}: no install of the replica ran: {new}")
+            inst.append(sum(i["s"] - i["copy_s"] for i in new))
+            copied.append(sum(f[2] for f in installs.fetches[f0:]))
+            log(f"replication ingest round {c}: lag {1e3 * lag:.1f} ms (refresh returned to "
+                f"replicaCurrentSearchingVersion {version}), replica install "
+                f"{1e3 * inst[-1]:.1f} ms in {len(new)} install(s) (copy not counted; segment "
+                f"loads {1e3 * sum(i['load_s'] for i in new):.1f} ms), "
+                f"{copied[-1] / 2**20:.3f} MiB copied; segments {len(r_rt.searcher.segments)}"
+                f"; pinned search {'waited' if behind else 'not sent (already installed)'}")
+            if time.perf_counter() - t_ref > REPLICA_ROUND_S:
+                raise AssertionError(f"round {c} took too long")
+        if not pinned:
+            raise AssertionError("no search was pinned to a version the replica lacked")
+        torch.cuda.synchronize()
+        after8 = torch.cuda.max_memory_allocated(dev)
+        held = torch.cuda.memory_allocated(dev)
+        resp = rc.search(needle)
+        want = sum("needle" in d["body"].split() for d in docs)
+        if resp.totalHits.value != want or _hits_bits(resp) != _hits_bits(pc.search(needle)):
+            raise AssertionError(f"after ingest the replica answers 'needle' with "
+                                 f"{resp.totalHits.value} hits, want {want}, or differs")
+        st = p_rt.stats()
+        log(f"replication ingest: {len(docs)} docs in {SERVED_CHUNKS} rounds; lag p50 "
+            f"{1e3 * float(np.median(lags)):.1f} ms, max {1e3 * max(lags):.1f} ms; replica "
+            f"install p50 {1e3 * float(np.median(inst)):.1f} ms, max {1e3 * max(inst):.1f} ms;"
+            f" copied p50 {float(np.median(copied)) / 2**20:.3f} MiB, max "
+            f"{max(copied) / 2**20:.3f} MiB; primary merges {st['merges']}; searches pinned "
+            f"to an uninstalled version waited in rounds {pinned}; 'needle' answers its "
+            f"{want} docs on the replica | {card}")
+        log(f"replication memory: peak {after8 / 2**30:.3f} GiB after {SERVED_CHUNKS} installs "
+            f"(with both nodes {two_nodes / 2**30:.3f}); allocated now {held / 2**30:.3f} GiB, "
+            f"{(held - base) / 2**30:.3f} above the phase's start; the replica keeps "
+            f"{len(r_rt._searchers_by_version)} searcher versions | {card}")
+
+        # 5. a new primary incarnation: commit, stop, restart with primaryGen 2
+        pc.commit(SERVED_INDEX)
+        pc.stop_index(SERVED_INDEX)
+        close(primary, pc)
+        t = time.perf_counter()
+        primary, pc = _node(root, "primary", dev=dev, state=state)
+        nodes.append(primary)
+        clients.append(pc)
+        req = pb.StartIndexRequest(indexName=SERVED_INDEX, mode=pb.Mode.PRIMARY, primaryGen=2)
+        req.restore.resourceName = SERVED_INDEX
+        pc.start_index(req)
+        p_rt = primary.global_state.runtimes[SERVED_INDEX]
+        restart_s = time.perf_counter() - t
+        with open(discovery, "w") as f:
+            json.dump({"host": "localhost", "port": primary.replication_port}, f)
+        extra = [{"body": "incarnation needle", "price": "1.0", "ts": "2.0", "tag": "tag_000"}
+                 for _ in range(5)]
+        pc.add_documents(_add_requests(extra))
+        pc.refresh(SERVED_INDEX)
+        lag = _wait_version(rrc, SERVED_INDEX, p_rt.searcher.version, "new incarnation")
+        inc = _request(_match_dict(["incarnation"]), k=10)
+        resp = rc.search(inc)
+        if (r_rt.primary_gen != 2 or resp.totalHits.value != len(extra)
+                or _hits_bits(resp) != _hits_bits(pc.search(inc))
+                or _hits_bits(rc.search(needle)) != _hits_bits(pc.search(needle))):
+            raise AssertionError(f"new incarnation: replica primaryGen {r_rt.primary_gen}, "
+                                 f"'incarnation' {resp.totalHits.value} hits")
+        log(f"replication incarnation: primary restarted with primaryGen 2 and restore in "
+            f"{restart_s:.2f} s; the replica followed the discovery file to it and answers "
+            f"its documents {1e3 * lag:.1f} ms after its refresh | {card}")
+        rrc.close()
+    finally:
+        installs.close()
+        for client in clients:
+            client.close()
+        for node in nodes:
+            node.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    s3 = phase_replication_s3(dev, card)
+    pair = phase_replication_processes(card)
+    return {"launches": launches, "sync_s": sync_s, "lags": lags, "installs": inst,
+            "s3": s3, "pair": pair}
+
+
+def phase_replication_s3(dev, card: str) -> dict:
+    """An isolated replica: a primary with bucketName publishes to a
+    FakeS3Server on loopback; a replica with no primaryAddress restores from
+    and polls the object store, and answers bit for bit as the primary."""
+    import shutil
+    import tempfile
+
+    from nrtsearch_tpu_torch.gen import pb
+    from nrtsearch_tpu_torch.remote.fake_s3 import FakeS3Server
+    from nrtsearch_tpu_torch.remote.s3 import S3Backend
+    from nrtsearch_tpu_torch.server.replication import ReplicationClient
+
+    s3 = FakeS3Server()
+    endpoint = s3.start()
+    root = tempfile.mkdtemp(prefix="replication_s3_")
+    remote = {"serviceName": "smoke", "bucketName": "smoke-bucket",
+              "stateConfig": {"backendType": "REMOTE"},
+              "s3": {"endpoint": endpoint, "accessKey": "k", "secretKey": "s"}}
+    nodes = []
+    try:
+        primary, pc = _node(root, "primary", remote, dev=dev, state=f"{root}/p_state")
+        nodes.append((primary, pc))
+        if not isinstance(primary.global_state.remote, S3Backend):
+            raise AssertionError(f"bucketName built {type(primary.global_state.remote)}")
+        pc.create_index("s3")
+        pc.register_fields(pb.FieldDefRequest(indexName="s3", field=[
+            pb.Field(name=n, **{k: (pb.FieldType.Value(v) if k == "type" else v)
+                                for k, v in spec.items()}) for n, spec in SERVED_FIELDS]))
+        ls = pb.LiveSettingsV2Request(indexName="s3")
+        ls.liveSettings.maxRefreshSec.value = 3600.0
+        pc.live_settings_v2(ls)
+        pc.start_index(pb.StartIndexRequest(indexName="s3", mode=pb.Mode.PRIMARY, primaryGen=1))
+        docs = _served_ingest_docs(2000)
+        reqs = list(_add_requests(docs[:1500]))
+        for r in reqs:
+            r.indexName = "s3"
+        pc.add_documents(iter(reqs))
+        pc.refresh("s3")
+        p_rt = primary.global_state.runtimes["s3"]
+
+        replica, rc = _node(root, "replica", remote, dev=dev, state=f"{root}/r_state")
+        nodes.append((replica, rc))
+        req = pb.StartIndexRequest(indexName="s3", mode=pb.Mode.REPLICA)
+        req.restore.resourceName = "s3"
+        t = time.perf_counter()
+        rc.start_index(req)
+        restore_s = time.perf_counter() - t
+        r_rt = replica.global_state.runtimes["s3"]
+        if r_rt.searcher.num_docs != 1500 or any(s.device != dev for s in r_rt.searcher.segments):
+            raise AssertionError(f"the S3 replica restored {r_rt.searcher.num_docs} docs")
+        reqs = list(_add_requests(docs[1500:]))
+        for r in reqs:
+            r.indexName = "s3"
+        pc.add_documents(iter(reqs))
+        pc.refresh("s3")
+        rrc = ReplicationClient(f"localhost:{replica.replication_port}")
+        try:
+            lag = _wait_version(rrc, "s3", p_rt.searcher.version, "S3 replica")
+        finally:
+            rrc.close()
+        requests = []
+        for terms in (["needle"], ["alpha", "gamma"], ["common", "delta", "beta"]):
+            r = _request(_match_dict(terms), k=50, retrieveFields=["price", "ts", "tag"])
+            r.indexName = "s3"
+            requests.append(r)
+        want = [_strip(pc.search(r)) for r in requests]
+        got = [_strip(rc.search(r)) for r in requests]
+        if got != want or pc.search(requests[0]).totalHits.value == 0:
+            raise AssertionError("the S3 replica's answers differ from the primary's")
+        log(f"replication s3: an isolated replica restored 1500 docs from the object store "
+            f"in {restore_s:.2f} s and polled the next point in {lag:.2f} s (poll interval "
+            f"1 s); {len(requests)} answers bit for bit as the primary's | {card}")
+        return {"restore_s": restore_s, "lag_s": lag}
+    finally:
+        for node, client in nodes:
+            client.close()
+            node.stop()
+        s3.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_replication_processes(card: str) -> dict:
+    """A primary and a replica as ``python -m nrtsearch_tpu_torch.server``
+    children with no --device, driven through ``python -m
+    nrtsearch_tpu_torch.cli``: the replica answers what the primary indexed
+    and both logs name the CUDA device."""
+    import tempfile
+
+    children = _Children()
+    cli_s = []
+
+    def cli(node_port, *argv):
+        t = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "nrtsearch_tpu_torch.cli", "--port", str(node_port), *argv],
+            cwd=children.here, env=children.env, capture_output=True, text=True, timeout=120)
+        cli_s.append(time.perf_counter() - t)
+        if out.returncode != 0:
+            raise AssertionError(f"cli {argv}: rc {out.returncode}\n{out.stderr[-2000:]}")
+        return out.stdout
+
+    with tempfile.TemporaryDirectory(prefix="replication_pair_") as tmp:
+        # the replication port comes from the YAML only when --port is not given
+        p, p_repl, r, r_repl = _free_ports(4)
+        try:
+            for name, port, rport in (("primary", p, p_repl), ("replica", r, r_repl)):
+                cfg = os.path.join(tmp, f"{name}.yaml")
+                with open(cfg, "w") as f:
+                    f.write(f"stateDir: {tmp}/state\nindexDir: {tmp}/{name}_index\n"
+                            f"nodeName: {name}\nport: {port}\nreplicationPort: {rport}\n")
+                children.start(name, os.path.join(tmp, f"{name}.log"), cfg)
+            deadline = time.time() + 180
+            children.status("primary", p, deadline)
+            children.status("replica", r, deadline)
+            files = {}
+            for name, body in (
+                ("fields.json", {"indexName": "pair", "field": [
+                    {"name": "id", "type": "_ID", "store": True},
+                    {"name": "body", "type": "TEXT", "search": True}]}),
+                ("start.json", {"indexName": "pair", "mode": "PRIMARY", "primaryGen": 1}),
+                ("query.json", {"indexName": "pair", "topHits": 5,
+                                "query": {"matchQuery": {"field": "body", "query": "needle"}}}),
+            ):
+                files[name] = os.path.join(tmp, name)
+                with open(files[name], "w") as f:
+                    json.dump(body, f)
+            docs = _ingest_docs(600)
+            for part, chunk in (("a", docs[:300]), ("b", docs[300:])):
+                files[part] = os.path.join(tmp, f"docs_{part}.json")
+                with open(files[part], "w") as f:
+                    f.write("\n".join(json.dumps({"id": f"{part}{i}", "body": d["body"]})
+                                      for i, d in enumerate(chunk)))
+            cli(p, "createIndex", "--indexName", "pair")
+            cli(p, "registerFields", "--fileName", files["fields.json"])
+            cli(p, "startIndex", "--fileName", files["start.json"])
+            cli(p, "addDocuments", "--indexName", "pair", "--fileName", files["a"],
+                "--fileType", "json")
+            cli(p, "refresh", "--indexName", "pair")
+            cli(r, "reloadState")
+            cli(r, "startIndex", "--indexName", "pair", "--mode", "REPLICA",
+                "--primaryAddress", f"localhost:{p_repl}")
+            cli(p, "addDocuments", "--indexName", "pair", "--fileName", files["b"],
+                "--fileType", "json")
+            cli(p, "refresh", "--indexName", "pair")
+            want = sum("needle" in d["body"].split() for d in docs)
+            num_docs = json.loads(cli(p, "stats", "--indexName", "pair")).get("numDocs")
+            deadline = time.time() + REPLICA_ROUND_S
+            while True:
+                got = json.loads(cli(r, "search", "--fileName", files["query.json"]))
+                hits = int(got.get("totalHits", {}).get("value", 0))
+                if hits == want:
+                    break
+                if time.time() > deadline:
+                    raise AssertionError(f"the replica child answers {hits} hits, want {want}")
+                time.sleep(0.5)
+            ref = json.loads(cli(p, "search", "--fileName", files["query.json"]))
+            if [h["luceneDocId"] for h in got["hits"]] != [h["luceneDocId"] for h in ref["hits"]]:
+                raise AssertionError("the replica child's hits differ from the primary's")
+        finally:
+            children.stop()
+        named = children.cuda_lines()
+        log(f"replication pair: python -m nrtsearch_tpu_torch.server as a primary and a "
+            f"replica child, driven by {len(cli_s)} python -m nrtsearch_tpu_torch.cli calls "
+            f"(p50 {float(np.median(cli_s)):.2f} s each); the replica answers 'needle' with "
+            f"{want} hits as the primary (primary numDocs {num_docs}); logs: "
+            f"{named['primary']} / {named['replica']} | {card}")
+        return {"cli_calls": len(cli_s)}
 
 
 def main() -> int:
@@ -1997,6 +2611,9 @@ def main() -> int:
     # 10. the served path: the port's gRPC server on the same index
     served = phase_served(dev, corpus, columns, searcher, singles, batches[0], card)
 
+    # 11. replication: a PRIMARY and a REPLICA of the same index on the card
+    replication = phase_replication(dev, corpus, columns, searcher, singles, batches[0], card)
+
     table = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         st = stats[name]
@@ -2011,6 +2628,7 @@ def main() -> int:
             "launches_config3": config3["launches"].get(name, 0),
             "launches_per_config3_request": config3["per_request"].get(name, 0),
             "launches_served": served["launches"].get(name, 0),
+            "launches_replica": replication["launches"].get(name, 0),
         })
         if name == "head_scores":
             table[-1].update({k: st[k] for k in ("parent_ms", "index_select_ms", "max_rel_err",
@@ -2023,7 +2641,8 @@ def main() -> int:
             + f"; launches {launches[name]}, "
             f"{per_batch[name]} per batch, {config3['launches'].get(name, 0)} in config #3 "
             f"({config3['per_request'].get(name, 0)} per column request), "
-            f"{served['launches'].get(name, 0)} served | {card}")
+            f"{served['launches'].get(name, 0)} served, "
+            f"{replication['launches'].get(name, 0)} served by the replica | {card}")
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -273,15 +273,14 @@ class NrtsearchServer:
 
     @staticmethod
     def _make_remote_backend(config: NrtsearchConfig):
-        """Build the object-store backend from config: a ``remoteRoot`` path
-        selects the filesystem backend; bucketName (the S3 client) raises
-        until the replication slice ports ``remote/s3.py``. Returns None when
-        no remote storage is configured (pure-local node)."""
+        """Build the object-store backend from config: bucketName selects the
+        real S3 client (remote/s3.py, SigV4 over http.client — boto3 is not
+        available here); a ``remoteRoot`` path selects the filesystem double.
+        Returns None when no remote storage is configured (pure-local node)."""
         if config.bucket_name:
-            raise NotImplementedError(
-                "bucketName: the S3 backend is not ported yet (ROADMAP item 11, "
-                "the replication slice)"
-            )
+            from nrtsearch_tpu_torch.remote.s3 import S3Backend
+
+            return S3Backend.from_config(config)
         remote_root = config.raw.get("remoteRoot", "")
         if remote_root:
             from nrtsearch_tpu_torch.remote.backend import LocalFileBackend

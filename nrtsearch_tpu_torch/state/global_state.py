@@ -1,8 +1,7 @@
 """Copy of ``nrtsearch_tpu/state/global_state.py`` that carries the device:
 ``GlobalState(config, backend, remote=..., device=...)`` starts every index
-runtime on that device. Only STANDALONE indexes start: the PRIMARY and
-REPLICA roles raise ``NotImplementedError`` until the replication slice
-(ROADMAP item 11).
+runtime on that device, in each of the reference's modes (STANDALONE,
+PRIMARY, REPLICA).
 
 GlobalState: the cluster-level index registry.
 
@@ -210,11 +209,6 @@ class GlobalState:
             self._require(name)
             if name in self.runtimes:
                 raise RuntimeError(f"index {name!r} already started")
-            if mode != "STANDALONE":
-                raise NotImplementedError(
-                    f"mode {mode}: primary/replica replication is not ported yet "
-                    "(ROADMAP item 11, the replication slice)"
-                )
             info = self.states[name]
             index_dir = Path(self.config.index_dir) / info.index_id
             on_point = None

@@ -705,3 +705,96 @@ def test_served_path_cuda_equals_cpu(cuda_device, tmp_path, monkeypatch):
     assert gpu_stats["merges"] == cpu_stats["merges"] > 0
     assert all(a.get("hits") for a in gpu)
     assert gpu == cpu
+
+
+# ---------------------------------------------------------------------------
+# replication: a REPLICA runtime with its index on the card
+# ---------------------------------------------------------------------------
+
+REPLICA_WORDS = ["common", "alpha", "beta", "gamma", "delta", "needle", "haystack",
+                 "quick", "brown", "fox"]
+REPLICA_QUERIES = ["alpha needle", "common gamma", "delta fox brown", "beta",
+                   "quick haystack alpha"]
+
+
+def _replica_docs(n: int, seed: int) -> list[dict]:
+    """Zipf-weighted words: the first few terms pass the dense head's
+    min_df floor, so the fused path serves from head rows."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, len(REPLICA_WORDS) + 1)
+    p /= p.sum()
+    return [{"body": " ".join(rng.choice(REPLICA_WORDS, int(rng.integers(2, 9)), p=p))}
+            for _ in range(n)]
+
+
+def _single_answers(searcher) -> list:
+    from nrtsearch_tpu_torch.query import parse_query
+
+    out = []
+    for text in REPLICA_QUERIES:
+        td = searcher.search(parse_query({"matchQuery": {"field": "body", "query": text}}), 20)
+        out.append((td.total_hits, [(h.global_ord, np.float32(h.score).view(np.int32).item())
+                                    for h in td.hits]))
+    return out
+
+
+def test_replica_on_card_answers_as_primary(cuda_device, tmp_path):
+    """A REPLICA runtime on the card installs a primary's point from the
+    object store and answers each single bit-equal to the primary (same
+    card, code and segments). A searcher held at version v while v + 1
+    installs on another thread keeps v's answers."""
+    import threading
+
+    from nrtsearch_tpu_torch.remote.backend import LocalFileBackend
+    from nrtsearch_tpu_torch.server.index_runtime import IndexRuntime
+    from nrtsearch_tpu_torch.state.index_state import IndexStateInfo
+
+    info = IndexStateInfo(index_name="r", index_id="r-cuda").with_fields(
+        {"body": {"type": "TEXT", "search": True}})
+    remote = LocalFileBackend(tmp_path / "remote")
+    primary = IndexRuntime(info, tmp_path / "p", mode="PRIMARY", remote=remote,
+                           service_name="svc", primary_gen=1, device=cuda_device)
+    replica = IndexRuntime(info, tmp_path / "r", mode="REPLICA", remote=remote,
+                           service_name="svc", device=cuda_device)
+    try:
+        primary.start()
+        docs = _replica_docs(3000, seed=9)
+        primary.add_documents(docs[:2000])
+        primary.refresh()
+        assert replica.sync_from_remote()
+        assert all(s.device.type == "cuda" for s in replica.searcher.segments)
+        kernels.reset_launch_counts()
+        held = replica.acquire()
+        want = _single_answers(primary.searcher)
+        assert _single_answers(held) == want
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["head_scores"] > 0, dict(kernels.LAUNCHES)
+
+        primary.add_documents(docs[2000:])
+        primary.refresh()
+        done = threading.Event()
+        errors = []
+
+        def install():
+            try:
+                assert replica.sync_from_remote()
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+            finally:
+                done.set()
+
+        t = threading.Thread(target=install)
+        t.start()
+        during = []
+        while not done.is_set():
+            during.append(_single_answers(held))
+        t.join(timeout=60)
+        assert not t.is_alive() and not errors, errors
+        assert during and all(a == want for a in during)
+        assert replica.searcher.version == primary.searcher.version == held.version + 1
+        assert _single_answers(held) == want
+        newer = _single_answers(replica.searcher)
+        assert newer == _single_answers(primary.searcher) and newer != want
+    finally:
+        primary.stop()
+        replica.stop()

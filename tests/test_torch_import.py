@@ -6,8 +6,8 @@ google.protobuf and nrtsearch_tpu cannot be imported, every engine module of
 nrtsearch_tpu_torch imports and a 300-document index answers a text search
 and the filtered, sorted and faceted forms on the CPU (only
 core/directory.py reads msgpack, inside its functions). The wire modules
-(``gen/``, ``config.py``, ``client.py``, ``server/``, ``state/``) are the
-only ones that import grpc, google.protobuf or yaml: with only jax, jaxlib
+(``gen/``, ``config.py``, ``client.py``, ``cli.py``, ``server/``,
+``state/``) are the only ones that import grpc, google.protobuf or yaml: with only jax, jaxlib
 and nrtsearch_tpu blocked, every module imports and the port's server
 answers over gRPC on the CPU. A source scan checks that no port file and no
 line of chip_smoke.py imports jax or nrtsearch_tpu, and that no engine
@@ -43,7 +43,7 @@ JAX_ONLY = ("jax", "jaxlib", "nrtsearch_tpu")
 # the port's modules that may import grpc, google.protobuf and yaml
 WIRE = ("nrtsearch_tpu_torch.gen", "nrtsearch_tpu_torch.config",
         "nrtsearch_tpu_torch.client", "nrtsearch_tpu_torch.server",
-        "nrtsearch_tpu_torch.state")
+        "nrtsearch_tpu_torch.state", "nrtsearch_tpu_torch.cli")
 
 
 def _is_wire(module: str) -> bool:
@@ -577,11 +577,7 @@ COPY_EXCEPTIONS = {
         [],
         ["import torch", "", "*,", "device: str | torch.device,",
          "from nrtsearch_tpu.device import resolve_device",
-         "self.device = resolve_device(device)", 'if mode != "STANDALONE":',
-         "raise NotImplementedError(",
-         'f"mode {mode}: primary/replica replication is not ported yet "',
-         '"(ROADMAP item 11, the replication slice)"', ")",
-         "device=self.device,"]),
+         "self.device = resolve_device(device)", "device=self.device,"]),
     "server/index_runtime.py": (
         ["self.writer = IndexWriter(self.field_defs, merge_factor=merge_factor)",
          "manifest, segments = open_commit(self.index_dir)",
@@ -595,6 +591,13 @@ COPY_EXCEPTIONS = {
          "load_segment(sid, self.index_dir, self.device, del_gen)",
          "load_segment(sid, self.index_dir, self.device, dg)",
          "for sid, dg in manifest.segments"]),
+    # the usage lines name the port's entry points
+    "cli.py": (
+        ["Usage: python -m nrtsearch_tpu.cli --host localhost --port 8000 <command> ..."],
+        ["Usage: python -m nrtsearch_tpu_torch.cli --host localhost --port 8000 <command> ..."]),
+    "nrt_utils.py": (
+        ["Usage: python -m nrtsearch_tpu.nrt_utils [--root DIR | --bucket B] <cmd> ..."],
+        ["Usage: python -m nrtsearch_tpu_torch.nrt_utils [--root DIR | --bucket B] <cmd> ..."]),
 }
 WHOLE_COPIES = [
     "gen/__init__.py", "gen/yelp/__init__.py", "gen/yelp/nrtsearch/__init__.py",
@@ -606,6 +609,8 @@ WHOLE_COPIES = [
     "search/__init__.py", "server/__init__.py", "server/__main__.py",
     "server/batcher.py", "server/concurrent.py", "server/warming.py",
     "server/plugins.py", "server/handlers.py", "server/replication.py",
+    "server/rest_gateway.py", "remote/s3.py", "remote/s3_client.py",
+    "remote/fake_s3.py",
     *COPY_EXCEPTIONS,
 ]
 _COPY_HEADER = re.compile(r" ?Copy of ``nrtsearch_tpu/[^`]+``.*?(?=\"\"\"|\n\n)", re.S)

@@ -413,12 +413,15 @@ def test_unported_rpcs_answer_unimplemented(servers):
         client.delete(req)
     assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
     assert "item 10" in err.value.details()
-    client.create_index("replica_idx")
+    # an upsert of an indexed id (PRIMARY and REPLICA starts are served
+    # since the replication slice; tests/test_torch_replication.py)
+    upsert = pb.AddDocumentRequest(indexName=INDEX)
+    upsert.fields["doc_id"].value.append("d0")
+    upsert.fields["body"].value.append("alpha")
     with pytest.raises(grpc.RpcError) as err:
-        client.start_index(pb.StartIndexRequest(indexName="replica_idx",
-                                                mode=pb.Mode.REPLICA))
+        client.add_documents(iter([upsert]))
     assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    assert "item 11" in err.value.details()
+    assert "item 10" in err.value.details()
 
 
 def test_commit_stop_start_answers_the_same(servers):
