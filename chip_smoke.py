@@ -128,6 +128,39 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``python -m nrtsearch_tpu_torch.cli``: the replica answers what the
    primary indexed and both logs name the CUDA device.
 
+12. the general evaluator on the card, on phase 10's node before its
+   ingest (phase 4's index with the LAT_LON ``loc`` column, models.synthetic
+   METRO_BOX): the query surface of tests/test_compiled_eval.py:48-117 on
+   the corpus's fields (match SHOULD and MUST in a boolean,
+   minimumNumberShouldMatch 2, fuzzy, a term on text, prefix and wildcard
+   on a head term's first digits, dismax, a function score ``_score *
+   log(price + 1)``, a multi-function score with a filter weight and a
+   script, a function filter, geo bbox, radius and polygon, text with a
+   geo radius, a nested boolean with text, range and MUST_NOT text, a
+   column-only tree, a two-component sort (tag, then ts), docid and score
+   sorts, terminate_after, return_arrays), 3 times each through the
+   node's Searcher.search with NRT_COMPILED_EVAL at its default; none may
+   take a fast path. Each answer against the same query on the commit
+   opened on the CPU (open_commit): hits, order, totals and relation
+   equal, scores bit-equal but where a transcendental function is in the
+   score (within 4 f32 ulps); for the geo kinds the whole match masks
+   too, a doc flipping only where its CPU f32 distance lies within 4 f32
+   ulps of the radius (counted and printed); and against the numpy
+   oracles (BM25, the function score, eval_column_query, radius within
+   2 m of the f64 distance, and bbox match sets). With the launch counters reset just before and read just after:
+   a search with timeout_sec and timeout_check_every 500,000 (two docid
+   chunks on the merge path) must launch gather_runs, far_pair_stage,
+   far_stage, near_stages and finish_mask, and a score-free return_arrays
+   single head_scores. Then 8 requests over gRPC to the node (geo radius
+   with text, function score, virtualFields with a script, a
+   two-component sort, terminateAfter, timeoutSec, a facet that needs
+   match arrays, a prefix query), each bit-equal to the engine's answer
+   at the same version. Prints the B=1 p50 per kind, the host waits
+   (torch's sync debug mode) and full-sort fallbacks per query, the device-busy share of one nested
+   boolean single, the text-scatter time of the largest prefix expansion,
+   the peak device memory, the query cache's entries and device bytes and
+   the phase's seconds.
+
 Launches per main-path batch: the counters around one fast_search_batch
 of the first B=32 batch (merge path), one B=1 query (fused path) and, for
 the bucket kernels, one bucket batch.
@@ -137,7 +170,8 @@ run, or phase 8's for bucket_rank; ``launches_config3`` from phase 9's, and
 ``launches_per_config3_request`` from one sorted B=32 batch, or for
 head_scores one fused config-#3 single; ``launches_served`` from phase 10's
 served searches, ``launches_replica`` from phase 11's searches sent to the
-replica alone),
+replica alone, ``launches_general`` from phase 12's timeout and arrays
+searches),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
@@ -148,6 +182,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -686,11 +721,16 @@ CONFIG3_FIELDS = {
 }
 
 
+# the general evaluator's geo column (models.synthetic METRO_BOX points)
+GENERAL_FIELDS = {"loc": {"type": "LAT_LON", "storeDocValues": True}}
+
+
 def index_field_defs():
     from nrtsearch_tpu_torch.schema import create_field_def
 
     return {**body_field_defs(),
-            **{n: create_field_def(n, spec) for n, spec in CONFIG3_FIELDS.items()}}
+            **{n: create_field_def(n, spec)
+               for n, spec in {**CONFIG3_FIELDS, **GENERAL_FIELDS}.items()}}
 
 
 def phase_index(dev, num_docs: int, vocab: int, draws: int, segments: int):
@@ -716,7 +756,8 @@ def phase_index(dev, num_docs: int, vocab: int, draws: int, segments: int):
         f"{t2 - t1:.1f} s, pack + dense rows {t3 - t2:.1f} s")
     log(f"index: {len(st['head_pos'])} head rows x D={st['D']} (+ residual rows: "
         f"{st['rows_lo'] is not None}), tail_max_df {st['tail_max_df']}; doc values "
-        f"{', '.join(CONFIG3_FIELDS)} ({sum(c[0].nbytes + c[1].nbytes for c in columns.values()) / 2**20:.1f} MiB)")
+        f"{', '.join([*CONFIG3_FIELDS, *GENERAL_FIELDS])} "
+        f"({sum(c[0].nbytes + c[1].nbytes for c in columns.values()) / 2**20:.1f} MiB)")
     return corpus, columns, searcher
 
 
@@ -1467,6 +1508,7 @@ SERVED_FIELDS = [
     ("price", {"type": "FLOAT", "storeDocValues": True}),
     ("ts", {"type": "FLOAT", "storeDocValues": True}),
     ("tag", {"type": "ATOM", "storeDocValues": True}),
+    ("loc", {"type": "LAT_LON", "storeDocValues": True}),
 ]
 
 
@@ -1562,63 +1604,78 @@ def _concurrent(fn, n: int) -> tuple[list, list]:
     return [d[0] for d in done], [d[1] for d in done]
 
 
-def phase_served(dev, corpus, columns, searcher, singles, batch, card: str) -> dict:
-    """The port's server on the card (see the module docstring); launch
-    counters reset just before the served searches and read just after."""
-    import shutil
-    import tempfile
-
-    from nrtsearch_tpu_torch import kernels
+def start_served(dev, searcher, root: str, singles, card: str):
+    """A standalone NrtsearchServer on the card over phase 4's index,
+    committed where startIndex opens it. Returns (server, client, runtime,
+    index_dir)."""
     from nrtsearch_tpu_torch.client import NrtsearchClient
     from nrtsearch_tpu_torch.config import NrtsearchConfig
     from nrtsearch_tpu_torch.core.directory import commit_segments
     from nrtsearch_tpu_torch.gen import pb
+    from nrtsearch_tpu_torch.server.grpc_server import NrtsearchServer
+
+    config = NrtsearchConfig.from_dict({
+        **SERVED_CONFIG, "stateDir": f"{root}/state", "indexDir": f"{root}/index"})
+    server = NrtsearchServer(config, device=dev)
+    client = NrtsearchClient(f"localhost:{server.start(0)}")
+    client.create_index(SERVED_INDEX)
+    client.register_fields(pb.FieldDefRequest(indexName=SERVED_INDEX, field=[
+        pb.Field(name=n, **{k: (pb.FieldType.Value(v) if k == "type" else v)
+                            for k, v in spec.items()}) for n, spec in SERVED_FIELDS]))
+    # 1. phase 4's index, committed where startIndex opens it
+    index_dir = os.path.join(config.index_dir, server.global_state.index_ids[SERVED_INDEX])
+    t = time.perf_counter()
+    commit_segments(searcher.segments, index_dir, gen=1, version=1)
+    commit_s = time.perf_counter() - t
+    nbytes = sum(os.path.getsize(os.path.join(index_dir, f)) for f in os.listdir(index_dir))
+    log(f"served: committed phase 4's index ({len(searcher.segments)} segments, "
+        f"{nbytes / 2**30:.3f} GiB in {len(os.listdir(index_dir))} files) in {commit_s:.2f} s")
+    # few, small merges: each group stays within 1 MB (1,000 docs)
+    ls = pb.LiveSettingsV2Request(indexName=SERVED_INDEX)
+    ls.liveSettings.maxMergedSegmentMB.value = 1
+    ls.liveSettings.segmentsPerTier.value = 6
+    ls.liveSettings.maxRefreshSec.value = 3600.0
+    client.live_settings_v2(ls)
+
+    # 2. startIndex opens the commit on the card
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    started = client.start_index(pb.StartIndexRequest(
+        indexName=SERVED_INDEX, mode=pb.Mode.STANDALONE))
+    open_s = time.perf_counter() - t
+    rt = server.global_state.runtimes[SERVED_INDEX]
+    if started.maxDoc != NUM_DOCS or any(s.device != dev for s in rt.searcher.segments):
+        raise AssertionError(f"startIndex opened {started.maxDoc} docs on "
+                             f"{[str(s.device) for s in rt.searcher.segments]}")
+    t = time.perf_counter()
+    client.search(_request(_match_dict(singles[0])))
+    first_s = time.perf_counter() - t
+    log(f"served: startIndex opened the committed 1M-doc index in {open_s:.2f} s "
+        f"(startTimeMS {started.startTimeMS:.1f}); first search {first_s:.2f} s "
+        f"(packs the view and builds the dense rows) | {card}")
+    return server, client, rt, index_dir
+
+
+def phase_served(dev, corpus, columns, searcher, singles, batch, card: str,
+                 general=None) -> dict:
+    """The port's server on the card (see the module docstring); launch
+    counters reset just before the served searches and read just after.
+    ``general(server, client, runtime, index_dir)`` (phase 12) runs on the
+    same node after those searches and before the ingest; its result is
+    returned under "general"."""
+    import shutil
+    import tempfile
+
+    from nrtsearch_tpu_torch import kernels
+    from nrtsearch_tpu_torch.gen import pb
     from nrtsearch_tpu_torch.models.synthetic import column_clauses, config3_query
     from nrtsearch_tpu_torch.ops import dense_fused, merge_scoring
-    from nrtsearch_tpu_torch.server.grpc_server import NrtsearchServer
 
     root = tempfile.mkdtemp(prefix="served_")
     server = client = None
+    general_out = None
     try:
-        config = NrtsearchConfig.from_dict({
-            **SERVED_CONFIG, "stateDir": f"{root}/state", "indexDir": f"{root}/index"})
-        server = NrtsearchServer(config, device=dev)
-        client = NrtsearchClient(f"localhost:{server.start(0)}")
-        client.create_index(SERVED_INDEX)
-        client.register_fields(pb.FieldDefRequest(indexName=SERVED_INDEX, field=[
-            pb.Field(name=n, **{k: (pb.FieldType.Value(v) if k == "type" else v)
-                                for k, v in spec.items()}) for n, spec in SERVED_FIELDS]))
-        # 1. phase 4's index, committed where startIndex opens it
-        index_dir = os.path.join(config.index_dir, server.global_state.index_ids[SERVED_INDEX])
-        t = time.perf_counter()
-        commit_segments(searcher.segments, index_dir, gen=1, version=1)
-        commit_s = time.perf_counter() - t
-        nbytes = sum(os.path.getsize(os.path.join(index_dir, f)) for f in os.listdir(index_dir))
-        log(f"served: committed phase 4's index ({len(searcher.segments)} segments, "
-            f"{nbytes / 2**30:.3f} GiB in {len(os.listdir(index_dir))} files) in {commit_s:.2f} s")
-        # few, small merges: each group stays within 1 MB (1,000 docs)
-        ls = pb.LiveSettingsV2Request(indexName=SERVED_INDEX)
-        ls.liveSettings.maxMergedSegmentMB.value = 1
-        ls.liveSettings.segmentsPerTier.value = 6
-        ls.liveSettings.maxRefreshSec.value = 3600.0
-        client.live_settings_v2(ls)
-
-        # 2. startIndex opens the commit on the card
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        started = client.start_index(pb.StartIndexRequest(
-            indexName=SERVED_INDEX, mode=pb.Mode.STANDALONE))
-        open_s = time.perf_counter() - t
-        rt = server.global_state.runtimes[SERVED_INDEX]
-        if started.maxDoc != NUM_DOCS or any(s.device != dev for s in rt.searcher.segments):
-            raise AssertionError(f"startIndex opened {started.maxDoc} docs on "
-                                 f"{[str(s.device) for s in rt.searcher.segments]}")
-        t = time.perf_counter()
-        client.search(_request(_match_dict(singles[0])))
-        first_s = time.perf_counter() - t
-        log(f"served: startIndex opened the committed 1M-doc index in {open_s:.2f} s "
-            f"(startTimeMS {started.startTimeMS:.1f}); first search {first_s:.2f} s "
-            f"(packs the view and builds the dense rows) | {card}")
+        server, client, rt, index_dir = start_served(dev, searcher, root, singles, card)
 
         # 3-4. the served searches, counted alone
         view = rt.searcher.packed_view("body")
@@ -1768,6 +1825,10 @@ def phase_served(dev, corpus, columns, searcher, singles, batch, card: str) -> d
             f"all {len(batch)} answered in {1e3 * float(np.median(wall32)):.2f} ms "
             f"(p50 of {len(wall32)}); peak device memory {peak / 2**30:.3f} GiB | {card}")
 
+        # phase 12 on this node, before the ingest changes its index
+        if general is not None:
+            general_out = general(server, client, rt, index_dir)
+
         # 5. ingest through addDocuments + refresh until a merge ran
         docs = _served_ingest_docs(2000)
         step = len(docs) // SERVED_CHUNKS
@@ -1816,7 +1877,7 @@ def phase_served(dev, corpus, columns, searcher, singles, batch, card: str) -> d
             server.stop()
         shutil.rmtree(root, ignore_errors=True)
     child = phase_served_process(card)
-    return {"launches": launches, "child": child}
+    return {"launches": launches, "child": child, "general": general_out}
 
 
 def _sorted_request(tree: dict):
@@ -2505,6 +2566,522 @@ def phase_replication_processes(card: str) -> dict:
         return {"cli_calls": len(cli_s)}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the general evaluator
+# ---------------------------------------------------------------------------
+
+GENERAL_REPS = 3
+# a transcendental function in the score (log in a script, the haversine's
+# sin, cos, asin and sqrt): the card's and the CPU's results may differ in
+# their last bits; held within 4 f32 ulps relative
+TRANSCENDENTAL_REL = 4 * 2.0**-23
+# the f64 oracle's band (meters) around a radius: the engine's f32
+# haversine is within a few decimeters of the f64 distance, so a doc this
+# close to the radius may land on either side of it
+GEO_NEAR_M = 2.0
+# card against CPU: the card's and the CPU's f32 sin, cos, asin and sqrt
+# differ in their last bits, so a doc may match on one and not on the
+# other only where its CPU f32 distance lies within this many f32 ulps of
+# the radius
+GEO_FLIP_ULPS = 4
+# the merge kernels a chunked timeout search on the merge path launches
+TIMEOUT_KERNELS = ("gather_runs", "far_pair_stage", "far_stage", "near_stages", "finish_mask")
+# the kernel a score-free return_arrays single launches (the fused path)
+ARRAYS_KERNELS = ("head_scores",)
+RADIUS = (37.75, -122.4, 5000.0)            # lat, lon, meters
+BBOX = (37.70, 37.80, -122.50, -122.40)     # min_lat, max_lat, min_lon, max_lon
+POLYGON = ((37.65, -122.50), (37.85, -122.45), (37.70, -122.30))
+TIMEOUT_CHECK_EVERY = 500_000               # two docid chunks of the 1M docs
+
+
+def general_terms(corpus) -> dict:
+    """The phase's terms by document frequency: head, mid and tail terms,
+    and a prefix (a head term's first two digits)."""
+    order = np.argsort(-corpus.term_lengths, kind="stable")
+    V = len(order)
+    pick = [str(order[min(i, V - 1)]) for i in (0, 3, 40, 120, 300, V // 30, V // 10)]
+    head = next(str(t) for t in order if len(str(t)) >= 2)
+    return {"head": pick[:2], "mid": pick[2:5], "tail": pick[5:], "prefix": head[:2]}
+
+
+def general_queries(t: dict, names: list) -> dict:
+    """The query surface of tests/test_compiled_eval.py:48-117 on the
+    corpus's fields: name -> (query dict, search kwargs maker, contract).
+    ``contract`` is how the card's answer is held to the CPU copy's:
+    "exact" (bit-equal), "transcendental" (scores within
+    TRANSCENDENTAL_REL) or "geo" (flips only within GEO_FLIP_ULPS of the
+    radius). Each takes
+    the general evaluator: a match or term query sits in a boolean, so the
+    fast paths refuse it."""
+    from nrtsearch_tpu_torch.core.searcher import SortComponent, SortSpec
+
+    h, m, tl = t["head"], t["mid"], t["tail"]
+
+    def match(terms, **kw):
+        return {"matchQuery": {"field": "body", "query": " ".join(terms), **kw}}
+
+    def should(*qs):
+        return {"booleanQuery": {"clauses": [{"occur": "SHOULD", "query": q} for q in qs]}}
+
+    radius = {"geoRadiusQuery": {"field": "loc", "center": {
+        "latitude": RADIUS[0], "longitude": RADIUS[1]}, "radius": f"{RADIUS[2]}m"}}
+    bbox = {"geoBoundingBoxQuery": {"field": "loc",
+                                    "topLeft": {"latitude": BBOX[1], "longitude": BBOX[2]},
+                                    "bottomRight": {"latitude": BBOX[0], "longitude": BBOX[3]}}}
+    polygon = {"geoPolygonQuery": {"field": "loc", "polygons": [{"points": [
+        {"latitude": a, "longitude": b} for a, b in POLYGON]}]}}
+    none = lambda: {}
+    q = {
+        "match_should": (should(match([h[1], m[0], tl[0]])), none, "exact"),
+        "match_must": (should(match([h[0], m[1]], operator="MUST")), none, "exact"),
+        "match_msm2": (match([h[1], m[0], m[2], tl[1]], minimumNumberShouldMatch=2),
+                       none, "exact"),
+        "match_fuzzy": (match([m[1]], fuzzyParams={"maxEdits": 1, "prefixLength": 1}),
+                        none, "exact"),
+        "term_text": (should({"termQuery": {"field": "body", "textValue": m[2]}}), none,
+                      "exact"),
+        "prefix": ({"prefixQuery": {"field": "body", "prefix": t["prefix"]}}, none, "exact"),
+        "wildcard": ({"wildcardQuery": {"field": "body", "pattern": t["prefix"] + "*7"}},
+                     none, "exact"),
+        "dismax": ({"disjunctionMaxQuery": {"disjuncts": [match([h[1]]), match(m[:2])],
+                                            "tieBreakerMultiplier": 0.3}}, none, "exact"),
+        "function_score": ({"functionScoreQuery": {
+            "query": match([h[1], m[0]]), "script": {"source": "_score * log(price + 1)"}}},
+                           none, "transcendental"),
+        "multi_function": ({"multiFunctionScoreQuery": {
+            "query": match([m[0], m[1]]),
+            "functions": [
+                {"filter": {"termQuery": {"field": "tag", "textValue": names[3]}},
+                 "weight": 2.0},
+                {"script": {"source": "price / 100"}, "weight": 0.5}],
+            "scoreMode": "SCORE_MODE_SUM", "boostMode": "BOOST_MODE_MULTIPLY"}},
+            none, "exact"),
+        "function_filter": ({"functionFilterQuery": {"script": {"source": "price - 990"}}},
+                            none, "exact"),
+        "geo_bbox": (bbox, none, "exact"),
+        "geo_radius": (radius, none, "geo"),
+        "geo_polygon": (polygon, none, "exact"),
+        "text_geo_radius": (should(match([h[1], m[0]]), radius), none, "geo"),
+        "nested_bool": ({"booleanQuery": {"clauses": [
+            {"occur": "MUST", "query": should(match([h[1]]), match([m[0], m[1]]))},
+            {"occur": "FILTER", "query": {"rangeQuery": {"field": "price", "lower": "100",
+                                                          "upper": "700"}}},
+            {"occur": "MUST_NOT", "query": match([m[2]])}]}}, none, "exact"),
+        "columns": ({"booleanQuery": {"clauses": [
+            {"occur": "FILTER", "query": {"rangeQuery": {"field": "price", "lower": "100",
+                                                          "upper": "150"}}},
+            {"occur": "SHOULD", "query": {"termInSetQuery": {"field": "tag", "textTerms": {
+                "terms": list(names[:5])}}}},
+            {"occur": "MUST_NOT", "query": {"termQuery": {"field": "tag",
+                                                          "textValue": names[2]}}}]}},
+            none, "exact"),
+        "sort_two": (match([h[1], m[0]]), lambda: {"sort": SortSpec(
+            "tag", rest=(SortComponent("ts", reverse=True),))}, "exact"),
+        "sort_docid": (should(match([m[0], m[1]])), lambda: {"sort": SortSpec(
+            "docid", reverse=True)}, "exact"),
+        "sort_score": (should(match([m[0], m[1]])), lambda: {"sort": SortSpec(
+            "score", rest=(SortComponent("docid"),))}, "exact"),
+        "terminate_after": (match([h[1], m[0]]), lambda: {"terminate_after": 20_000},
+                            "exact"),
+        "return_arrays": (match([m[0], tl[0]]), lambda: {"return_arrays": True}, "exact"),
+    }
+    return q
+
+
+def _answer(td) -> tuple:
+    """A TopDocs (or (TopDocs, arrays)) as comparable host values."""
+    if isinstance(td, tuple):
+        td = td[0]
+    keys = [h.sort_key if isinstance(h.sort_key, tuple) else (h.sort_key,) for h in td.hits]
+    return ([h.global_ord for h in td.hits], np.array([h.score for h in td.hits], np.float32),
+            keys, td.total_hits, td.relation)
+
+
+def _check_general(name: str, contract: str, card, cpu, masks=None,
+                   flip_ok=frozenset()) -> list:
+    """The card's answer against the CPU copy's under ``contract``; returns
+    the geo flips: docs that match on one device and not on the other.
+    ``masks`` (the card's and the CPU's global match masks, given for every
+    geo kind) are compared whole; a flip must lie in ``flip_ok``, the
+    totals must differ by the flips' net count, and the hits that are not
+    flips must agree in order with bit-equal scores."""
+    c_ids, c_s, c_k, c_tot, c_rel = _answer(card)
+    p_ids, p_s, p_k, p_tot, p_rel = _answer(cpu)
+    if masks is not None:
+        cm, pm = masks
+        flips = np.nonzero(cm != pm)[0]
+        fl = set(flips.tolist())
+        net = int(cm[flips].sum()) - int(pm[flips].sum())
+        if not fl <= flip_ok or c_tot - p_tot != net or c_rel != p_rel:
+            raise AssertionError(f"general {name}: card and cpu differ beyond the radius's "
+                                 f"last ulps: flips {flips[:10].tolist()}, hits {c_tot} vs "
+                                 f"{p_tot}")
+        kept = [[(i, v) for i, v in zip(ids, sc.view(np.int32).tolist()) if i not in fl]
+                for ids, sc in ((c_ids, c_s), (p_ids, p_s))]
+        n = min(len(kept[0]), len(kept[1]))
+        if kept[0][:n] != kept[1][:n] or (not fl and len(kept[0]) != len(kept[1])):
+            raise AssertionError(f"general {name}: card {c_ids[:5]} vs cpu {p_ids[:5]} "
+                                 f"beside the flips")
+        return flips.tolist()
+    if c_ids != p_ids or (c_tot, c_rel) != (p_tot, p_rel) or c_k != p_k:
+        raise AssertionError(f"general {name}: card {c_ids[:5]} {c_tot} {c_rel} vs cpu "
+                             f"{p_ids[:5]} {p_tot} {p_rel}")
+    if contract == "transcendental":
+        err = np.abs(c_s - p_s) / np.maximum(np.abs(p_s), 1e-30)
+        if len(err) and err.max() > TRANSCENDENTAL_REL:
+            raise AssertionError(f"general {name}: score rel err {err.max():.3g}")
+    elif not np.array_equal(c_s.view(np.int32), p_s.view(np.int32)):
+        raise AssertionError(f"general {name}: scores not bit-equal")
+    return []
+
+
+class SyncCount:
+    """Counts the host's waits on the card inside a ``with`` block. torch's
+    sync debug mode warns at every synchronizing CUDA call it detects (a
+    blocking copy either way, ``item``, ``nonzero``, a synchronize); each
+    such warning is recorded and counted in ``n``. The mode calls itself a
+    prototype that does not see every sync, so ``n`` is a lower bound."""
+
+    def __enter__(self):
+        self._catch = warnings.catch_warnings(record=True)
+        self._records = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+        self.n = sum(str(r.message).startswith("called a synchronizing CUDA operation")
+                     for r in self._records)
+        return False
+
+
+def geo_distances(s) -> np.ndarray:
+    """Each doc's f32 haversine distance to RADIUS's center, computed on
+    the device of ``s``'s segments as the engine computes it, in global
+    doc order."""
+    from nrtsearch_tpu_torch.ops.masks import haversine_meters
+
+    return np.concatenate([
+        haversine_meters(seg.doc_values["loc"].values, RADIUS[0], RADIUS[1])
+        .cpu().numpy()[: seg.num_docs] for seg in s.segments])
+
+
+def _cache_report() -> tuple[int, int]:
+    """The query cache's entries and the bytes of its CUDA tensors."""
+    from nrtsearch_tpu_torch.search.query_cache import DEFAULT_QUERY_CACHE
+
+    nbytes = 0
+    for value in list(DEFAULT_QUERY_CACHE._lru.values()):
+        for t in value:
+            if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                nbytes += t.numel() * t.element_size()
+    return len(DEFAULT_QUERY_CACHE._lru), nbytes
+
+
+def phase_general(dev, corpus, columns, server, client, rt, index_dir, card: str) -> dict:
+    """The general evaluator on the card (see the module docstring): the
+    query surface on the served node's searcher against the commit opened
+    on the CPU and the numpy oracles, the chunked timeout and the
+    score-free arrays single with their kernels, then 8 served requests
+    against the engine's answers."""
+    from nrtsearch_tpu_torch import kernels
+    from nrtsearch_tpu_torch.core.directory import open_commit
+    from nrtsearch_tpu_torch.core.searcher import Searcher
+    from nrtsearch_tpu_torch.models.synthetic import (
+        eval_column_query, geo_bbox_oracle, geo_radius_oracle)
+    from nrtsearch_tpu_torch.ops import bm25, merge_scoring
+    from nrtsearch_tpu_torch.query import parse_query
+
+    t_phase = time.perf_counter()
+    searcher = rt.searcher
+    names = columns["tag"][2]
+    terms = general_terms(corpus)
+    queries = general_queries(terms, names)
+    t = time.perf_counter()
+    _m, cpu_segs = open_commit(index_dir, "cpu")
+    cpu = Searcher(cpu_segs, searcher.field_defs)
+    log(f"general: the commit opened on the CPU in {time.perf_counter() - t:.2f} s "
+        f"({cpu.max_doc} docs); terms {terms}")
+    r_match, r_near = geo_radius_oracle(columns, *RADIUS, near_m=GEO_NEAR_M)
+    near_docs = set(np.nonzero(r_near)[0].tolist())
+    with SyncCount() as sc:
+        torch.ones(2, device=dev).sum().item()
+    if sc.n != 1:
+        raise AssertionError(f"general: the sync counter saw {sc.n} syncs in one item()")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    view = searcher.packed_view("body")
+    paths0 = dict(view.path_counts)
+    lat: dict[str, list] = {}
+    card_out, per_query = {}, {}
+    for name, (qd, kw, _contract) in queries.items():
+        node = parse_query(qd)
+        for rep in range(GENERAL_REPS):
+            s0 = merge_scoring.HOST_SYNCS["hierarchical_topk"]
+            f0 = merge_scoring.TOPK_FALLBACKS["hierarchical_topk"]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = searcher.search(node, TOP_K, **kw())
+            torch.cuda.synchronize()
+            lat.setdefault(name, []).append(time.perf_counter() - t)
+            if rep == 0:
+                card_out[name] = out
+                per_query[name] = (merge_scoring.HOST_SYNCS["hierarchical_topk"] - s0,
+                                   merge_scoring.TOPK_FALLBACKS["hierarchical_topk"] - f0)
+    # every host wait of one more untimed search per kind
+    all_syncs = {}
+    for name, (qd, kw, _contract) in queries.items():
+        node = parse_query(qd)
+        with SyncCount() as sc:
+            searcher.search(node, TOP_K, **kw())
+        all_syncs[name] = sc.n
+    paths = {k: view.path_counts[k] - paths0[k] for k in paths0}
+    if any(paths.values()):
+        raise AssertionError(f"general: a query took a fast path: {paths}")
+
+    # the chunked timeout inside the merge path, and a score-free arrays
+    # single on the fused path: their kernels must launch
+    head_q = parse_query({"matchQuery": {"field": "body", "query": " ".join(
+        terms["head"] + terms["mid"][:2])}})
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    timed = searcher.search(head_q, TOP_K, timeout_sec=1e6,
+                            timeout_check_every=TIMEOUT_CHECK_EVERY)
+    torch.cuda.synchronize()
+    timeout_ms = 1e3 * (time.perf_counter() - t)
+    timeout_launches = dict(kernels.LAUNCHES)
+    missing = [k for k in TIMEOUT_KERNELS if timeout_launches.get(k, 0) == 0]
+    if missing or timed.hit_timeout:
+        raise AssertionError(f"general: the chunked timeout search did not launch {missing} "
+                             f"(timed out {timed.hit_timeout}): {timeout_launches}")
+    _check_topk(timed, corpus.exact_topk(terms["head"] + terms["mid"][:2], TOP_K),
+                MERGE_REL, "general chunked timeout")
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    arr_td, arrays = searcher.search(head_q, TOP_K, return_arrays=True, arrays_score_free=True)
+    torch.cuda.synchronize()
+    arrays_ms = 1e3 * (time.perf_counter() - t)
+    arrays_launches = dict(kernels.LAUNCHES)
+    if any(arrays_launches.get(k, 0) == 0 for k in ARRAYS_KERNELS):
+        raise AssertionError(f"general: the score-free arrays single launched "
+                             f"{arrays_launches}, not {ARRAYS_KERNELS}")
+    n_match = sum(int(m.sum()) for _s, m in arrays)
+    if n_match != arr_td.total_hits or any(s is not None for s, _m in arrays):
+        raise AssertionError(f"general: score-free arrays hold {n_match} matches, the "
+                             f"top-k {arr_td.total_hits}")
+    log(f"general: chunked timeout search ({TIMEOUT_CHECK_EVERY} docs per deadline check) "
+        f"{timeout_ms:.2f} ms, launches {timeout_launches}; score-free arrays single "
+        f"{arrays_ms:.2f} ms, launches {arrays_launches} | {card}")
+
+    # the CPU copy and the numpy oracles
+    def global_mask(s, node):
+        return np.concatenate([m.cpu().numpy()[: seg.num_docs]
+                               for m, seg in zip(s.match_masks(node), s.segments)])
+
+    d_card, d_cpu = geo_distances(searcher), geo_distances(cpu)
+    radius32 = np.float32(RADIUS[2])
+    ulp = np.spacing(radius32)
+    flip_ok = set(np.nonzero(np.abs(d_cpu - radius32) <= GEO_FLIP_ULPS * ulp)[0].tolist())
+    d_ulps = float(np.max(np.abs(d_card.astype(np.float64) - d_cpu)
+                          / np.spacing(np.maximum(np.abs(d_cpu), np.float32(1.0)))))
+    flips = {}
+    for name, (qd, kw, contract) in queries.items():
+        want = cpu.search(parse_query(qd), TOP_K, **kw())
+        masks = None
+        if name.startswith(("geo_", "text_geo")):
+            masks = (global_mask(searcher, parse_query(qd)), global_mask(cpu, parse_query(qd)))
+        flips[name] = _check_general(name, contract, card_out[name], want, masks=masks,
+                                     flip_ok=flip_ok if contract == "geo" else frozenset())
+        for doc in flips[name]:
+            log(f"general {name}: geo flip doc {doc}, distance card {d_card[doc]!r} cpu "
+                f"{d_cpu[doc]!r} m, radius {RADIUS[2]} m")
+        if name == "return_arrays":
+            (_td, ca), (_tw, pa) = card_out[name], want
+            for (cs, cm), (ps, pm) in zip(ca, pa):
+                cm_h, pm_h = cm.cpu().numpy(), pm.numpy()
+                if not np.array_equal(cm_h, pm_h) or not np.array_equal(
+                        np.where(cm_h, cs.cpu().numpy(), 0), np.where(pm_h, ps.numpy(), 0)):
+                    raise AssertionError("general return_arrays: arrays differ")
+    def masks(name):
+        return global_mask(searcher, parse_query(queries[name][0]))
+
+    got = masks("geo_radius")
+    bad = np.nonzero(got != r_match)[0]
+    if not set(bad.tolist()) <= near_docs:
+        raise AssertionError(f"general geo_radius: {len(bad)} docs differ from the oracle")
+    if not np.array_equal(masks("geo_bbox"), geo_bbox_oracle(columns, *BBOX)):
+        raise AssertionError("general geo_bbox: the match set differs from the oracle")
+    scores, match = eval_column_query(queries["columns"][0], columns)
+    docs = np.nonzero(match)[0]
+    want_ids = docs[np.lexsort((docs, -scores[docs]))[:TOP_K]]
+    if (card_out["columns"].total_hits != int(match.sum())
+            or [h.global_ord for h in card_out["columns"].hits] != want_ids.tolist()
+            or [h.score for h in card_out["columns"].hits] != scores[want_ids].tolist()):
+        raise AssertionError("general columns: differs from eval_column_query")
+    ex = corpus.exact_topk(queries["match_should"][0]["booleanQuery"]["clauses"][0]["query"][
+        "matchQuery"]["query"].split(), TOP_K)
+    swaps = _check_topk(card_out["match_should"], ex, MERGE_REL, "general match_should")
+    fs, fd, ftot = corpus.exact_function_score([terms["head"][1], terms["mid"][0]], TOP_K,
+                                               columns)
+    swaps += _check_topk(card_out["function_score"], (fs, fd, ftot), MERGE_REL,
+                         "general function_score")
+    log(f"general exact: {len(queries)} kinds bit-equal to the CPU copy (function_score "
+        f"within {TRANSCENDENTAL_REL:.3g}); geo flips "
+        f"{ {k: len(v) for k, v in flips.items() if k.startswith(('geo_', 'text_geo'))} } "
+        f"({len(flip_ok)} docs within {GEO_FLIP_ULPS} f32 ulps of the radius; the card's and "
+        f"the CPU's distances at most {d_ulps:.1f} ulps apart); oracles: BM25, "
+        f"function score (near-tie swaps {swaps}), columns, radius ({len(bad)} of "
+        f"{len(near_docs)} docs within {GEO_NEAR_M} m of the f64 radius off), bbox | {card}")
+
+    # what the phase shows: per-kind p50, syncs and fallbacks, the busy share
+    prof = profile_call(lambda: searcher.search(parse_query(queries["nested_bool"][0]), TOP_K))
+    p50_nested = 1e3 * float(np.median(lat["nested_bool"]))
+    expand = sorted(((len(seg.fields["body"].terms_with_prefix(terms["prefix"], 128)), i)
+                     for i, seg in enumerate(searcher.segments)))[-1]
+    seg = searcher.segments[expand[1]]
+    tfi = seg.fields["body"]
+    exp_terms = tfi.terms_with_prefix(terms["prefix"], 128)
+    offs = np.array([tfi.lookup(x)[0] for x in exp_terms])
+    lens = np.array([tfi.lookup(x)[1] for x in exp_terms])
+    wts = np.ones(len(exp_terms), np.float32)
+    avgdl = searcher.stats.avgdl("body")
+    def scatter():
+        return bm25.score_text_clause(tfi.doc_ids, tfi.freqs, tfi.doc_lens, offs, lens, wts,
+                                      1.2, 0.75, avgdl, num_docs=seg.capacity)
+
+    scatter_ms = cuda_ms(scatter, reps=5, warmup=1)
+    torch.cuda.synchronize()
+    with SyncCount() as sc:
+        scatter()
+    scatter_syncs = sc.n
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    entries, cache_bytes = _cache_report()
+    for name in queries:
+        sy, fa = per_query[name]
+        log(f"general p50 {name}: {1e3 * float(np.median(lat[name])):.2f} ms (n="
+            f"{len(lat[name])}), hits {_answer(card_out[name])[3]}; host syncs {all_syncs[name]} "
+            f"(hierarchical_topk {sy}), full-sort fallbacks {fa} per query | {card}")
+    log(f"general profile: nested_bool single, device busy {prof['device_busy_ms']:.3f} ms in "
+        f"{prof['device_items']} device items, {100 * prof['device_busy_ms'] / p50_nested:.1f}% "
+        f"of its p50 {p50_nested:.2f} ms; top {json.dumps(prof['top'][:6])} | {card}")
+    if prof["device_busy_ms"] <= 0:
+        raise AssertionError("general: the profiled single ran nothing on the device")
+    log(f"general: text scatter of the largest prefix expansion ({expand[0]} terms, "
+        f"{int(lens.sum())} postings, one index_add_ per term) {scatter_ms:.3f} ms, "
+        f"{scatter_syncs} host syncs; peak device memory "
+        f"{peak / 2**30:.3f} GiB; query cache {entries} entries, {cache_bytes / 2**20:.2f} "
+        f"MiB on the card | {card}")
+
+    # 8 served requests, each bit-equal to the engine's answer
+    served = general_served(client, searcher, columns, terms, names)
+    launches = dict(timeout_launches)
+    for k, v in arrays_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    seconds = time.perf_counter() - t_phase
+    log(f"general: phase {seconds:.1f} s; {served} served requests bit-equal to the "
+        f"engine | {card}")
+    return {"launches": launches, "seconds": seconds}
+
+
+def general_served(client, searcher, columns, terms, names) -> int:
+    """8 requests over gRPC, each held bit-equal to ``searcher``'s direct
+    answer: geo radius with text, function score, virtualFields with a
+    script, a two-component sort, terminateAfter, timeoutSec, a facet that
+    needs match arrays and a prefix query."""
+    from nrtsearch_tpu_torch.core.packed_view import QuerySpec
+    from nrtsearch_tpu_torch.core.searcher import SortComponent, SortSpec
+    from nrtsearch_tpu_torch.query import parse_query
+    from nrtsearch_tpu_torch.query.eval import _ScriptDocValues
+    from nrtsearch_tpu_torch.script.expr import compile_expression
+
+    h, m = terms["head"], terms["mid"]
+    match = {"matchQuery": {"field": "body", "query": f"{h[1]} {m[0]}"}}
+    text_geo = {"booleanQuery": {"clauses": [
+        {"occur": "MUST", "query": match},
+        {"occur": "FILTER", "query": {"geoRadiusQuery": {"field": "loc", "center": {
+            "latitude": RADIUS[0], "longitude": RADIUS[1]}, "radius": f"{RADIUS[2]}m"}}}]}}
+    fscore = {"functionScoreQuery": {"query": match,
+                                     "script": {"source": "_score * log(price + 1)"}}}
+    prefix = {"prefixQuery": {"field": "body", "prefix": terms["prefix"]}}
+    msm = {"matchQuery": {"field": "body", "query": f"{h[1]} {m[0]} {m[1]}",
+                          "minimumNumberShouldMatch": 2}}
+    two = SortSpec("tag", rest=(SortComponent("ts", reverse=True),))
+    n = 0
+
+    def same(name, req, node, **kw):
+        """The served answer against the engine's, taken as the handler
+        takes it: a batchable spec through a batcher group (padded to 8
+        with empty specs), the rest through Searcher.search."""
+        nonlocal n
+        resp = client.search(req)
+        spec = None if kw else searcher.compile_batchable(parse_query(node))
+        if spec is not None:
+            pad = QuerySpec(field=spec.field, terms=())
+            td = searcher.fast_search_batch([spec] + [pad] * 7, TOP_K)[0]
+        else:
+            td = searcher.search(parse_query(node), TOP_K, **kw)
+        got = [(x.luceneDocId, x.score) for x in resp.hits]
+        want = [(x.global_ord, x.score if kw.get("sort") is None else 0.0) for x in td.hits]
+        if got != want or resp.totalHits.value != td.total_hits:
+            raise AssertionError(f"general served {name}: {got[:3]} {resp.totalHits.value} vs "
+                                 f"{want[:3]} {td.total_hits}")
+        n += 1
+        return resp, td
+
+    same("text_geo_radius", _request(text_geo), text_geo)
+    same("function_score", _request(fscore), fscore)
+    req = _request(match, retrieveFields=["price"])
+    vf = req.virtualFields.add()
+    vf.name = "price_x2"
+    vf.script.source = "price * 2 + ts / 1000"
+    req.retrieveFields.append("price_x2")
+    resp, td = same("virtual_fields", req, match)
+    fn = compile_expression(vf.script.source)
+    cols = {}
+    for hit_pb, hit in zip(resp.hits, td.hits):
+        if hit.segment_idx not in cols:
+            seg = searcher.segments[hit.segment_idx]
+            cols[hit.segment_idx] = fn(_ScriptDocValues(seg), np.zeros(seg.capacity, np.float32))
+        want = float(cols[hit.segment_idx][hit.local_id])
+        if hit_pb.fields["price_x2"].fieldValue[0].doubleValue != want:
+            raise AssertionError("general served virtual_fields: the script value differs")
+    req = _request(match)
+    for name, rev in (("tag", False), ("ts", True)):
+        sf = req.querySort.fields.sortedFields.add()
+        sf.fieldName = name
+        sf.reverse = rev
+    resp, td = same("sort_two", req, match, sort=two)
+    got = [(x.sortedFields["tag"].fieldValue[0].doubleValue,
+            x.sortedFields["ts"].fieldValue[0].doubleValue) for x in resp.hits]
+    if got != [x.sort_key for x in td.hits]:
+        raise AssertionError("general served sort_two: sort values differ")
+    same("terminate_after", _request(match, terminateAfter=30_000), match,
+         terminate_after=30_000)
+    same("timeout_sec", _request(match, timeoutSec=1e6), match, timeout_sec=1e6)
+    req = _request(msm)
+    f = req.facets.add()
+    f.dim = "tag"
+    f.topN = 200
+    resp, _td = same("facet_arrays", req, msm)
+    masks = searcher.match_masks(parse_query(msm))
+    counts: dict = {}
+    for seg, mask in zip(searcher.segments, masks):
+        mk = mask.cpu().numpy()[: seg.num_docs]
+        dv = seg.doc_values["tag"]
+        for o, c in zip(*np.unique(dv.host_values[: seg.num_docs][mk], return_counts=True)):
+            counts[dv.ord_terms[int(o)]] = counts.get(dv.ord_terms[int(o)], 0) + int(c)
+    (fr,) = resp.facetResult
+    if {lv.label: int(lv.value) for lv in fr.labelValues} != counts:
+        raise AssertionError("general served facet_arrays: facet counts differ")
+    same("prefix", _request(prefix), prefix)
+    return n
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -2608,8 +3185,14 @@ def main() -> int:
     config3 = phase_config3(corpus, columns, searcher, batches[0], card)
     phase_commit(dev)
 
-    # 10. the served path: the port's gRPC server on the same index
-    served = phase_served(dev, corpus, columns, searcher, singles, batches[0], card)
+    # 10. the served path: the port's gRPC server on the same index, and
+    # 12. the general evaluator on that node, before its ingest
+    def general(server, client, rt, index_dir):
+        return phase_general(dev, corpus, columns, server, client, rt, index_dir, card)
+
+    served = phase_served(dev, corpus, columns, searcher, singles, batches[0], card,
+                          general=general)
+    general_launches = served["general"]["launches"]
 
     # 11. replication: a PRIMARY and a REPLICA of the same index on the card
     replication = phase_replication(dev, corpus, columns, searcher, singles, batches[0], card)
@@ -2629,6 +3212,7 @@ def main() -> int:
             "launches_per_config3_request": config3["per_request"].get(name, 0),
             "launches_served": served["launches"].get(name, 0),
             "launches_replica": replication["launches"].get(name, 0),
+            "launches_general": general_launches.get(name, 0),
         })
         if name == "head_scores":
             table[-1].update({k: st[k] for k in ("parent_ms", "index_select_ms", "max_rel_err",
@@ -2642,7 +3226,8 @@ def main() -> int:
             f"{per_batch[name]} per batch, {config3['launches'].get(name, 0)} in config #3 "
             f"({config3['per_request'].get(name, 0)} per column request), "
             f"{served['launches'].get(name, 0)} served, "
-            f"{replication['launches'].get(name, 0)} served by the replica | {card}")
+            f"{replication['launches'].get(name, 0)} served by the replica, "
+            f"{general_launches.get(name, 0)} in the general phase | {card}")
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,11 +9,13 @@ it on its TPU). MaxScore pruning
 window certificate) is not ported; the reference's serving default
 (NRT_MAXSCORE=0) never asks for it, and flat reductions always take the
 full path there too. ``split_rows`` serves the bucket path's
-per-run bucket bounds (``PackedFieldView._bucket_state``).
+per-run bucket bounds (``PackedFieldView._bucket_state``) and the docid
+chunks of ``search_chunked``, the timeout search.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Sequence
 
 import numpy as np
@@ -151,6 +153,60 @@ class PrunedIndex:
         if reduce_kinds:
             host.append([r.cpu().numpy() for r in out[3]])
         return host
+
+    def search_chunked(self, query: dict, k: int, deadline: float, chunks: int = 8):
+        """One query over doc-space chunks with a deadline check between
+        chunk dispatches (the reference's maxscore.py:341-401; the
+        reference checks its cutoff per collect, SearchCutoffWrapper.java:41,
+        and one dispatch cannot be preempted). Each chunk is one
+        ``_dispatch`` of the query's runs cut at the chunk's doc bounds
+        (``split_rows``): on CUDA a chunk whose merged width reaches
+        ``ALT_MIN_WIDTH`` runs the merge kernels. On timeout the collected
+        prefix is exact over the docs visited and the count is a lower
+        bound. Returns (scores [k], docs [k], hits, timed_out)."""
+        rows = [
+            (int(self.run_offsets[r]), int(self.run_lengths[r]), w)
+            for w, runs in query["entries"]
+            for r in runs
+            if self.run_lengths[r]
+        ]
+        if not rows:
+            return np.full(k, -np.inf, np.float32), np.zeros(k, np.int64), 0, False
+        chunk_docs = -(-self.max_doc // max(chunks, 1))
+        boundaries = np.arange(1, chunks, dtype=np.int64) * chunk_docs
+        splits = self.split_rows([o for o, _, _ in rows], [n for _, n, _ in rows], boundaries)
+        srt = query.get("sort")
+        req = bool(query.get("require_all"))
+        n_terms = query.get("n_terms", 1)
+
+        best: list[tuple] = []   # (score, doc) accumulated across chunks
+        total = 0
+        timed_out = False
+        for c in range(chunks):
+            rows_c = [
+                (off + int(splits[r, c]), int(splits[r, c + 1]) - int(splits[r, c]), w)
+                for r, (off, _ln, w) in enumerate(rows)
+            ]
+            if not any(ln for _, ln, _ in rows_c):
+                continue
+            s, d, h = self._dispatch(
+                self._pad_rows([rows_c]), [n_terms], k, req,
+                filter_mask=query.get("filter"), additive=query.get("additive"), sort=srt,
+            )
+            total += int(h[0])
+            for sc, doc in zip(s[0], d[0]):
+                if sc > -np.inf:
+                    best.append((float(sc), int(doc)))
+            if time.time() > deadline and c + 1 < chunks:
+                timed_out = True
+                break
+        ascending = srt is not None and bool(srt[1])
+        best.sort(key=lambda t: (t[0], t[1]) if ascending else (-t[0], t[1]))
+        out_s = np.full(k, -np.inf, np.float32)
+        out_d = np.zeros(k, np.int64)
+        for i, (sc, doc) in enumerate(best[:k]):
+            out_s[i], out_d[i] = sc, doc
+        return out_s, out_d, total, timed_out
 
     def search(
         self, queries: Sequence[dict], k: int, prune: bool = False,

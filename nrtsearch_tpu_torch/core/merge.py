@@ -95,6 +95,9 @@ def merge_segments(
                         continue
                     if dv.kind == DocValueKind.ORDINAL:
                         out.append((int(new), dv.ord_terms[int(dv.host_values[old])]))
+                    elif dv.kind == DocValueKind.LAT_LON:
+                        lat, lon = dv.host_values[old]
+                        out.append((int(new), (float(lat), float(lon))))
                     else:
                         out.append((int(new), dv.host_values[old].item()))
         for old in range(seg.num_docs):

@@ -21,13 +21,16 @@ mask, an ``additive`` score column and a ``sort`` (keys, ascending).
 Specs are grouped by the identity of those objects, one dispatch per group.
 Flat reductions (facet counts, stats) ride the merge path only
 (``search_batch(..., reduce_cols, reduce_kinds)``), over columns laid out
-by ``global_column``.
+by ``global_column``. A spec with a timeout runs on the merge path in
+docid chunks, with a deadline check between chunk dispatches
+(``search_timeout``).
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from dataclasses import dataclass, field as dc_field
 from typing import Optional, Sequence
 
@@ -566,6 +569,40 @@ class PackedFieldView:
         }
         self._columns[field] = out
         return out
+
+    # -- doc-space chunked search (a timeout inside the fast path) -------------------
+
+    def search_timeout(self, spec: QuerySpec, k: int, timeout_sec: float, chunks: int = 8,
+                       check_every: int = 0):
+        """One spec as docid-ascending chunk dispatches on the merge path,
+        with a deadline check between chunks (``PrunedIndex.
+        search_chunked``; the reference's packed_view.py:599-641). Returns
+        (FastResult, timed_out). ``check_every`` (timeoutCheckEvery, docs
+        between deadline checks) sets the chunk size: about that many docs
+        per chunk, 1 to 64 chunks."""
+        if check_every > 0:
+            want = -(-int(self.index.max_doc) // max(int(check_every), 1))
+            chunks = max(1, min(64, want))
+        if self.total_len == 0:
+            return _empty(k), False
+        entries = self.term_entries(spec.terms, spec.boost)
+        if spec.require_all and any(not runs for _, _, runs in entries):
+            return _empty(k), False
+        q = {
+            "entries": [(w, runs) for _, w, runs in entries if w and runs],
+            "require_all": spec.require_all,
+            "n_terms": len(spec.terms) if spec.require_all else 1,
+            "filter": spec.filter,
+            "additive": spec.additive,
+            "sort": spec.sort,
+        }
+        if not q["entries"]:
+            return _empty(k), False
+        s, d, total, timed_out = self.index.search_chunked(
+            q, k, deadline=time.time() + timeout_sec,
+            chunks=min(chunks, max(1, int(self.index.max_doc))),
+        )
+        return FastResult(s, d, total, False), timed_out
 
     # -- batched search ------------------------------------------------------------
 

@@ -1,21 +1,30 @@
 """Searcher: an immutable snapshot over a list of segments (counterpart:
 nrtsearch_tpu/core/searcher.py).
 
-This slice ports the fast paths. A match or term query on one text field
-becomes a ``QuerySpec`` and runs through the packed field view (the fused
-dense path on CUDA, the exact merge path on the CPU). A boolean tree of one
-scored text clause plus filter, must-not and columnar scored clauses (range,
-term and term-in-set on doc values, exists, constant-score, booleans of
-those) decomposes into a filter mask and an additive score column on the
-same spec (``_compile_filtered_spec``). A single-field sort ranks matched
-docs by a doc-value key (``_global_sort_keys``), and ``fast_search_reduce``
-adds facet counts and stats to a merge-path dispatch.
+The fast paths come first, as in the reference: a match or term query on
+one text field becomes a ``QuerySpec`` and runs through the packed field
+view (the fused dense path on CUDA, the exact merge path on the CPU); a
+boolean tree of one scored text clause plus filter, must-not and columnar
+scored clauses decomposes into a filter mask and an additive score column
+on the same spec (``_compile_filtered_spec``); a single-field sort ranks
+matched docs by a doc-value key (``_global_sort_keys``); a timeout on such
+a spec cuts the view into docid chunks with a deadline check between
+chunk dispatches (``PackedFieldView.search_timeout``).
 
-Everything else raises ``NotImplementedError`` naming ROADMAP item 8: shapes
-the fast path refuses (the general evaluator), multi-component, f64,
-virtual and runtime sorts, ``extra_filter``, ``return_arrays``, timeouts,
-``terminate_after`` and ``match_masks``; ``knn_search`` names item 12 and
-``dist_shards`` above 1 (the server's virtualShards) item 13.
+Everything else takes the general evaluator, segment by segment: the
+compiled program (query/compiled.py, ``NRT_COMPILED_EVAL``, on by default)
+or the eager evaluator (query/eval.py), then a per-segment top-k by score
+or sort key, or the exact host sort for f64 keys and multi-component,
+docid and score sorts, and a merge of the segments' hits on the host.
+Timeouts and ``terminate_after`` cut at segment granularity there, and
+``terminate_after`` also within a segment. ``knn_search`` names ROADMAP item
+12 and ``dist_shards`` above 1 (the server's virtualShards) item 13.
+
+A multi-component sort never reads the single-sort key cache: the
+reference's cache keys a sort by its first component only
+(nrtsearch_tpu/core/searcher.py:520), so after a single sort on a field a
+multi-component sort that starts with it ranks by that field alone there.
+The port ranks by every component.
 
 A snapshot is shared by the server's threads (the gRPC pool, the batcher's
 workers, the runtime's warm thread): its packed-view cache is built under a
@@ -26,8 +35,9 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from dataclasses import dataclass, replace
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,12 +46,23 @@ from nrtsearch_tpu_torch.query import plan as qp
 from nrtsearch_tpu_torch.schema.fields import DocValueKind, FieldDef
 from nrtsearch_tpu_torch.core.segment import Segment
 from nrtsearch_tpu_torch.device import on_cuda
+from nrtsearch_tpu_torch.ops.topk import masked_top_k, masked_top_k_by_key
+from nrtsearch_tpu_torch.query import compiled as qc
+from nrtsearch_tpu_torch.query import eval as qeval
 from nrtsearch_tpu_torch.query.eval import CollectionStats, EvalContext
 
-_NOT_PORTED = (
-    "this query shape needs the general evaluator, which is not ported yet "
-    "(ROADMAP item 8)"
-)
+
+def _compiled_eval_enabled() -> bool:
+    """The general evaluator runs the compiled program per (query,
+    segment) by default (query/compiled.py); NRT_COMPILED_EVAL=0 takes the
+    eager evaluator instead (the reference's switch)."""
+    return os.environ.get("NRT_COMPILED_EVAL", "1") != "0"
+
+
+def _host(*tensors) -> list[np.ndarray]:
+    """Tensors (or arrays) as numpy arrays on the host."""
+    return [t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+            for t in tensors]
 
 
 @dataclass(frozen=True)
@@ -75,8 +96,10 @@ class SortComponent:
 
 @dataclass(frozen=True)
 class SortSpec:
-    """Sort specification: one or more components, primary first. The
-    port serves single-component doc-value sorts; the others raise."""
+    """Sort specification: one or more components, primary first.
+    Single-component sorts ride the fast paths or a device top-k by key;
+    multi-component, docid and score sorts take the exact host
+    lexicographic sort (reference: SortParser, SortParser.java:39)."""
 
     field: str
     reverse: bool = False  # False = ascending
@@ -148,29 +171,160 @@ class Searcher:
         terminate_after: int = 0,
         arrays_score_free: bool = False,
         timeout_check_every: int = 0,
-    ) -> TopDocs:
-        """Recall + top-k over all segments through the fast paths: the
-        reference's fast branch (searcher.py:177-197). ``arrays_score_free``
-        and ``timeout_check_every`` qualify ``return_arrays`` and
-        ``timeout_sec``, which raise."""
+    ):
+        """Recall + top-k over all segments (the reference's
+        searcher.py:130-281).
+
+        ``extra_filter`` is AND-ed in without contributing score. With
+        ``return_arrays`` also returns the per-segment (scores, match)
+        tensors, for collectors and facets over the full match set
+        (``arrays_score_free``: the caller reads no scores, so a fast-path
+        answer comes with match masks only). ``timeout_sec`` and
+        ``terminate_after`` bound work at segment granularity, and a
+        fast-path spec with a timeout is cut into docid chunks
+        (``timeout_check_every`` docs each); cut results are a lower bound
+        (relation GREATER_THAN_OR_EQUAL_TO)."""
         if not self.segments:
-            return TopDocs([], 0)
-        if extra_filter is not None or return_arrays or timeout_sec or terminate_after:
-            raise NotImplementedError(_NOT_PORTED)
-        gsort = None
-        if sort is not None:
-            gsort = self._global_sort_keys(sort)
-            if gsort is None:
-                raise NotImplementedError(
-                    f"sort on {sort.field!r}: an f64 sort key needs the exact host "
-                    "sort, which is not ported yet (ROADMAP item 8)"
+            return (TopDocs([], 0), []) if return_arrays else TopDocs([], 0)
+        if extra_filter is None and not return_arrays and timeout_sec and not terminate_after:
+            # the timeout inside the fast path: docid-ascending chunk
+            # dispatches with a deadline check between chunks
+            spec = self.compile_batchable(node, sort)
+            if spec is not None:
+                res, timed_out = self.packed_view(spec.field).search_timeout(
+                    spec, top_hits, timeout_sec, check_every=timeout_check_every,
                 )
-        fast = self._fast_text_search(node, top_hits, gsort)
-        if fast is None:
-            fast = self._fast_filtered_text(node, top_hits, gsort)
-        if fast is None:
-            raise NotImplementedError(_NOT_PORTED)
-        return fast
+                td = self._fast_result_to_topdocs(spec, res, top_hits)
+                td.hit_timeout = timed_out
+                if timed_out:
+                    td.relation = "GREATER_THAN_OR_EQUAL_TO"
+                return td
+        if (
+            extra_filter is None
+            and (not return_arrays or arrays_score_free)
+            and not timeout_sec
+            and not terminate_after
+        ):
+            gsort = self._global_sort_keys(sort) if sort is not None else None
+            if sort is None or gsort is not None:
+                fast = self._fast_text_search(node, top_hits, gsort)
+                if fast is None:
+                    fast = self._fast_filtered_text(node, top_hits, gsort)
+                if fast is not None:
+                    if return_arrays:
+                        # score-free arrays: the match masks come from the
+                        # compiled match program, no dense scores
+                        return fast, [(None, m) for m in self.match_masks(node)]
+                    return fast
+        t_start = time.time()
+        hit_timeout = False
+        terminated_early = False
+        per_segment: list[tuple] = []
+        arrays = []
+        total = 0
+        compiled = _compiled_eval_enabled()
+        for idx, seg in enumerate(self.segments):
+            if timeout_sec and idx > 0 and (time.time() - t_start) > timeout_sec:
+                hit_timeout = True
+                break
+            if terminate_after and total >= terminate_after:
+                terminated_early = True
+                break
+            k = min(top_hits, seg.capacity)
+            rem = (terminate_after - total) if terminate_after else 0
+            if compiled:
+                s, ids, seg_total, arr = self._compiled_segment_topk(
+                    seg, node, extra_filter, sort, k, return_arrays, budget=rem, seg_idx=idx,
+                )
+            else:
+                s, ids, seg_total, arr = self._eager_segment_topk(
+                    seg, node, extra_filter, sort, k, return_arrays, budget=rem, seg_idx=idx,
+                )
+            if return_arrays:
+                arrays.append(arr)
+            per_segment.append((s, ids, idx, min(seg_total, k)))
+            total += seg_total
+            if rem and seg_total >= rem:
+                terminated_early = True
+                break
+        td = self._merge_top(per_segment, top_hits, sort, total)
+        td.hit_timeout = hit_timeout
+        td.terminated_early = terminated_early
+        if hit_timeout or terminated_early:
+            td.relation = "GREATER_THAN_OR_EQUAL_TO"
+        return (td, arrays) if return_arrays else td
+
+    def _eager_segment_topk(self, seg: Segment, node, extra_filter, sort, k: int,
+                            return_arrays: bool, budget: int = 0, seg_idx: int = 0):
+        """Recall + top-k for one segment through the eager evaluator (the
+        reference's NRT_COMPILED_EVAL=0 branch, searcher.py:227-274).
+        Returns (scores [k], ids [k], seg_total, arrays entry or None) on
+        the host."""
+        ctx = EvalContext(seg, self.field_defs, self.stats)
+        scores, match = qeval.eval_node(node, ctx)
+        if extra_filter is not None:
+            _, fmask = qeval.eval_node(extra_filter, ctx)
+            match = match & fmask
+        match = match & qc.live_root_mask(seg)
+        if budget:
+            # within-segment terminateAfter: only the first ``budget``
+            # matches in docid order are collected
+            match = qc.budget_mask(match, budget)
+        arr = (scores, match) if return_arrays else None
+        if sort is None:
+            s, ids, th = masked_top_k(scores[None, :], match[None, :], k)
+        else:
+            keys = self._sort_keys(seg, sort, seg_idx)
+            if keys is None:
+                s, ids, seg_total = self._host_sorted_topk(seg_idx, match, sort, k,
+                                                           scores=scores)
+                return s, ids, seg_total, arr
+            s, ids, th = masked_top_k_by_key(keys[None, :], match[None, :], k,
+                                             ascending=not sort.reverse)
+        s, ids, th = _host(s[0], ids[0], th[0])
+        return s, ids, int(th), arr
+
+    def _compiled_segment_topk(self, seg: Segment, node, extra_filter, sort, k: int,
+                               return_arrays: bool, budget: int = 0, seg_idx: int = 0):
+        """Recall + top-k for one segment through the compiled program
+        (the reference's searcher.py:283-342). Returns (scores [k], ids
+        [k], seg_total, arrays entry or None) on the host; ``budget`` is
+        the within-segment terminateAfter limit."""
+        ctx = EvalContext(seg, self.field_defs, self.stats)
+        cq = qc.CompiledQuery(node, extra_filter, ctx, qc.live_root_mask(seg))
+        arr = None
+        if sort is None:
+            if return_arrays and budget:
+                sc, match = cq.arrays()
+                match = qc.budget_mask(match, budget)
+                arr = (sc, match)
+                s, ids, th = masked_top_k(sc[None, :], match[None, :], k)
+                s, ids, th = _host(s[0], ids[0], th[0])
+                return s, ids, int(th), arr
+            if return_arrays:
+                sc, match, s, ids, th = cq.arrays_top_k(k)
+                arr = (sc, match)
+            else:
+                s, ids, th = cq.top_k(k, budget=budget)
+            s, ids, th = _host(s, ids, th)
+            return s, ids, int(th), arr
+        keys = self._sort_keys(seg, sort, seg_idx)
+        if return_arrays or keys is None:
+            sc, match = cq.arrays()
+            if budget:
+                match = qc.budget_mask(match, budget)
+            arr = (sc, match)
+            if keys is None:
+                # exact f64 column or multi-component sort: host path
+                s, ids, seg_total = self._host_sorted_topk(seg_idx, match, sort, k, scores=sc)
+                return s, ids, seg_total, arr
+            s, ids, th = masked_top_k_by_key(keys[None, :], match[None, :], k,
+                                             ascending=not sort.reverse)
+            s, ids, th = _host(s[0], ids[0], th[0])
+            return s, ids, int(th), arr
+        s, ids, th = cq.top_k_by_key(keys, k, ascending=not sort.reverse, budget=budget)
+        s, ids, th = _host(s, ids, th)
+        return s, ids, int(th), None
 
     def fast_query_spec(self, node: qp.QueryNode):
         """Compile a query node to a fast-path QuerySpec, or None if the
@@ -228,10 +382,22 @@ class Searcher:
                     self._packed_views[field] = view
         return view
 
-    def match_masks(self, node: qp.QueryNode):
-        """Per-segment match masks of a query (drill sideways, filter
-        collectors, delete by query): the general evaluator's."""
-        raise NotImplementedError(_NOT_PORTED)
+    def count(self, node: qp.QueryNode) -> int:
+        return sum(int(m.sum()) for m in self.match_masks(node))
+
+    def match_masks(self, node: qp.QueryNode) -> list[Any]:
+        """Per-segment live match masks (for facets and collectors over all
+        hits, drill sideways, delete by query)."""
+        compiled = _compiled_eval_enabled()
+        out = []
+        for seg in self.segments:
+            ctx = EvalContext(seg, self.field_defs, self.stats)
+            if compiled:
+                out.append(qc.CompiledQuery(node, None, ctx, qc.live_root_mask(seg)).match())
+                continue
+            _, match = qeval.eval_node(node, ctx)
+            out.append(match & qc.live_root_mask(seg))
+        return out
 
     def knn_search(self, field: str, query_vector, k: int, filter_node=None,
                    boost: float = 1.0):
@@ -314,10 +480,21 @@ class Searcher:
 
     # -- sorts -----------------------------------------------------------------
 
-    def _sort_keys(self, seg: Segment, sort: SortSpec) -> Optional[torch.Tensor]:
-        """One segment's f32 [capacity] sort keys, missing values at
-        -1e38 (or +1e38 with ``missing_last``); None for an f64 column,
-        which needs the exact host sort."""
+    def _sort_keys(self, seg: Segment, sort: SortSpec,
+                   seg_idx: Optional[int] = None) -> Optional[torch.Tensor]:
+        """One segment's f32 [capacity] sort keys, missing values at -1e38
+        (or +1e38 with ``missing_last``); None for a multi-component sort
+        or an f64 column, which take the exact host sort."""
+        if sort.is_multi:
+            return None
+        fd = self.field_defs.get(sort.field)
+        if fd is not None and fd.type.value in ("VIRTUAL", "RUNTIME"):
+            from nrtsearch_tpu_torch.search.fetch import virtual_field_column
+
+            if seg_idx is None:
+                seg_idx = next(i for i, s in enumerate(self.segments) if s is seg)
+            vals = virtual_field_column(self, seg_idx, fd)
+            return torch.as_tensor(np.asarray(vals).astype(np.float32), device=seg.device)
         dv = seg.doc_values.get(sort.field)
         # missing sentinel beyond any stored f32 doc value: missing_last
         # places missing at the end of the NATURAL (ascending) order
@@ -329,30 +506,21 @@ class Searcher:
         return torch.where(dv.present, dv.values.to(torch.float32), miss)
 
     def _global_sort_keys(self, sort: SortSpec):
-        """(keys f32 [max_doc] over global ords, ascending), or None when a
-        segment needs the exact-f64 host sort. Cached per (field,
-        direction, missing) on this immutable snapshot: specs that share a
-        sort share its key object, so they group into one dispatch. A
-        multi-component sort raises before the cache is read: it shares its
-        first component's key (the reference's cache returns that
-        component's keys for it, ROADMAP §3)."""
+        """(keys f32 [max_doc] over global ords, ascending), or None when the
+        sort needs the exact host sort: a multi-component, docid or score
+        sort, or a segment's f64 column. Cached per (field, direction,
+        missing) on this immutable snapshot: specs that share a sort share
+        its key object, so they group into one dispatch. A multi-component
+        sort returns None before the cache is read, so it never gets its
+        first component's keys (the reference's cache does, ROADMAP §3)."""
         if sort.is_multi:
-            raise NotImplementedError(
-                "multi-component, docid and score sorts are not ported yet "
-                "(ROADMAP item 8)"
-            )
-        fd = self.field_defs.get(sort.field)
-        if fd is not None and fd.type.value in ("VIRTUAL", "RUNTIME"):
-            raise NotImplementedError(
-                f"sort on the {fd.type.value} field {sort.field!r} is not ported yet "
-                "(ROADMAP item 8)"
-            )
+            return None
         key = (sort.field, sort.reverse, sort.missing_last)
         if key in self._gsort_cache:
             return self._gsort_cache[key]
         parts = []
-        for seg in self.segments:
-            keys = self._sort_keys(seg, sort)
+        for idx, seg in enumerate(self.segments):
+            keys = self._sort_keys(seg, sort, idx)
             if keys is None:
                 parts = None
                 break
@@ -363,6 +531,104 @@ class Searcher:
             out = (g, not sort.reverse)
         self._gsort_cache[key] = out
         return out
+
+    def _component_values(self, seg_idx: int, comp: SortComponent,
+                          scores=None) -> tuple[np.ndarray, bool]:
+        """Host f64 values [num_docs] of one sort component, missing values
+        filled (+inf with missing_last, else -inf, before reverse); and
+        whether the component's natural order is descending (only
+        "score", SortParser.java:66-70)."""
+        seg = self.segments[seg_idx]
+        n = seg.num_docs
+        if comp.field == "docid":
+            return float(self.bases[seg_idx]) + np.arange(n, dtype=np.float64), False
+        if comp.field == "score":
+            if scores is None:
+                raise ValueError("sort on 'score' requires scores for the match set")
+            return _host(scores)[0][:n].astype(np.float64), True
+        missing = np.inf if comp.missing_last else -np.inf
+        fd = self.field_defs.get(comp.field)
+        if fd is not None and fd.type.value in ("VIRTUAL", "RUNTIME"):
+            from nrtsearch_tpu_torch.search.fetch import virtual_field_column
+
+            vals = virtual_field_column(self, seg_idx, fd)[:n]
+            return np.asarray(vals, np.float64), False
+        dv = seg.doc_values.get(comp.field)
+        if dv is None:
+            return np.full(n, missing, np.float64), False
+        vals = dv.host_values[:n].astype(np.float64)
+        return np.where(dv.host_present[:n], vals, missing), False
+
+    def _host_multisort_topk(self, seg_idx: int, match, sort: SortSpec, k: int, scores=None):
+        """Exact lexicographic multi-component sort of one segment's match
+        set on the host, ties by doc id ascending. Returns (raw [k, C] f64
+        per-component values, ids [k] local, total)."""
+        seg = self.segments[seg_idx]
+        m = _host(match)[0][: seg.num_docs]
+        ids = np.nonzero(m)[0]
+        comps = sort.components
+        comp_raw, comp_keys = [], []
+        for comp in comps:
+            vals, nat_desc = self._component_values(seg_idx, comp, scores)
+            raw = vals[ids]
+            eff_rev = bool(comp.reverse) != nat_desc
+            comp_raw.append(raw)
+            comp_keys.append(-raw if eff_rev else raw)
+        # np.lexsort: the LAST key is primary; doc id is the final tie-break
+        order = np.lexsort([ids] + comp_keys[::-1])[:k] if len(ids) else np.empty(0, np.int64)
+        top = ids[order]
+        raws = np.stack([r[order] for r in comp_raw], axis=1) if len(order) else (
+            np.empty((0, len(comps))))
+        pad = k - len(top)
+        if pad > 0:
+            top = np.concatenate([top, np.zeros(pad, np.int64)])
+            raws = np.concatenate([raws, np.full((pad, len(comps)), -np.inf)], axis=0)
+        return raws, top, int(m.sum())
+
+    def _host_sorted_topk(self, seg_idx: int, match, sort: SortSpec, k: int, scores=None):
+        """Exact host sort: a stable argsort of one f64 field, or the
+        lexicographic path for multi-component, docid and score sorts.
+        Returns (keys [k] f64 or [k, C] f64, ids [k], total)."""
+        if sort.is_multi:
+            return self._host_multisort_topk(seg_idx, match, sort, k, scores)
+        seg = self.segments[seg_idx]
+        dv = seg.doc_values[sort.field]
+        m = _host(match)[0][: seg.num_docs]
+        ids = np.nonzero(m)[0]
+        miss = np.inf if sort.missing_last else -np.inf
+        vals = np.where(dv.host_present[ids], dv.host_values[ids].astype(np.float64), miss)
+        order = np.argsort(-vals if sort.reverse else vals, kind="stable")
+        top = ids[order[:k]]
+        keys = vals[order[:k]].astype(np.float64)
+        pad = k - len(top)
+        if pad > 0:
+            top = np.concatenate([top, np.zeros(pad, np.int64)])
+            keys = np.concatenate([keys, np.full(pad, -np.inf)])
+        return keys, top, int(m.sum())
+
+    def _merge_top(self, per_segment: list[tuple], top_hits: int,
+                   sort: Optional[SortSpec], total: int) -> TopDocs:
+        hits: list[Hit] = []
+        multi = sort is not None and sort.is_multi
+        for scores, ids, seg_idx, valid in per_segment:
+            base = int(self.bases[seg_idx])
+            for s, i in zip(scores[:valid], ids[:valid]):
+                if sort is None:
+                    hits.append(Hit(seg_idx, int(i), base + int(i), float(s)))
+                elif multi:
+                    hits.append(Hit(seg_idx, int(i), base + int(i), 0.0,
+                                    sort_key=tuple(float(v) for v in np.atleast_1d(s))))
+                else:
+                    hits.append(Hit(seg_idx, int(i), base + int(i), 0.0, sort_key=float(s)))
+        if sort is None:
+            # score desc, then global ord asc (Lucene tie-break)
+            hits.sort(key=lambda h: (-h.score, h.global_ord))
+        elif multi:
+            hits.sort(key=lambda h: (sort_compare_key(sort, h.sort_key), h.global_ord))
+        else:
+            sign = -1.0 if sort.reverse else 1.0
+            hits.sort(key=lambda h: (sign * (h.sort_key or 0.0), h.global_ord))
+        return TopDocs(hits[:top_hits], total)
 
     # -- fast paths ----------------------------------------------------------
 
@@ -404,8 +670,8 @@ class Searcher:
         as an additive column. SHOULD clauses beside filters are not
         eligible: filter-only matches would score 0, which a score > 0
         dispatch cannot represent."""
-        from nrtsearch_tpu_torch.query import compiled as qc
-
+        if not _compiled_eval_enabled():
+            return None
         if not isinstance(node, qp.BooleanQueryNode) or node.minimum_number_should_match:
             return None
         scored_text, scored_columnar, others = [], [], []
@@ -433,7 +699,7 @@ class Searcher:
         mparts, sparts = [], []
         for seg in self.segments:
             ctx = EvalContext(seg, self.field_defs, self.stats)
-            cq = qc.CompiledQuery(filter_node, ctx, qc.live_root_mask(seg))
+            cq = qc.CompiledQuery(filter_node, None, ctx, qc.live_root_mask(seg))
             if scored_columnar:
                 sc, match = cq.arrays()
                 mparts.append(match[: seg.num_docs])

@@ -9,12 +9,14 @@ buckets, as in the reference.
 
 A segment also holds one doc-value column per field that stores doc values
 (``DocValueColumn``): LONG (also INT, BOOLEAN and DATE_TIME), DOUBLE (also
-FLOAT) and ORDINAL (ATOM, TEXT, _ID) kinds, single- or multi-valued (CSR).
+FLOAT) and ORDINAL (ATOM, TEXT, _ID) kinds, single- or multi-valued (CSR),
+and LAT_LON: f32 [capacity, 2] (lat, lon) on the device, as the reference
+keeps it, and the f64 values on the host.
 
-The builder takes TEXT, _ID, ATOM and the numeric field types. LAT_LON,
+The builder takes TEXT, _ID, ATOM, LAT_LON and the numeric field types.
 POLYGON, VECTOR, suggest, nested (OBJECT), child and prefix fields raise
 ``NotImplementedError`` (ROADMAP item 10; item 12 for vectors). Term
-positions are not kept: no ported path reads them yet.
+positions are not kept: phrase and span queries need them (item 10).
 """
 
 from __future__ import annotations
@@ -75,6 +77,29 @@ class TextFieldIndex:
     def doc_freq(self, term: str) -> int:
         tid = self.terms.get(term)
         return 0 if tid is None else int(self.lengths[tid])
+
+    def sorted_terms(self) -> np.ndarray:
+        """The vocabulary in sorted order, built on the first multi-term
+        query and cached on the (immutable) field index."""
+        cached = getattr(self, "_sorted_terms", None)
+        if cached is None:
+            cached = np.sort(np.array(list(self.terms), dtype=object))
+            object.__setattr__(self, "_sorted_terms", cached)
+        return cached
+
+    def terms_with_prefix(self, prefix: str, limit: int) -> list[str]:
+        """Up to ``limit`` vocabulary terms starting with ``prefix``, in
+        lexicographic order (a binary search over ``sorted_terms``)."""
+        st = self.sorted_terms()
+        if not prefix:
+            return list(st[: max(limit, 0)])
+        lo = int(np.searchsorted(st, prefix, side="left"))
+        out: list[str] = []
+        for i in range(lo, len(st)):
+            if len(out) >= limit or not st[i].startswith(prefix):
+                break
+            out.append(st[i])
+        return out
 
 
 @dataclass(frozen=True)
@@ -158,6 +183,8 @@ def doc_value_column(
         values = numeric_device_array(host_values, device)
     elif kind == DocValueKind.ORDINAL:
         values = torch.as_tensor(host_values, device=device)
+    elif kind == DocValueKind.LAT_LON:
+        values = torch.as_tensor(host_values.astype(np.float32), device=device)
     else:
         raise NotImplementedError(
             f"{kind.value} doc values are not ported yet (ROADMAP item 10)"
@@ -178,7 +205,7 @@ def doc_value_column(
 _BUILT_TYPES = (
     FieldType.TEXT, FieldType.ID, FieldType.ATOM, FieldType.BOOLEAN,
     FieldType.LONG, FieldType.INT, FieldType.DATE_TIME, FieldType.DOUBLE,
-    FieldType.FLOAT,
+    FieldType.FLOAT, FieldType.LAT_LON,
 )
 
 
@@ -222,11 +249,19 @@ class SegmentBuilder:
                     f"(ROADMAP item {item})"
                 )
             values = value if isinstance(value, (list, tuple)) else [value]
+            if fd.type == FieldType.LAT_LON:
+                parsed_fields.append((fd, [(float(values[0]), float(values[1]))]))
+                continue
             if len(values) > 1 and not fd.multi_valued:
                 raise ValueError(f"field {name!r} is not multiValued")
             parsed_fields.append((fd, [fd.parse_doc_value(v) for v in values]))
         self.num_docs += 1
         for fd, parsed in parsed_fields:
+            if fd.type == FieldType.LAT_LON:
+                self._dv.setdefault(fd.name, []).append((doc_id, parsed[0]))
+                if fd.store:
+                    stored_row[fd.name] = list(parsed[0])
+                continue
             if fd.search and fd.is_text:
                 self._index_text(fd, doc_id, [str(v) for v in parsed])
             if fd.store_doc_values:
@@ -285,6 +320,12 @@ class SegmentBuilder:
         present = np.zeros(capacity, dtype=bool)
         n = self.num_docs
         ord_terms = None
+        if kind == DocValueKind.LAT_LON:
+            host = np.zeros((capacity, 2), dtype=np.float64)
+            for doc, (lat, lon) in vals:
+                host[doc] = (lat, lon)
+                present[doc] = True
+            return doc_value_column(kind, host, present, self.device)
         if kind == DocValueKind.ORDINAL:
             # ordinals are sort-consistent (Lucene SortedDocValues)
             ord_terms = sorted({str(v) for _, v in vals})

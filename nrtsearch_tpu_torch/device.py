@@ -8,6 +8,7 @@ counterpart of the reference's ``_on_tpu()`` (nrtsearch_tpu/core/maxscore.py).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -39,3 +40,13 @@ def exact_cuda_matmul() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def scalar_f32(x, device: torch.device) -> torch.Tensor:
+    """``x`` rounded to f32 (as the reference's ``np.float32`` constants and
+    JAX's weakly typed scalars round) as a 0-d tensor on ``device``. A
+    divisor on CUDA must be one: a Python-number divisor makes CUDA's
+    ``div`` multiply by its rounded reciprocal. Made by a fill on the
+    device: ``torch.tensor(x, device=cuda)`` copies from pageable host
+    memory, which waits for the stream."""
+    return torch.full((), float(np.float32(x)), dtype=torch.float32, device=device)

@@ -96,6 +96,49 @@ def config3_query(terms: list[str], tag_names: list[str], seed: int,
     ]}}
 
 
+# (lat range, lon range) of the synthetic ``loc`` points: the San Francisco
+# peninsula's north end
+METRO_BOX = ((37.6, 37.9), (-122.55, -122.25))
+
+
+def haversine_meters(points: np.ndarray, lat: float, lon: float) -> np.ndarray:
+    """Haversine distance in meters, in f64, from f64 [n, 2] (lat, lon)
+    points to one point (the engine's formula and earth radius, computed
+    independently of it and in higher precision)."""
+    r = np.deg2rad(points)
+    c_lat, c_lon = np.deg2rad(lat), np.deg2rad(lon)
+    a = (np.sin((r[:, 0] - c_lat) / 2) ** 2
+         + np.cos(r[:, 0]) * np.cos(c_lat) * np.sin((r[:, 1] - c_lon) / 2) ** 2)
+    return 2 * 6371008.7714 * np.arcsin(np.sqrt(a))
+
+
+def geo_radius_oracle(columns: dict, lat: float, lon: float, radius: float,
+                      field: str = "loc", near_m: float = 2.0):
+    """(match, near) of a geo-radius filter over ``columns[field]``: the
+    docs with a point within ``radius`` meters (f64 distance), and the docs
+    whose distance lies within ``near_m`` meters of the radius, where the
+    engine's distance may fall on the other side. The engine computes in
+    f32, as the reference does: its angle differences carry an absolute
+    error of about an f32 ulp of the latitude in radians (6e-8), a few
+    decimeters on the earth's surface."""
+    pts, present = columns[field]
+    dist = haversine_meters(pts, lat, lon)
+    match = present & (dist <= radius)
+    near = present & (np.abs(dist - radius) <= near_m)
+    return match, near
+
+
+def geo_bbox_oracle(columns: dict, min_lat: float, max_lat: float, min_lon: float,
+                    max_lon: float, field: str = "loc") -> np.ndarray:
+    """Docs with a point inside the box (no dateline crossing), compared
+    in f32 as the engine compares its f32 column with f32 bounds."""
+    pts, present = columns[field]
+    p = pts.astype(np.float32)
+    f = np.float32
+    return (present & (p[:, 0] >= f(min_lat)) & (p[:, 0] <= f(max_lat))
+            & (p[:, 1] >= f(min_lon)) & (p[:, 1] <= f(max_lon)))
+
+
 def column_clauses(q: dict) -> dict:
     """The non-text part of a ``config3_query`` tree: a boolean of every
     clause but the first (the text clause), for ``eval_column_query``."""
@@ -209,6 +252,23 @@ class SyntheticCorpus:
             out["total"] = float(vals[matched & present].astype(np.float64).sum())
         return out
 
+    def exact_function_score(self, terms: list[str], k: int, columns: dict,
+                             field: str = "price", match: np.ndarray | None = None):
+        """The function score ``_score * log(<field> + 1)`` over a match
+        query on ``terms`` (a missing value reads 0), restricted to
+        ``match`` when given, in numpy f32. Returns (scores [<=k], docs
+        [<=k], total_hits)."""
+        scores, counts = self._bm25(terms)
+        matched = counts > 0
+        if match is not None:
+            matched &= match
+        vals, present = columns[field][:2]
+        col = np.where(present, vals, 0).astype(np.float32)
+        fs = (scores * np.log(col + np.float32(1))).astype(np.float32)
+        docs = np.nonzero(matched)[0]
+        order = np.lexsort((docs, -fs[docs]))[:k]
+        return fs[docs[order]], docs[order], int(matched.sum())
+
     def _bm25(self, terms: list[str], k1: float = 1.2, b: float = 0.75):
         """Dense f32 BM25 scores and matched-term counts over all docs."""
         qlens = quantize_length(self.doc_lens.astype(np.int64))
@@ -230,14 +290,21 @@ class SyntheticCorpus:
             counts[docs] += 1
         return scores, counts
 
-    def doc_columns(self, seed: int, n_tags: int = 100, missing: float = 0.01) -> dict:
+    def doc_columns(self, seed: int, n_tags: int = 100, missing: float = 0.01,
+                    loc: bool = True) -> dict:
         """BASELINE config #3's doc-value columns (benchmarks/
         stress_deep_boolean.py:86-137), drawn with numpy from ``seed``:
         ``price`` FLOAT uniform over [0, 1000) with a ``missing`` share of
         docs without a value, ``ts`` FLOAT uniform over [0, 1e9), ``tag``
         ATOM ordinals over ``n_tags`` terms ``tag_000``... (names sort in
         ordinal order). Each entry is (values, present[, ord_terms]) over
-        all docs; values are f32 (exact in an f32 device column)."""
+        all docs; values are f32 (exact in an f32 device column).
+
+        With ``loc`` also a LAT_LON ``loc`` column, drawn after the others
+        (which stay as they were): points uniform in ``METRO_BOX`` (a
+        metro-sized box, about 33 km by 26 km), a ``missing`` share
+        without one; values f64 [n, 2] (lat, lon) rounded to f32, as the
+        engine keeps them on its device."""
         rng = np.random.default_rng(seed)
         n = self.num_docs
         price = rng.uniform(0, 1000, n).astype(np.float32)
@@ -245,11 +312,18 @@ class SyntheticCorpus:
         ts = rng.uniform(0, 1e9, n).astype(np.float32)
         tag = rng.integers(0, n_tags, n).astype(np.int32)
         every = np.ones(n, bool)
-        return {
+        out = {
             "price": (np.where(price_present, price, 0).astype(np.float32), price_present),
             "ts": (ts, every),
             "tag": (tag, every, [f"tag_{i:03d}" for i in range(n_tags)]),
         }
+        if loc:
+            (lat0, lat1), (lon0, lon1) = METRO_BOX
+            pts = np.stack([rng.uniform(lat0, lat1, n), rng.uniform(lon0, lon1, n)], axis=1)
+            present = rng.random(n) >= missing
+            pts = np.where(present[:, None], pts.astype(np.float32), 0).astype(np.float64)
+            out["loc"] = (pts, present)
+        return out
 
     def segment_doc_values(self, columns: dict, num_segments: int) -> list[dict]:
         """``columns`` (``doc_columns``) cut into the doc ranges of
@@ -266,7 +340,11 @@ class SyntheticCorpus:
                 vals, present = col[0][lo:hi], col[1][lo:hi]
                 full_present = np.zeros(capacity, bool)
                 full_present[:n] = present
-                if len(col) == 3:
+                if vals.ndim == 2:
+                    host = np.zeros((capacity, 2), np.float64)
+                    host[:n] = vals
+                    seg[name] = {"kind": "LAT_LON", "values": host, "present": full_present}
+                elif len(col) == 3:
                     used = np.unique(vals[present])
                     host = np.full(capacity, -1, np.int32)
                     host[:n] = np.where(present, np.searchsorted(used, vals), -1)

@@ -11,8 +11,8 @@ hierarchies and exact-f64 columns reduce on the host, as in the reference.
 The reference's reductions are jitted XLA programs (no Pallas kernel), so
 plain torch is their port. Counts, minima and maxima equal the reference's;
 an f32 masked sum adds in another order than XLA's and agrees to f32
-rounding. Script sources raise ``NotImplementedError`` (``script.expr``,
-ROADMAP item 8).
+rounding. Script sources run through ``script.expr`` on the segment's
+device.
 """
 
 from __future__ import annotations
@@ -25,9 +25,6 @@ import torch
 
 from nrtsearch_tpu_torch.core.searcher import Searcher
 from nrtsearch_tpu_torch.schema.fields import DocValueKind
-
-_SCRIPTS = "script sources need script.expr, which is not ported yet (ROADMAP item 8)"
-
 
 def _host(x) -> np.ndarray:
     """A mask or score array on the host: an explicit copy for a tensor
@@ -296,14 +293,30 @@ def numeric_stat(
     matches: SegmentMatches, field: str, op: str,
     script_source: Optional[str] = None,
 ) -> float:
-    """sum/min/max over a doc-value column among matching docs.
+    """sum/min/max over a doc-value column or a script among matching docs.
 
-    Single-valued f32 columns reduce on the device (the mask never leaves
-    it); multi-valued CSR and exact-f64 columns keep the host path."""
-    if script_source is not None:
-        raise NotImplementedError(_SCRIPTS)
+    Single-valued f32 columns and script expressions reduce on the device
+    (the mask never leaves it); multi-valued CSR and exact-f64 columns keep
+    the host path."""
     agg: list[float] = []
     for i, seg in enumerate(matches.searcher.segments):
+        if script_source is not None:
+            from nrtsearch_tpu_torch.query.eval import _ScriptDocValues
+            from nrtsearch_tpu_torch.script.expr import compile_expression
+
+            vals = compile_expression(script_source)(
+                _ScriptDocValues(seg),
+                torch.zeros(seg.capacity, dtype=torch.float32, device=seg.device),
+            )
+            eff = _mask(matches.raw_masks[i], seg.device) & (
+                torch.arange(seg.capacity, device=seg.device) < seg.num_docs
+            )
+            vals = torch.as_tensor(vals, dtype=torch.float32, device=seg.device).expand(
+                seg.capacity)
+            v = _device_masked_stat(eff, vals, op)
+            if v is not None:
+                agg.append(v)
+            continue
         dv = seg.doc_values.get(field)
         if dv is None:
             continue

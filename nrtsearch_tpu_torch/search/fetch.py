@@ -3,8 +3,8 @@ branch: the port's vector columns live on the device and vector search is
 not ported yet, so fetching a vector field raises (ROADMAP item 12) where the
 reference read ``np.asarray(vc.present)``, which a CUDA tensor refuses.
 Every other read here is of host arrays (stored rows, ``host_values``,
-``host_present``, CSR arrays). Script fields import the port's
-``script.expr``, which is not ported yet (ROADMAP item 8).
+``host_present``, CSR arrays). Script fields run the port's ``script.expr``:
+called with a numpy score, as here, it hands back a numpy array.
 
 Field fetch: fill hits with stored fields / doc values / virtual fields.
 

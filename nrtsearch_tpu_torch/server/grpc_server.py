@@ -57,8 +57,6 @@ _UNPORTED_MODULES = {
     "nrtsearch_tpu_torch.search.rescore": ("rescorers", 9),
     "nrtsearch_tpu_torch.search.retrievers": ("retrievers", 9),
     "nrtsearch_tpu_torch.search.highlight": ("highlights", 9),
-    "nrtsearch_tpu_torch.script": ("the script evaluator", 8),
-    "nrtsearch_tpu_torch.query.eval": ("the script evaluator's doc-value view", 8),
 }
 
 # SearchRequest fields whose serving code is not ported, with the item
@@ -68,8 +66,6 @@ _UNPORTED_SEARCH = {
     "rescorers": "9 (search/rescore.py)",
     "highlight": "9 (search/highlight.py)",
     "inner_hits": "10 (nested documents)",
-    "virtualFields": "8 (script.expr)",
-    "runtimeFields": "8 (script.expr)",
 }
 
 

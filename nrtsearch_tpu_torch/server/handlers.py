@@ -1,5 +1,8 @@
 """Copy of ``nrtsearch_tpu/server/handlers.py``, kept whole, its imports
-pointed at the port.
+pointed at the port, but for one line: a request-level virtual field reads
+a segment's scores from the match arrays with ``.cpu()`` first (the port's
+arrays are tensors on the index's device, which ``np.asarray`` refuses on
+CUDA).
 
 Request handlers: one method per RPC over protobuf messages.
 
@@ -943,7 +946,8 @@ class Handlers:
             vals = []
             for idx, seg in enumerate(searcher.segments):
                 if arrays:
-                    score_arr = np.asarray(arrays[idx][0])
+                    score_arr = arrays[idx][0]
+                    score_arr = np.asarray(score_arr if score_arr is None else score_arr.cpu())
                 else:
                     score_arr = np.zeros(seg.capacity, np.float32)
                 v = np.asarray(fn(_ScriptDocValues(seg), score_arr))

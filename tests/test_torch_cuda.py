@@ -798,3 +798,130 @@ def test_replica_on_card_answers_as_primary(cuda_device, tmp_path):
     finally:
         primary.stop()
         replica.stop()
+
+
+# ---------------------------------------------------------------------------
+# the general evaluator (ROADMAP item 8) on the card against its CPU run
+# ---------------------------------------------------------------------------
+
+
+def compiled_eval_surface() -> dict:
+    """tests/test_compiled_eval.py's field specs, documents and queries,
+    read from its source: that module imports the JAX package, which a
+    machine with the card need not have."""
+    import ast
+    from pathlib import Path
+
+    tree = ast.parse((Path(__file__).parent / "test_compiled_eval.py").read_text())
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", "") in (
+                "FIELDS", "DOCS", "QUERIES"):
+            name = node.targets[0].id
+            if name == "FIELDS":   # {name: create_field_def(name, spec)}
+                out[name] = {ast.literal_eval(k): ast.literal_eval(v.args[1])
+                             for k, v in zip(node.value.keys, node.value.values)}
+            else:
+                out[name] = ast.literal_eval(node.value)
+    return out
+
+
+@pytest.fixture(scope="module")
+def general_pair(cuda_device, tmp_path_factory):
+    """tests/test_compiled_eval.py's documents, committed by the port on the
+    CPU and opened on the card and on the CPU."""
+    from nrtsearch_tpu_torch.core.directory import commit_segments, open_commit
+    from nrtsearch_tpu_torch.core.searcher import Searcher
+    from nrtsearch_tpu_torch.core.writer import IndexWriter
+    from nrtsearch_tpu_torch.schema import create_field_def
+
+    surface = compiled_eval_surface()
+    DOCS = surface["DOCS"]
+    fds = {n: create_field_def(n, spec) for n, spec in surface["FIELDS"].items()}
+    w = IndexWriter(fds, "cpu", merge_factor=100)
+    w.add_documents([dict(d) for d in DOCS[:3]])
+    w.refresh()
+    w.add_documents([dict(d) for d in DOCS[3:]])
+    path = tmp_path_factory.mktemp("general_cuda")
+    commit_segments(w.refresh(), path, gen=1, version=1)
+    return (Searcher(open_commit(path, cuda_device)[1], fds),
+            Searcher(open_commit(path, "cpu")[1], fds))
+
+
+@pytest.mark.parametrize("compiled", ["1", "0"])
+def test_general_evaluator_cuda_matches_cpu(general_pair, monkeypatch, compiled):
+    """Every query of the compiled-eval surface (but the phrase query): the
+    same hits, order, totals and relation on the card as on the CPU, scores
+    bit-equal, or within 4 f32 ulps where the score holds a transcendental
+    function (the function score's log)."""
+    from nrtsearch_tpu_torch.query import parse_query
+
+    QUERIES = compiled_eval_surface()["QUERIES"]
+    card, cpu = general_pair
+    monkeypatch.setenv("NRT_COMPILED_EVAL", compiled)
+    for qjson in QUERIES:
+        name = next(iter(qjson))
+        if name == "phraseQuery":
+            continue
+        got = card.search(parse_query(qjson), 10)
+        want = cpu.search(parse_query(qjson), 10)
+        assert [h.global_ord for h in got.hits] == [h.global_ord for h in want.hits], name
+        assert (got.total_hits, got.relation) == (want.total_hits, want.relation), name
+        gs = np.array([h.score for h in got.hits], np.float32)
+        ws = np.array([h.score for h in want.hits], np.float32)
+        if name == "functionScoreQuery":
+            np.testing.assert_allclose(gs, ws, rtol=4 * 2.0**-23, err_msg=name)
+        else:
+            np.testing.assert_array_equal(gs, ws, err_msg=name)
+
+
+def test_text_scatter_is_deterministic(cuda_device):
+    """score_text_clause adds one term at a time: 10 runs give the same
+    bits, equal to the CPU run's, on a many-term clause whose docs repeat
+    across terms."""
+    from nrtsearch_tpu_torch.ops.bm25 import score_text_clause
+
+    rng = np.random.default_rng(5)
+    D, Q = 1 << 16, 64
+    runs = [np.sort(rng.choice(D, int(rng.integers(100, 20_000)), replace=False))
+            for _ in range(Q)]
+    lens = np.array([len(r) for r in runs])
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    docs = np.concatenate(runs).astype(np.int32)
+    freqs = rng.integers(1, 6, len(docs)).astype(np.float32)
+    dl = rng.integers(1, 40, D).astype(np.float32)
+    w = rng.uniform(0.5, 5.0, Q).astype(np.float32)
+    args = (offs, lens, w, 1.2, 0.75, 17.5)
+    cpu_s, cpu_c = score_text_clause(torch.from_numpy(docs), torch.from_numpy(freqs),
+                                     torch.from_numpy(dl), *args, num_docs=D)
+    g = [torch.from_numpy(x).to(cuda_device) for x in (docs, freqs, dl)]
+    for _ in range(10):
+        s, c = score_text_clause(*g, *args, num_docs=D)
+        assert torch.equal(s.cpu().view(torch.int32), cpu_s.view(torch.int32))
+        assert torch.equal(c.cpu(), cpu_c)
+
+
+def test_text_scatter_waits_for_no_copy(cuda_device):
+    """score_text_clause makes its per-term constants on the card (a fill,
+    not a copy from host memory): with torch's sync debug mode set to
+    raise, a many-term clause runs through without one host wait."""
+    from nrtsearch_tpu_torch.device import scalar_f32
+    from nrtsearch_tpu_torch.ops.bm25 import score_text_clause
+
+    rng = np.random.default_rng(6)
+    D, Q = 1 << 14, 32
+    runs = [np.sort(rng.choice(D, 500, replace=False)) for _ in range(Q)]
+    lens = np.array([len(r) for r in runs])
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    docs = torch.from_numpy(np.concatenate(runs).astype(np.int32)).to(cuda_device)
+    freqs = torch.ones(len(docs), dtype=torch.float32, device=cuda_device)
+    dl = torch.full((D,), 10.0, device=cuda_device)
+    w = rng.uniform(0.5, 5.0, Q).astype(np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert scalar_f32(0.1, cuda_device).dtype == torch.float32
+        score_text_clause(docs, freqs, dl, offs, lens, w, 1.2, 0.75, 10.0, num_docs=D)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert scalar_f32(0.1, cuda_device).item() == float(np.float32(0.1))

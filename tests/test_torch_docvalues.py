@@ -231,7 +231,7 @@ def test_bf16_vectors_raise_naming_item_12(tmp_path):
 
 
 @pytest.mark.parametrize("spec,item", [
-    ({"type": "LAT_LON", "storeDocValues": True}, 10),
+    ({"type": "OBJECT", "nestedDoc": True}, 10),
     ({"type": "POLYGON", "storeDocValues": True}, 10),
     ({"type": "VECTOR", "vectorDimensions": 2}, 12),
     ({"type": "CONTEXT_SUGGEST"}, 10),

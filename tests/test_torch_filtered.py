@@ -307,32 +307,68 @@ def test_bucket_path_refuses_column_specs(searchers, monkeypatch):
 
 
 UNPORTED = {
-    "multi_sort": dict(sort=SortSpec("ts", rest=(SortComponent("price"),))),
-    "score_sort": dict(sort=SortSpec("score")),
-    "f64_sort": dict(sort=SortSpec("big")),
-    "extra_filter": dict(extra_filter=parse_query({"existsQuery": {"field": "ts"}})),
-    "timeout": dict(timeout_sec=1.0),
+    "multi_sort": lambda S, C, parse: dict(sort=S("ts", rest=(C("price"),))),
+    "score_sort": lambda S, C, parse: dict(sort=S("score")),
+    "f64_sort": lambda S, C, parse: dict(sort=S("big")),
+    "extra_filter": lambda S, C, parse: dict(
+        extra_filter=parse({"existsQuery": {"field": "ts"}})),
+    # a deadline that passes at once: both packages stop after the first
+    # docid chunk that holds postings, deterministically
+    "timeout": lambda S, C, parse: dict(timeout_sec=1e-9),
+    # a deadline that never passes: every chunk, the full answer
+    "timeout_uncut": lambda S, C, parse: dict(timeout_sec=1e6),
 }
+
+
+def _sort_values(td):
+    return [h.sort_key if isinstance(h.sort_key, tuple) or h.sort_key is None
+            else (h.sort_key,) for h in td.hits]
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_options_raise(searchers, case):
-    """Also after the single sort on the same first component is cached."""
-    _ref, port = searchers
-    node = parse_query({"matchQuery": {"field": "body", "query": "w0"}})
-    port.search(node, 10, sort=SortSpec("ts"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        port.search(node, 10, **UNPORTED[case])
+    """The options the port refused before the general evaluator came
+    (ROADMAP item 8) now answer as the reference does: the same hits, order,
+    totals, scores and sort values, also after the single sort on the same
+    first component is cached (``ts`` has no ties here, so the reference's
+    cache fault does not show; tests/test_torch_multisort.py shows it)."""
+    from nrtsearch_tpu.core.searcher import SortComponent as RefC, SortSpec as RefS
+
+    ref, port = searchers
+    spec = {"matchQuery": {"field": "body", "query": "w0"}}
+    ref.search(ref_parse_query(spec), 10, sort=RefS("ts"))
+    port.search(parse_query(spec), 10, sort=SortSpec("ts"))
+    want = ref.search(ref_parse_query(spec), 10,
+                      **UNPORTED[case](RefS, RefC, ref_parse_query))
+    got = port.search(parse_query(spec), 10, **UNPORTED[case](SortSpec, SortComponent,
+                                                              parse_query))
+    assert want.total_hits > 0
+    assert [h.global_ord for h in got.hits] == [h.global_ord for h in want.hits]
+    assert (got.total_hits, got.relation) == (want.total_hits, want.relation)
+    assert got.hit_timeout == want.hit_timeout == (case == "timeout")
+    assert [h.score for h in got.hits] == [h.score for h in want.hits]
+    if case == "multi_sort":
+        # the reference's cached single-sort keys: its hits carry the first
+        # component only (nrtsearch_tpu/core/searcher.py:520)
+        assert [v[0] for v in _sort_values(got)] == [v[0] for v in _sort_values(want)]
+        assert all(len(v) == 2 for v in _sort_values(got))
+    else:
+        assert _sort_values(got) == _sort_values(want)
 
 
 def test_unported_filter_shapes_raise(searchers):
-    """A text filter clause needs the general evaluator (item 8)."""
-    _ref, port = searchers
-    node = parse_query({"booleanQuery": {"clauses": [
+    """A text filter clause (a MUST_NOT match) takes the general evaluator,
+    ported since: bit-equal to the reference."""
+    ref, port = searchers
+    spec = {"booleanQuery": {"clauses": [
         {"occur": "MUST", "query": {"matchQuery": {"field": "body", "query": "w0"}}},
-        {"occur": "MUST_NOT", "query": {"matchQuery": {"field": "body", "query": "w3"}}}]}})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        port.search(node, 10)
+        {"occur": "MUST_NOT", "query": {"matchQuery": {"field": "body", "query": "w3"}}}]}}
+    want = ref.search(ref_parse_query(spec), 10)
+    got = port.search(parse_query(spec), 10)
+    assert want.total_hits > 0
+    assert [(h.global_ord, h.score) for h in got.hits] == [
+        (h.global_ord, h.score) for h in want.hits]
+    assert got.total_hits == want.total_hits
 
 
 # ---------------------------------------------------------------------------

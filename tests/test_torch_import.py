@@ -92,6 +92,23 @@ assert s.search(q, 5, sort=SortSpec("price", reverse=True)).hits[0].sort_key == 
 _td, (facets,) = s.fast_search_reduce(s.compile_batchable(q), 5,
                                       [{"kind": "ordinal", "field": "tag"}])
 assert set(facets) == {"t0", "t2"}
+# the general evaluator: script.expr, the query cache and the compiled program
+import os
+for flag in ("1", "0"):
+    os.environ["NRT_COMPILED_EVAL"] = flag
+    fs = s.search(parse_query({"functionScoreQuery": {
+        "query": {"prefixQuery": {"field": "body", "prefix": "ga"}},
+        "script": {"source": "_score * log(price + 2)"}}}), 5)
+    assert fs.total_hits == 120 and fs.hits[0].score > 1.0, fs.total_hits
+    assert s.search(parse_query({"booleanQuery": {"clauses": [
+        {"occur": "SHOULD", "query": {"matchQuery": {"field": "body", "query": "beta"}}},
+        {"occur": "FILTER", "query": {"rangeQuery": {"field": "price", "upper": "9"}}}]}}),
+        5, sort=SortSpec("tag", rest=(SortSpec("price").components[0],))).total_hits > 0
+# the eager run put its prefix mask in the query cache; a second run hits it
+from nrtsearch_tpu_torch.search.query_cache import DEFAULT_QUERY_CACHE
+hits = DEFAULT_QUERY_CACHE.hits
+assert s.search(parse_query({"prefixQuery": {"field": "body", "prefix": "ga"}}), 5).total_hits == 120
+assert DEFAULT_QUERY_CACHE.hits == hits + 1
 loaded = [k for k, v in sys.modules.items() if v is not None]
 assert not any(k == "jax" or k.startswith("jax.") for k in loaded)
 assert not any(k == "nrtsearch_tpu" or k.startswith("nrtsearch_tpu.") for k in loaded)
@@ -598,6 +615,20 @@ COPY_EXCEPTIONS = {
     "nrt_utils.py": (
         ["Usage: python -m nrtsearch_tpu.nrt_utils [--root DIR | --bucket B] <cmd> ..."],
         ["Usage: python -m nrtsearch_tpu_torch.nrt_utils [--root DIR | --bucket B] <cmd> ..."]),
+    # a virtual field's scores come from device tensors (None on a
+    # score-free answer, which passes through as in the original)
+    "server/handlers.py": (
+        ["score_arr = np.asarray(arrays[idx][0])"],
+        ["score_arr = arrays[idx][0]",
+         "score_arr = np.asarray(score_arr if score_arr is None else score_arr.cpu())"]),
+    # entries are keyed by the segment's device as well as its id
+    "search/query_cache.py": (
+        ["def get(self, seg_id: str, node: qp.QueryNode) -> Optional[Any]:",
+         "key = (seg_id, node)",
+         "def put(self, seg_id: str, node: qp.QueryNode, value: Any) -> None:"],
+        ["def get(self, seg_id: str, node: qp.QueryNode, device=None) -> Optional[Any]:",
+         "key = (seg_id, str(device), node)",
+         "def put(self, seg_id: str, node: qp.QueryNode, value: Any, device=None) -> None:"]),
 }
 WHOLE_COPIES = [
     "gen/__init__.py", "gen/yelp/__init__.py", "gen/yelp/nrtsearch/__init__.py",
@@ -608,7 +639,7 @@ WHOLE_COPIES = [
     "nrt/point_state.py", "remote/__init__.py", "remote/backend.py",
     "search/__init__.py", "server/__init__.py", "server/__main__.py",
     "server/batcher.py", "server/concurrent.py", "server/warming.py",
-    "server/plugins.py", "server/handlers.py", "server/replication.py",
+    "server/plugins.py", "server/replication.py",
     "server/rest_gateway.py", "remote/s3.py", "remote/s3_client.py",
     "remote/fake_s3.py",
     *COPY_EXCEPTIONS,

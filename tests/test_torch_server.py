@@ -62,11 +62,14 @@ def _fields():
         pb.Field(name="price", type=pb.FieldType.FLOAT, storeDocValues=True, sort=True),
         pb.Field(name="ts", type=pb.FieldType.FLOAT, storeDocValues=True, sort=True),
         pb.Field(name="tag", type=pb.FieldType.ATOM, storeDocValues=True),
+        pb.Field(name="loc", type=pb.FieldType.LAT_LON, storeDocValues=True),
     ]
 
 
 def _docs() -> list[dict]:
     rng = np.random.default_rng(SEED)
+    # a point per doc inside one metro-sized box, from its own stream
+    loc_rng = np.random.default_rng(SEED + 1)
     p = 1.0 / np.arange(1, len(WORDS) + 1)
     p /= p.sum()
     docs = []
@@ -77,6 +80,8 @@ def _docs() -> list[dict]:
                "tag": f"t{int(rng.integers(0, 5))}"}
         if i % 17:
             doc["price"] = str(float(np.float32(round(rng.uniform(0, 100), 2))))
+        doc["loc"] = [str(round(float(loc_rng.uniform(37.6, 37.9)), 6)),
+                      str(round(float(loc_rng.uniform(-122.55, -122.25)), 6))]
         docs.append(doc)
     return docs
 
@@ -85,7 +90,7 @@ def _add_requests(docs):
     for d in docs:
         req = pb.AddDocumentRequest(indexName=INDEX)
         for name, value in d.items():
-            req.fields[name].value.append(value)
+            req.fields[name].value.extend(value if isinstance(value, list) else [value])
         yield req
 
 
@@ -199,7 +204,54 @@ REQUESTS = {
     "paged": lambda: _match("common alpha beta", topHits=12, startHit=5,
                             retrieveFields=["doc_id", "body"]),
     "search_v2": lambda: _match("haystack merge", topHits=10),
+    # the general evaluator (ROADMAP item 8)
+    "geo_radius_bool": lambda: _general({"booleanQuery": {"clauses": [
+        {"occur": "MUST", "query": {"matchQuery": {"field": "body", "query": "common alpha"}}},
+        {"occur": "FILTER", "query": {"geoRadiusQuery": {
+            "field": "loc", "center": {"latitude": 37.75, "longitude": -122.4},
+            "radius": "8 km"}}}]}}, topHits=15, retrieveFields=["doc_id", "loc"]),
+    "function_score_script": lambda: _general({"functionScoreQuery": {
+        "query": {"matchQuery": {"field": "body", "query": "common beta"}},
+        "script": {"source": "_score * log(price + 1)"}}}, topHits=15),
+    "virtual_fields": lambda: _virtual(_match("gamma delta", topHits=10)),
+    # a range facet keeps the request off the in-dispatch reduce, so the
+    # searcher answers with score-free arrays beside the virtual field
+    "virtual_fields_range_facet": lambda: _price_ranges(
+        _virtual(_match("common alpha", topHits=10))),
+    "two_component_sort": lambda: _sorted(_sorted(_match("common", topHits=20),
+                                                  "tag"), "ts"),
+    "terminate_after": lambda: _match("common alpha", topHits=10, terminateAfter=7),
+    "timeout_sec": lambda: _match("common beta gamma", topHits=10, timeoutSec=1000.0),
+    "prefix": lambda: _general({"prefixQuery": {"field": "body", "prefix": "ha"}},
+                               topHits=10, retrieveFields=["doc_id"]),
 }
+
+
+def _general(query: dict, **kw) -> pb.SearchRequest:
+    from google.protobuf.json_format import ParseDict
+
+    req = pb.SearchRequest(indexName=INDEX, **kw)
+    ParseDict(query, req.query)
+    return req
+
+
+def _virtual(req: pb.SearchRequest) -> pb.SearchRequest:
+    vf = req.virtualFields.add()
+    vf.name = "price_x2"
+    vf.script.source = "price * 2 + ts / 1000"
+    req.retrieveFields.extend(["doc_id", "price_x2"])
+    return req
+
+
+def _price_ranges(req: pb.SearchRequest) -> pb.SearchRequest:
+    facet = req.facets.add()
+    facet.dim = "price"
+    facet.name = "price_ranges"
+    for label, lo, hi in (("low", 0, 40), ("high", 41, 1000)):
+        r = facet.numericRange.add()
+        r.label, r.min, r.max = label, lo, hi
+        r.minInclusive = r.maxInclusive = True
+    return req
 
 
 def _plain(resp: pb.SearchResponse) -> dict:
@@ -372,7 +424,7 @@ def _rescored():
     return req
 
 
-@pytest.mark.parametrize("make, item", [(_phrase, "item 8"), (_knn, "item 12"),
+@pytest.mark.parametrize("make, item", [(_phrase, "item 10"), (_knn, "item 12"),
                                         (_rescored, "item 9")],
                          ids=["phrase", "knn", "rescorer"])
 def test_unported_shapes_answer_unimplemented(servers, make, item):
@@ -382,27 +434,30 @@ def test_unported_shapes_answer_unimplemented(servers, make, item):
 
 def test_unported_imports_answer_unimplemented(servers):
     """A schema VIRTUAL field reaches fetch's lazy import of the script
-    evaluator, which is not ported: UNIMPLEMENTED naming item 8, not
-    INTERNAL."""
-    client = servers["port"][1]
-    client.create_index("virt")
-    client.register_fields(pb.FieldDefRequest(indexName="virt", field=[
-        pb.Field(name="body", type=pb.FieldType.TEXT, search=True),
-        pb.Field(name="price", type=pb.FieldType.FLOAT, storeDocValues=True),
-        pb.Field(name="twice", type=pb.FieldType.VIRTUAL,
-                 script=pb.Script(lang="js", source="price * 2"))]))
-    client.start_index(pb.StartIndexRequest(indexName="virt", mode=pb.Mode.STANDALONE))
-    req = pb.AddDocumentRequest(indexName="virt")
-    req.fields["body"].value.append("alpha")
-    req.fields["price"].value.append("3")
-    client.add_documents(iter([req]))
-    client.refresh("virt")
-    search = pb.SearchRequest(indexName="virt", topHits=5, retrieveFields=["twice"])
-    search.query.matchQuery.field = "body"
-    search.query.matchQuery.query = "alpha"
-    details = _unimplemented(client, search)
-    assert "script" in details and "item 8" in details, details
-    client.stop_index("virt")
+    evaluator. Before the general evaluator was ported the port answered
+    UNIMPLEMENTED naming item 8; now it answers as the reference does."""
+    answers = {}
+    for side in ("ref", "port"):
+        client = servers[side][1]
+        client.create_index("virt")
+        client.register_fields(pb.FieldDefRequest(indexName="virt", field=[
+            pb.Field(name="body", type=pb.FieldType.TEXT, search=True),
+            pb.Field(name="price", type=pb.FieldType.FLOAT, storeDocValues=True),
+            pb.Field(name="twice", type=pb.FieldType.VIRTUAL,
+                     script=pb.Script(lang="js", source="price * 2"))]))
+        client.start_index(pb.StartIndexRequest(indexName="virt", mode=pb.Mode.STANDALONE))
+        req = pb.AddDocumentRequest(indexName="virt")
+        req.fields["body"].value.append("alpha")
+        req.fields["price"].value.append("3")
+        client.add_documents(iter([req]))
+        client.refresh("virt")
+        search = pb.SearchRequest(indexName="virt", topHits=5, retrieveFields=["twice"])
+        search.query.matchQuery.field = "body"
+        search.query.matchQuery.query = "alpha"
+        answers[side] = _plain(client.search(search))
+        client.stop_index("virt")
+    assert answers["port"] == answers["ref"]
+    assert answers["port"]["hits"][0]["fields"]["twice"]["fieldValue"][0]["doubleValue"] == 6.0
 
 
 def test_unported_rpcs_answer_unimplemented(servers):

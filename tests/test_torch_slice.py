@@ -161,11 +161,17 @@ def test_fused_refusal_goes_to_merge(searchers, monkeypatch):
 
 
 def test_unported_shapes_raise(searchers):
-    _ref, port = searchers
-    node = parse_query({"booleanQuery": {"clauses": [
-        {"occur": "MUST", "query": QUERIES["or_head"]}]}})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        port.search(node, 10)
+    """A shape the fast paths refuse (a boolean of one scored clause) is
+    served by the general evaluator since it was ported: bit-equal to the
+    reference's answer. A phrase query still raises, naming item 10."""
+    ref, port = searchers
+    spec = {"booleanQuery": {"clauses": [{"occur": "MUST", "query": QUERIES["or_head"]}]}}
+    ref_td = ref.search(ref_parse_query(spec), 10)
+    assert ref_td.total_hits > 0
+    _assert_same(ref_td, port.search(parse_query(spec), 10), "merge", "boolean")
+    phrase = {"phraseQuery": {"field": "body", "terms": ["common", "alpha"]}}
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        port.search(parse_query(phrase), 10)
 
 
 def test_port_ingest_matches_reference_segments(waves, searchers):
@@ -204,10 +210,10 @@ def test_port_writer_refuses_unported_operations():
         writer.add_documents([{"id": "1", "body": "common beta"}])
     with pytest.raises(NotImplementedError):
         writer.delete_by_id(["1"])
-    fds = {**_field_defs(), "loc": create_field_def("loc", {"type": "LAT_LON",
-                                                             "storeDocValues": True})}
+    fds = {**_field_defs(), "shape": create_field_def("shape", {"type": "POLYGON",
+                                                                 "storeDocValues": True})}
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        PortWriter(fds, "cpu").add_documents([{"loc": ["37.7", "-122.4"]}])
+        PortWriter(fds, "cpu").add_documents([{"shape": "abc"}])
 
 
 def test_cuda_device_without_card_raises():
