@@ -161,6 +161,36 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the peak device memory, the query cache's entries and device bytes and
    the phase's seconds.
 
+13. the write path on the card: a PRIMARY node over phase 4's index with an
+   _ID field (and a stored revision marker) added, the commit also opened
+   on the CPU, where every operation is replayed through the port's writer
+   (the plain versions; the two segment lists must come out equal). Over
+   gRPC: deleteByQuery of one tag ordinal and of a price range (about 1%
+   each), refresh; 2,000 id'd docs (phase 7's documents with config #3's
+   fields) in 4 addDocuments + refresh rounds (tiered merges), delete of
+   200 ids and 200 upserts, refresh, UPDATE_DOC_VALUES of price and ts of
+   200 more (values above every drawn one), refresh. Each refresh is split
+   into the writer's refresh, the publish, the view and head-row rebuild
+   and the first single after it. With the launch counters reset just
+   before and read just after: phase 5's 8 singles (fused), its first B=32
+   batch (merge path, alternating branch), phase 8's singles and batches
+   under NRT_FAST_PATH=bucket and the merge path, phase 9's config #3
+   forms over gRPC, four general kinds (range filter, geo radius, function
+   score, prefix), and the updated values in a range, a ts sort and a
+   price sum; head_scores, near_stages, far_stage, far_pair_stage,
+   gather_runs, finish_mask and bucket_rank must all launch. No answer
+   may hold a deleted doc, a deleted id or an upserted doc's old version.
+   Each against the CPU replay's general evaluator (exact f32): fused
+   within FUSED_REL, merge within MERGE_REL with hits exact, config #3
+   sorts and facets exact, the general kinds bit-equal (geo flips only
+   within 4 ulps of the radius); the bucket path within one quantum per
+   term of the card's merge path. Then commit, stopIndex, startIndex: 21
+   answers bit for bit; and a REPLICA node installs the point (del_gen > 0
+   and _dv segments) and answers those 21 requests as the primary does.
+   Prints the deleteByQuery seconds, the refresh splits, fused B=1 p50 and
+   merge B=32 before and after the deletes, bucket B=32 after them, the
+   peak device memory and the phase's seconds.
+
 Launches per main-path batch: the counters around one fast_search_batch
 of the first B=32 batch (merge path), one B=1 query (fused path) and, for
 the bucket kernels, one bucket batch.
@@ -171,7 +201,7 @@ run, or phase 8's for bucket_rank; ``launches_config3`` from phase 9's, and
 head_scores one fused config-#3 single; ``launches_served`` from phase 10's
 served searches, ``launches_replica`` from phase 11's searches sent to the
 replica alone, ``launches_general`` from phase 12's timeout and arrays
-searches),
+searches, ``launches_write`` from phase 13's searches on the deleted index),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
@@ -2760,12 +2790,13 @@ class SyncCount:
 def geo_distances(s) -> np.ndarray:
     """Each doc's f32 haversine distance to RADIUS's center, computed on
     the device of ``s``'s segments as the engine computes it, in global
-    doc order."""
+    doc order (inf in a segment without a ``loc`` column)."""
     from nrtsearch_tpu_torch.ops.masks import haversine_meters
 
     return np.concatenate([
         haversine_meters(seg.doc_values["loc"].values, RADIUS[0], RADIUS[1])
-        .cpu().numpy()[: seg.num_docs] for seg in s.segments])
+        .cpu().numpy()[: seg.num_docs] if "loc" in seg.doc_values
+        else np.full(seg.num_docs, np.inf, np.float32) for seg in s.segments])
 
 
 def _cache_report() -> tuple[int, int]:
@@ -3082,6 +3113,565 @@ def general_served(client, searcher, columns, terms, names) -> int:
     return n
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the write path on the card
+# ---------------------------------------------------------------------------
+
+# the fields phase 13's node adds to the served index: an _ID for upserts,
+# deletes by id and doc-value updates, and a stored revision marker that
+# tells an upserted doc's new version from its old one
+WRITE_FIELDS = [("doc_id", {"type": "_ID", "store": True, "storeDocValues": True}),
+                ("rev", {"type": "ATOM", "store": True})]
+WRITE_DOCS = 2000          # id'd docs, added in WRITE_CHUNKS addDocuments + refresh rounds
+WRITE_CHUNKS = 4
+WRITE_OPS = 200            # deletes by id, upserts and doc-value updates, each
+DBQ_TAG = 7                # deleteByQuery: one tag ordinal (about 1% of the docs)
+DBQ_PRICE = (500.0, 510.0)  # and a price range (about 1%), bounds inclusive
+UPDATED_PRICE = 5000.0     # above every drawn price: a range finds the updated docs
+UPDATED_TS = 2e9           # above every drawn ts; UPDATED_TS + 128 i is an f32 number
+WRITE_KERNELS = ("head_scores", "near_stages", "far_stage", "far_pair_stage",
+                 "gather_runs", "finish_mask", "bucket_rank")
+GENERAL_WRITE_KINDS = ("columns", "geo_radius", "function_score", "prefix")
+WRITE_BRANCH = {"alt": 1, "plain": 0}   # the B=32 batch's merge network on the card
+
+
+def _write_docs() -> tuple[list, list, list, list]:
+    """Phase 7's documents with config #3's fields and an id each, and the
+    ids deleted, the upserts (new bodies, rev 1) and the doc-value updates
+    (price and ts) of three disjoint groups of WRITE_OPS."""
+    docs = _served_ingest_docs(WRITE_DOCS)
+    for i, d in enumerate(docs):
+        d.update(doc_id=f"w{i}", rev="0")
+    n = WRITE_OPS
+    deleted = [f"w{i}" for i in range(n)]
+    upserts = [dict(docs[i], body="needle upserted " + docs[i]["body"], rev="1")
+               for i in range(n, 2 * n)]
+    updates = [{"doc_id": f"w{i}", "price": str(UPDATED_PRICE + j),
+                "ts": str(UPDATED_TS + 128 * j)} for j, i in enumerate(range(2 * n, 3 * n))]
+    return docs, deleted, upserts, updates
+
+
+def _requests_of(docs, request_type=None):
+    from nrtsearch_tpu_torch.gen import pb
+
+    for req in _add_requests(docs):
+        if request_type is not None:
+            req.requestType = request_type
+        yield req
+
+
+def _layout(segments) -> list:
+    """Per segment: kind (flushed, _m merged, _dv updated), docs, deleted
+    docs, del_gen and the live mask's bytes."""
+    import re
+
+    return [(re.sub(r"^seg_[0-9a-f]+_\d+", "", s.seg_id), s.num_docs, s.del_count, s.del_gen,
+             np.asarray(s.host_live).tobytes()) for s in segments]
+
+
+def _strip_state(resp) -> bytes:
+    """A response without timings and search state: bit for bit across nodes."""
+    resp = type(resp).FromString(resp.SerializeToString())
+    resp.ClearField("diagnostics")
+    resp.ClearField("searchState")
+    return resp.SerializeToString(deterministic=True)
+
+
+def phase_write(dev, corpus, columns, searcher, singles, batches, card: str) -> dict:
+    """Phase 13, the write path on the card (see the module docstring).
+    Returns the launches of the phase's searches and its timings."""
+    import shutil
+    import tempfile
+
+    from google.protobuf.json_format import ParseDict
+
+    from nrtsearch_tpu_torch import kernels
+    from nrtsearch_tpu_torch.core.directory import commit_segments, open_commit
+    from nrtsearch_tpu_torch.core.searcher import Searcher, SortSpec
+    from nrtsearch_tpu_torch.core.writer import IndexWriter
+    from nrtsearch_tpu_torch.gen import pb
+    from nrtsearch_tpu_torch.models.synthetic import config3_query
+    from nrtsearch_tpu_torch.ops import merge_scoring
+    from nrtsearch_tpu_torch.query import parse_query
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="write_")
+    state, discovery = f"{root}/state", f"{root}/primary.json"
+    nodes = []
+    warm_s: list = []
+    orig_warm = Searcher.warm
+
+    def timed_warm(s, fields):
+        # the view and head-row rebuild a refresh starts off the request path
+        t = time.perf_counter()
+        orig_warm(s, fields)
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t)
+
+    names = columns["tag"][2]
+    tag_vals, tag_present = columns["tag"][:2]
+    price_vals, price_present = columns["price"][:2]
+    lo, hi = DBQ_PRICE
+    base_deleted = ((tag_present & (tag_vals == DBQ_TAG))
+                    | (price_present & (price_vals >= lo) & (price_vals <= hi)))
+    docs, deleted, upserts, updates = _write_docs()
+    deleted_ids, upserted_ids = set(deleted), {d["doc_id"] for d in upserts}
+    Searcher.warm = timed_warm
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # 1. a PRIMARY node over phase 4's index, with an _ID field
+        primary, pc = _node(root, "primary", dev=dev, state=state)
+        nodes.append((primary, pc))
+        pc.create_index(SERVED_INDEX)
+        pc.register_fields(pb.FieldDefRequest(indexName=SERVED_INDEX, field=[
+            pb.Field(name=n, **{k: (pb.FieldType.Value(v) if k == "type" else v)
+                                for k, v in spec.items()})
+            for n, spec in SERVED_FIELDS + WRITE_FIELDS]))
+        index_dir = os.path.join(primary.config.index_dir,
+                                 primary.global_state.index_ids[SERVED_INDEX])
+        commit_segments(searcher.segments, index_dir, gen=1, version=1, primary_gen=1)
+        ls = pb.LiveSettingsV2Request(indexName=SERVED_INDEX)
+        ls.liveSettings.maxMergedSegmentMB.value = 1
+        ls.liveSettings.segmentsPerTier.value = 6
+        ls.liveSettings.maxRefreshSec.value = 3600.0
+        pc.live_settings_v2(ls)
+        pc.start_index(pb.StartIndexRequest(indexName=SERVED_INDEX, mode=pb.Mode.PRIMARY,
+                                            primaryGen=1))
+        rt = primary.global_state.runtimes[SERVED_INDEX]
+        with open(discovery, "w") as f:
+            json.dump({"host": "localhost", "port": primary.replication_port}, f)
+        base_segs = [(s.seg_id, s.num_docs) for s in rt.searcher.segments]
+        fds = rt.field_defs
+
+        # the oracle: the same commit on the CPU, every operation replayed
+        # through the port's writer there (its plain versions)
+        t = time.perf_counter()
+        _m, cpu_segs = open_commit(index_dir, "cpu")
+        cpu_w = IndexWriter(fds, "cpu")
+        cpu_w.install_segments(cpu_segs)
+        cpu_w.segments_per_tier = rt.writer.segments_per_tier
+        cpu_w.max_merged_docs = rt.writer.max_merged_docs
+        log(f"write: the commit opened on the CPU in {time.perf_counter() - t:.2f} s; the "
+            f"node's writer: segmentsPerTier {rt.writer.segments_per_tier}, max merged docs "
+            f"{rt.writer.max_merged_docs}")
+
+        def timings(label: str, bucket: bool = False) -> dict:
+            s = rt.searcher
+            s.search(_match(singles[0]), TOP_K)
+            lat1 = []
+            for _ in range(3):
+                for q in singles:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    s.search(_match(q), TOP_K)
+                    torch.cuda.synchronize()
+                    lat1.append(time.perf_counter() - t)
+            out = {"fused_p50": 1e3 * float(np.median(lat1))}
+            paths = ["merge", "bucket"] if bucket else ["merge"]
+            for path in paths:
+                lat = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    _with_path(path, lambda: s.fast_search_batch(
+                        [s.fast_query_spec(_match(q)) for q in batches[0]], TOP_K))
+                    torch.cuda.synchronize()
+                    lat.append(time.perf_counter() - t)
+                out[f"{path}_b32"] = 1e3 * float(np.median(lat))
+            log(f"write {label}: fused B=1 p50 {out['fused_p50']:.2f} ms (n={len(lat1)}), "
+                + ", ".join(f"{p} B={BATCH} p50 {out[f'{p}_b32']:.2f} ms (n=3)" for p in paths)
+                + f" | {card}")
+            return out
+
+        before = timings("before the deletes")
+
+        def join_warm() -> None:
+            if rt._warm_thread is not None:
+                rt._warm_thread.join()
+
+        def refresh(label: str) -> dict:
+            """The refresh RPC, split: the writer's refresh, the rest of the
+            RPC (publish), the view and head-row rebuild it starts, and the
+            first single after it."""
+            w = {}
+            orig = rt.writer.refresh
+
+            def timed():
+                t = time.perf_counter()
+                out = orig()
+                torch.cuda.synchronize()
+                w["s"] = time.perf_counter() - t
+                return out
+
+            rt.writer.refresh = timed
+            join_warm()
+            n_warm = len(warm_s)
+            try:
+                t = time.perf_counter()
+                pc.refresh(SERVED_INDEX)
+                rpc_s = time.perf_counter() - t
+                join_warm()
+                total_s = time.perf_counter() - t
+            finally:
+                del rt.writer.refresh
+            t = time.perf_counter()
+            rt.searcher.search(_match(singles[0]), TOP_K)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t
+            cpu_w.refresh()
+            out = {"rpc_s": rpc_s, "writer_s": w.get("s", 0.0),
+                   "rebuild_s": sum(warm_s[n_warm:]), "total_s": total_s, "first_s": first_s}
+            log(f"write refresh {label}: {total_s:.2f} s to a warm searcher: RPC "
+                f"{rpc_s:.3f} s (writer {out['writer_s']:.3f} s, publish "
+                f"{rpc_s - out['writer_s']:.3f} s), view and head-row rebuild "
+                f"{out['rebuild_s']:.3f} s; first single after it {first_s * 1e3:.2f} ms "
+                f"| {card}")
+            return out
+
+        # 2. deleteByQuery: one tag ordinal and a price range
+        dbq = {"tag": {"termQuery": {"field": "tag", "textValue": names[DBQ_TAG]}},
+               "price": {"rangeQuery": {"field": "price", "lower": str(lo), "upper": str(hi)}}}
+        dbq_s = {}
+        for label, q in dbq.items():
+            req = pb.DeleteByQueryRequest(indexName=SERVED_INDEX)
+            ParseDict(q, req.query.add())
+            join_warm()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pc.delete_by_query(req)
+            dbq_s[label] = time.perf_counter() - t
+            # its own refresh published a searcher whose rebuild runs on
+            n_warm = len(warm_s)
+            join_warm()
+            dbq_s[f"{label} rebuild"] = sum(warm_s[n_warm:])
+            # replayed: the runtime's refresh, the match masks, delete_matches
+            cpu_w.refresh()
+            cs = Searcher(list(cpu_w.segments), fds)
+            matches = {}
+            for seg, m in zip(cs.segments, cs.match_masks(parse_query(q))):
+                ids = np.nonzero(m.numpy()[: seg.num_docs])[0]
+                if len(ids):
+                    matches[seg.seg_id] = ids
+            cpu_w.delete_matches(matches)
+        refreshes = {"delete_by_query": refresh("after deleteByQuery")}
+        n_del = sum(s.del_count for s in rt.searcher.segments)
+        if n_del != int(base_deleted.sum()):
+            raise AssertionError(f"write: deleteByQuery deleted {n_del} docs, the columns "
+                                 f"say {int(base_deleted.sum())}")
+        log(f"write deleteByQuery: tag {names[DBQ_TAG]} {dbq_s['tag']:.3f} s, price "
+            f"[{lo}, {hi}] {dbq_s['price']:.3f} s (its refresh published the tag's "
+            f"deletes; their view and head-row rebuild {dbq_s['price rebuild']:.3f} s ran "
+            f"after the RPC); {n_del} docs deleted "
+            f"({100 * n_del / NUM_DOCS:.2f}%) | {card}")
+        after_dbq = timings("after the deletes", bucket=True)
+
+        # 3. id'd docs: adds (tiered merges), deletes by id, upserts, updates
+        step = WRITE_DOCS // WRITE_CHUNKS
+        t = time.perf_counter()
+        for c in range(WRITE_CHUNKS):
+            chunk = docs[c * step:(c + 1) * step]
+            pc.add_documents(_requests_of(chunk))
+            cpu_w.add_documents([dict(d) for d in chunk])
+            refreshes[f"add {c}"] = refresh(f"after adding docs {c * step}-{(c + 1) * step}")
+        add_s = time.perf_counter() - t
+        req = pb.AddDocumentRequest(indexName=SERVED_INDEX)
+        req.fields["doc_id"].value.extend(deleted)
+        t = time.perf_counter()
+        pc.delete(req)
+        del_s = time.perf_counter() - t
+        t = time.perf_counter()
+        pc.add_documents(_requests_of(upserts))
+        ups_s = time.perf_counter() - t
+        cpu_w.delete_by_id(deleted)
+        cpu_w.add_documents([dict(d) for d in upserts])
+        refreshes["writes"] = refresh("after deletes by id and upserts")
+        # the updates get a refresh of their own: one that adds a segment
+        # would merge the new _dv segment away
+        t = time.perf_counter()
+        pc.add_documents(_requests_of(updates, pb.IndexingRequestType.UPDATE_DOC_VALUES))
+        upd_s = time.perf_counter() - t
+        cpu_w.update_doc_values([dict(d) for d in updates])
+        refreshes["updates"] = refresh("after doc-value updates")
+        st = rt.stats()
+        segs = rt.writer.segments
+        if _layout(segs) != _layout(cpu_w.segments):
+            raise AssertionError("write: the card's segments differ from the CPU replay's")
+        if [(s.seg_id, s.num_docs) for s in segs[: len(base_segs)]] != base_segs:
+            raise AssertionError("write: the 1M-doc segments moved")
+        if st["merges"] == 0 or not any(s.del_gen > 0 for s in segs) or not any(
+                s.seg_id.endswith("_dv") for s in segs):
+            raise AssertionError(f"write: no merge, no del_gen > 0 or no _dv segment: "
+                                 f"{[lay[:4] for lay in _layout(segs)]} {st}")
+        log(f"write ops: {WRITE_DOCS} id'd docs in {WRITE_CHUNKS} rounds {add_s:.2f} s "
+            f"({st['merges']} merges); delete of {len(deleted)} ids {del_s:.3f} s, "
+            f"{len(upserts)} upserts {ups_s:.3f} s, {len(updates)} UPDATE_DOC_VALUES "
+            f"{upd_s:.3f} s; {len(segs)} segments "
+            f"{[(k, n, d, g) for k, n, d, g, _l in _layout(segs)]} equal to the CPU replay's "
+            f"| {card}")
+
+        # 4. the answers, every path, with the launch counters around them
+        eng = rt.searcher
+        bases = np.asarray(eng.bases)
+        cpu = Searcher(list(cpu_w.segments), fds)
+        cpu._fast_text_search = cpu._fast_filtered_text = lambda *a, **k: None
+
+        def check_live(ords, ctx: str) -> None:
+            """No deleted base doc, no deleted id and no replaced version."""
+            seen = set()
+            for g in ords:
+                g = int(g)
+                if g < NUM_DOCS:
+                    if base_deleted[g]:
+                        raise AssertionError(f"{ctx}: deleted doc {g} answered")
+                    continue
+                si = int(np.searchsorted(bases, g, side="right")) - 1
+                row = eng.segments[si].stored[g - int(bases[si])]
+                did = row.get("doc_id")
+                if did in deleted_ids or did in seen or (
+                        did in upserted_ids and row.get("rev") != "1"):
+                    raise AssertionError(f"{ctx}: {did} (rev {row.get('rev')}) answered")
+                seen.add(did)
+
+        view = eng.packed_view("body")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        paths0 = dict(view.path_counts)
+        fused_out = [eng.search(_match(q), TOP_K) for q in singles]
+        fused_paths = view.path_counts["fused"] - paths0["fused"]
+        branch0, paths1 = dict(merge_scoring.MERGE_BRANCH), dict(view.path_counts)
+        merge_out = eng.fast_search_batch([eng.fast_query_spec(_match(q))
+                                           for q in batches[0]], TOP_K)
+        branch = {k: merge_scoring.MERGE_BRANCH[k] - branch0[k] for k in branch0}
+        batch_rel = (MERGE_REL if view.path_counts["merge"] - paths1["merge"] == BATCH
+                     else FUSED_REL)
+        merge_all = _with_path("merge", lambda: _timed_searches(eng, singles, batches, reps=1))
+        b0 = view.path_counts["bucket"]
+        bucket = _with_path("bucket", lambda: _timed_searches(eng, singles, batches, reps=1))
+        bucket_specs = view.path_counts["bucket"] - b0
+        c3 = config3_singles(corpus, searcher)
+        trees = [config3_query(terms, names, SEED + i) for i, (_p, terms) in enumerate(c3)]
+        forms = {
+            "scored": lambda i: _request(trees[i]),
+            "sorted_ts": lambda i: _sorted_request(trees[i]),
+            "faceted": lambda i: _faceted_request(_grouped_filters(trees[i])),
+        }
+        c3_out, c3_paths = {}, {}
+        for name, make in forms.items():
+            for i in range(len(trees)):
+                before_p = dict(view.path_counts)
+                c3_out[(name, i)] = pc.search(make(i))
+                moved = [k for k in before_p if view.path_counts[k] != before_p[k]]
+                c3_paths[(name, i)] = moved[0] if moved else "general"
+        gq = general_queries(general_terms(corpus), names)
+        general_out = {k: eng.search(parse_query(gq[k][0]), TOP_K) for k in GENERAL_WRITE_KINDS}
+        common = _match_dict(["common"])
+        upd_q = {"rangeQuery": {"field": "price", "lower": str(UPDATED_PRICE)}}
+        upd_range = pc.search(_request(upd_q, k=2 * WRITE_OPS, retrieveFields=["doc_id"]))
+        ts_req = _request(common, k=20)
+        sf = ts_req.querySort.fields.sortedFields.add()
+        sf.fieldName, sf.reverse = "ts", True
+        upd_sorted = pc.search(ts_req)
+        upd_facet = pc.search(_faceted_request(common))
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        missing = [k for k in WRITE_KERNELS if launches.get(k, 0) == 0]
+        log(f"write: launches {launches}; fused singles {fused_paths} of {len(singles)}, "
+            f"B={BATCH} merge branch {branch}, bucket specs {bucket_specs}, config #3 paths "
+            f"{sorted(set(c3_paths.values()))} | {card}")
+        if missing:
+            raise AssertionError(f"write: kernels not launched on the deleted index: {missing}")
+        if fused_paths != len(singles) or branch != WRITE_BRANCH:
+            raise AssertionError(f"write: singles on the fused path {fused_paths}, the batch "
+                                 f"on {branch}")
+        n_bucket = len(singles) + sum(len(b) for b in batches)
+        if bucket_specs != n_bucket:
+            raise AssertionError(f"write: {bucket_specs} of {n_bucket} specs on the bucket path")
+
+        # every answer against the deleted and replaced docs, and the CPU copy
+        for ctx, td in ([(f"fused {q}", o) for q, o in zip(singles, fused_out)]
+                        + [(f"merge {q}", o) for q, o in zip(batches[0], merge_out)]
+                        + [(f"bucket {q}", o) for q, o in zip(
+                            singles + [q for b in batches for q in b],
+                            bucket["single_out"] + [o for b in bucket["batch_out"] for o in b])]
+                        + [(f"general {k}", o) for k, o in general_out.items()]):
+            check_live([h.global_ord for h in td.hits], ctx)
+        for (name, i), resp in c3_out.items():
+            check_live([h.luceneDocId for h in resp.hits], f"config3 {name} {i}")
+        for resp in (upd_range, upd_sorted, upd_facet):
+            check_live([h.luceneDocId for h in resp.hits], "updated values")
+
+        t = time.perf_counter()
+        swaps, worst = 0, {"fused": 0.0, "merge": 0.0}
+        for q, td in zip(singles, fused_out):
+            want = cpu.search(_match(q), TOP_K)
+            ex = (np.array([h.score for h in want.hits], np.float32),
+                  np.array([h.global_ord for h in want.hits]), want.total_hits)
+            swaps += _check_topk(td, ex, FUSED_REL, f"write fused {q}")
+            worst["fused"] = max(worst["fused"], _max_rel(td, ex))
+        for q, td in zip(batches[0], merge_out):
+            want = cpu.search(_match(q), TOP_K)
+            ex = (np.array([h.score for h in want.hits], np.float32),
+                  np.array([h.global_ord for h in want.hits]), want.total_hits)
+            swaps += _check_topk(td, ex, batch_rel, f"write merge {q}")
+            worst["merge"] = max(worst["merge"], _max_rel(td, ex))
+        quanta, shared = 0.0, 0
+        pairs = list(zip(singles, bucket["single_out"], merge_all["single_out"]))
+        for qs, bo, mo in zip(batches, bucket["batch_out"], merge_all["batch_out"]):
+            pairs += list(zip(qs, bo, mo))
+        for q, b, mres in pairs:
+            spec = eng.fast_query_spec(_match(q))
+            if _shares_scale_bound(view, spec):
+                shared += 1
+                if (b.total_hits, b.relation) != (mres.total_hits, mres.relation):
+                    raise AssertionError(f"write bucket {q}: hits {b.total_hits} vs merge "
+                                         f"{mres.total_hits}")
+                continue
+            scale = float(view.bucket_plan([spec])["scales"][0])
+            quanta = max(quanta, scale * _check_bucket_answer(
+                b, mres, len(q) / scale, f"write bucket {q}"))
+        for i, (_p, terms) in enumerate(c3):
+            node = parse_query(trees[i])
+            want = cpu.search(node, TOP_K)
+            path = c3_paths[("scored", i)]
+            rel = FUSED_REL if path == "fused" else MERGE_REL
+            ex = (np.array([h.score for h in want.hits], np.float32),
+                  np.array([h.global_ord for h in want.hits]), want.total_hits)
+            swaps += _check_topk(_served_td(c3_out[("scored", i)]), ex, rel,
+                                 f"write config3 scored {terms} ({path})")
+            want = cpu.search(node, TOP_K, sort=SortSpec("ts", reverse=True))
+            _check_sorted(_served_td(c3_out[("sorted_ts", i)], "ts"), {
+                "hits": want.total_hits,
+                "scores": np.array([h.sort_key for h in want.hits], np.float32),
+                "docs": np.array([h.global_ord for h in want.hits])},
+                f"write config3 sorted {terms}")
+            _check_facet(cpu, node, c3_out[("faceted", i)], f"write config3 faceted {terms}")
+        d_cpu = geo_distances(cpu)
+        radius32 = np.float32(RADIUS[2])
+        flip_ok = set(np.nonzero(np.abs(d_cpu - radius32)
+                                 <= GEO_FLIP_ULPS * np.spacing(radius32))[0].tolist())
+        flips = 0
+        for k in GENERAL_WRITE_KINDS:
+            node = parse_query(gq[k][0])
+            masks = None
+            if gq[k][2] == "geo":
+                masks = (_global_mask(eng, node), _global_mask(cpu, node))
+            flips += len(_check_general(f"write {k}", gq[k][2], general_out[k],
+                                        cpu.search(node, TOP_K), masks=masks,
+                                        flip_ok=flip_ok if masks is not None else frozenset()))
+        # the updated values in a filter, a sort and a facet
+        upd_ids = {d["doc_id"] for d in updates}
+        got = {h.fields["doc_id"].fieldValue[0].textValue for h in upd_range.hits}
+        if upd_range.totalHits.value != len(upd_ids) or got != upd_ids:
+            raise AssertionError(f"write: price >= {UPDATED_PRICE} answers "
+                                 f"{upd_range.totalHits.value} docs, not the updated ones")
+        want = cpu.search(parse_query(common), 20, sort=SortSpec("ts", reverse=True))
+        keys = [h.sortedFields["ts"].fieldValue[0].doubleValue for h in upd_sorted.hits]
+        if ([h.luceneDocId for h in upd_sorted.hits] != [h.global_ord for h in want.hits]
+                or keys != [h.sort_key for h in want.hits]
+                or keys[0] != UPDATED_TS + 128 * (WRITE_OPS - 1)):
+            raise AssertionError(f"write: the ts sort does not lead with the updated ts: {keys[:3]}")
+        total = _check_facet(cpu, parse_query(common), upd_facet, "write facet of 'common'")
+        if total < UPDATED_PRICE * WRITE_OPS:
+            raise AssertionError(f"write: the price sum {total} misses the updated prices")
+        log(f"write exact: against the CPU replay (its general evaluator, exact f32): "
+            f"{len(singles)} fused singles within {FUSED_REL} (worst {worst['fused']:.3g}), "
+            f"{len(merge_out)} merge answers within {batch_rel} (worst {worst['merge']:.3g}), "
+            f"hits exact, near-tie swaps {swaps}; {len(pairs)} bucket answers within one "
+            f"quantum per term of the merge path (worst {quanta:.3f} quanta; {shared} shared "
+            f"scale bounds held to hit counts); {len(trees)} x {len(forms)} config #3 "
+            f"answers, sorts and facets exact; {len(GENERAL_WRITE_KINDS)} general kinds "
+            f"bit-equal ({flips} geo flips within {GEO_FLIP_ULPS} ulps); updated price and "
+            f"ts in a range, a sort and a facet; no deleted or replaced doc in any answer "
+            f"({time.perf_counter() - t:.1f} s) | {card}")
+        after = timings("after every write", bucket=True)
+
+        # 5. commit, stopIndex, startIndex: bit for bit
+        again = ([_request(_match_dict(q)) for q in singles]
+                 + [make(i) for make in forms.values() for i in (0, len(trees) - 1)]
+                 + [_request(gq[k][0]) for k in GENERAL_WRITE_KINDS]
+                 + [_request(upd_q, k=2 * WRITE_OPS), ts_req, _faceted_request(common)])
+        answers = [_strip(pc.search(r)) for r in again]
+        pc.commit(SERVED_INDEX)
+        pc.stop_index(SERVED_INDEX)
+        t = time.perf_counter()
+        pc.start_index(pb.StartIndexRequest(indexName=SERVED_INDEX, mode=pb.Mode.PRIMARY,
+                                            primaryGen=1))
+        reopen_s = time.perf_counter() - t
+        rt = primary.global_state.runtimes[SERVED_INDEX]
+        if [_strip(pc.search(r)) for r in again] != answers:
+            raise AssertionError("write: after commit, stopIndex and startIndex the answers "
+                                 "differ")
+        log(f"write restart: commit, stopIndex, startIndex ({reopen_s:.2f} s): {len(again)} "
+            f"answers bit for bit")
+
+        # 6. a replica installs the point: del_gen > 0 and _dv segments
+        replica, rc = _node(root, "replica", dev=dev, state=state)
+        nodes.append((replica, rc))
+        t = time.perf_counter()
+        rc.start_index(pb.StartIndexRequest(indexName=SERVED_INDEX, mode=pb.Mode.REPLICA,
+                                            primaryDiscoveryFile=discovery))
+        sync_s = time.perf_counter() - t
+        r_rt = replica.global_state.runtimes[SERVED_INDEX]
+        r_segs = r_rt.searcher.segments
+        if (_layout(r_segs) != _layout(rt.searcher.segments)
+                or not any(s.del_gen > 0 for s in r_segs)
+                or not any(s.seg_id.endswith("_dv") for s in r_segs)):
+            raise AssertionError("write: the replica's point lacks the primary's deletes or "
+                                 "updates")
+        p_ans = [_strip_state(pc.search(r)) for r in again]
+        if [_strip_state(rc.search(r)) for r in again] != p_ans:
+            raise AssertionError("write: the replica answers differently from the primary")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        seconds = time.perf_counter() - t_phase
+        log(f"write replica: initial sync {sync_s:.2f} s of a point with "
+            f"{sum(s.del_gen > 0 for s in r_segs)} segments at del_gen > 0 and "
+            f"{sum(s.seg_id.endswith('_dv') for s in r_segs)} _dv segments; "
+            f"{len(again)} answers equal to the primary's | {card}")
+        log(f"write: phase {seconds:.1f} s; peak device memory {peak / 2**30:.3f} GiB "
+            f"(phase 4's index and two 1M-doc nodes) | {card}")
+        return {"launches": launches, "seconds": seconds, "before": before,
+                "after_dbq": after_dbq, "after": after, "refreshes": refreshes,
+                "dbq_s": dbq_s}
+    finally:
+        Searcher.warm = orig_warm
+        for node, client in nodes:
+            client.close()
+            node.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _global_mask(s, node) -> np.ndarray:
+    return np.concatenate([m.cpu().numpy()[: seg.num_docs]
+                           for m, seg in zip(s.match_masks(node), s.segments)])
+
+
+def _check_facet(cpu, node, resp, ctx: str) -> float:
+    """A served tag facet and price-sum collector against the CPU copy's
+    match masks over its columns: counts equal, the sum within SUM_REL.
+    Returns the sum."""
+    counts: dict = {}
+    total = 0.0
+    for seg, mask in zip(cpu.segments, cpu.match_masks(node)):
+        mk = mask.numpy()[: seg.num_docs]
+        tag = seg.doc_values["tag"]
+        sel = mk & tag.host_present[: seg.num_docs]
+        for o, c in zip(*np.unique(tag.host_values[: seg.num_docs][sel], return_counts=True)):
+            counts[tag.ord_terms[int(o)]] = counts.get(tag.ord_terms[int(o)], 0) + int(c)
+        price = seg.doc_values.get("price")
+        if price is not None:
+            sel = mk & price.host_present[: seg.num_docs]
+            total += float(price.host_values[: seg.num_docs][sel].astype(np.float64).sum())
+    (fr,) = resp.facetResult
+    if {lv.label: int(lv.value) for lv in fr.labelValues} != counts:
+        raise AssertionError(f"{ctx}: facet counts differ from the CPU copy")
+    got = resp.collectorResults["price_sum"].doubleResult.value
+    if abs(got - total) > SUM_REL * abs(total):
+        raise AssertionError(f"{ctx}: price sum {got} vs {total}")
+    return total
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -3197,6 +3787,10 @@ def main() -> int:
     # 11. replication: a PRIMARY and a REPLICA of the same index on the card
     replication = phase_replication(dev, corpus, columns, searcher, singles, batches[0], card)
 
+    # 13. the write path: deletes, upserts and doc-value updates on a node
+    # over the same index, every path on the deleted index, a replica
+    write = phase_write(dev, corpus, columns, searcher, singles, batches, card)
+
     table = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         st = stats[name]
@@ -3213,6 +3807,7 @@ def main() -> int:
             "launches_served": served["launches"].get(name, 0),
             "launches_replica": replication["launches"].get(name, 0),
             "launches_general": general_launches.get(name, 0),
+            "launches_write": write["launches"].get(name, 0),
         })
         if name == "head_scores":
             table[-1].update({k: st[k] for k in ("parent_ms", "index_select_ms", "max_rel_err",
@@ -3227,7 +3822,8 @@ def main() -> int:
             f"({config3['per_request'].get(name, 0)} per column request), "
             f"{served['launches'].get(name, 0)} served, "
             f"{replication['launches'].get(name, 0)} served by the replica, "
-            f"{general_launches.get(name, 0)} in the general phase | {card}")
+            f"{general_launches.get(name, 0)} in the general phase, "
+            f"{write['launches'].get(name, 0)} on the deleted index | {card}")
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,11 @@ device the segments live on. The merged segment is the one the reference
 builds from the same segments: the same term ids, postings, quantized
 lengths (re-quantized, which leaves them unchanged), doc values and rows.
 
-Index sorts, vector columns and suggest entries raise
-``NotImplementedError`` (ROADMAP items 10 and 12): the port's builder makes
-none of them.
+With an index sort the merged docs are laid out in its doc-value order,
+doc id for doc id as the reference lays them out; the writer also sorts
+each flushed segment this way. Vector columns and suggest entries raise
+``NotImplementedError`` (ROADMAP items 12 and 10): the port's builder makes
+neither.
 """
 
 from __future__ import annotations
@@ -32,9 +34,11 @@ def merge_segments(
     """Merge segments, dropping deleted docs.
 
     Returns (merged_segment, remap) where ``remap[seg_id][old_local] -> new
-    local id or -1`` for deleted docs."""
-    if index_sort:
-        raise NotImplementedError("index sorts are not ported yet (ROADMAP item 10)")
+    local id or -1`` for deleted docs.
+
+    ``index_sort``: optional list of (field, reverse, missing_last); the
+    merged segment's docs follow this doc-value order. Segments holding
+    nested child docs are never sorted (blocks must stay contiguous)."""
     for seg in segments:
         if seg.vectors:
             raise NotImplementedError(
@@ -52,6 +56,9 @@ def merge_segments(
         m[live_ids] = np.arange(new_local, new_local + len(live_ids))
         new_local += len(live_ids)
         remap[seg.seg_id] = m
+
+    if index_sort and not any(_has_nested_children(s) for s in segments):
+        _apply_index_sort(segments, remap, new_local, index_sort)
 
     builder = SegmentBuilder(field_defs, segments[0].device)
     builder.num_docs = new_local
@@ -118,3 +125,55 @@ def merge_segments(
     merged = builder.flush(seg_id=new_seg_id("_m"))
     assert merged is not None
     return merged, remap
+
+
+def _has_nested_children(seg: Segment) -> bool:
+    parents = seg.parent_positions()
+    return parents is not None and len(parents) != seg.num_docs
+
+
+def _apply_index_sort(
+    segments: Sequence[Segment],
+    remap: dict[str, np.ndarray],
+    total: int,
+    index_sort: Sequence[tuple[str, bool, bool]],
+) -> None:
+    """Rewrite ``remap`` in place so new local ids follow the index sort.
+
+    Multi-key sort is a chain of stable single-key passes (last key first);
+    each pass orders by value with the key's reverse flag, then moves docs
+    missing the value to the front/back per missing_last, so missing
+    placement is direction-independent (SortField missing-value semantics)."""
+    # preliminary id -> (segment, old local)
+    origin: list[tuple[Segment, int]] = [None] * total  # type: ignore[list-item]
+    for seg in segments:
+        m = remap[seg.seg_id]
+        for old in np.nonzero(m >= 0)[0]:
+            origin[int(m[old])] = (seg, int(old))
+
+    order = list(range(total))
+    for field, reverse, missing_last in reversed(list(index_sort)):
+        keys: list = [None] * total
+        present = np.zeros(total, dtype=bool)
+        for i, (seg, old) in enumerate(origin):
+            dv = seg.doc_values.get(field)
+            if dv is None or not dv.host_present[old]:
+                continue
+            if dv.kind == DocValueKind.ORDINAL:
+                # per-segment ordinals are not comparable across segments
+                keys[i] = dv.ord_terms[int(dv.host_values[old])]
+            else:
+                keys[i] = dv.host_values[old].item()
+        present[[i for i in range(total) if keys[i] is not None]] = True
+        fallback = "" if any(isinstance(k, str) for k in keys if k is not None) else 0.0
+        order.sort(
+            key=lambda i: keys[i] if keys[i] is not None else fallback,
+            reverse=reverse,
+        )
+        order.sort(key=lambda i: (0 if present[i] else (1 if missing_last else -1)))
+    inv = np.empty(total, dtype=np.int64)
+    inv[np.asarray(order, dtype=np.int64)] = np.arange(total)
+    for seg in segments:
+        m = remap[seg.seg_id]
+        live = m >= 0
+        m[live] = inv[m[live]]

@@ -13,6 +13,11 @@ FLOAT) and ORDINAL (ATOM, TEXT, _ID) kinds, single- or multi-valued (CSR),
 and LAT_LON: f32 [capacity, 2] (lat, lon) on the device, as the reference
 keeps it, and the f64 values on the host.
 
+Segments are immutable: a delete makes a new segment with the same seg_id,
+the next del_gen and a new live mask (``with_deletes``), a doc-value update
+a new ``_dv`` segment with new columns (``with_doc_value_updates``); both
+share the postings and everything else they do not change.
+
 The builder takes TEXT, _ID, ATOM, LAT_LON and the numeric field types.
 POLYGON, VECTOR, suggest, nested (OBJECT), child and prefix fields raise
 ``NotImplementedError`` (ROADMAP item 10; item 12 for vectors). Term
@@ -21,6 +26,7 @@ positions are not kept: phrase and span queries need them (item 10).
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import uuid
 from dataclasses import dataclass, field as dc_field
@@ -31,6 +37,11 @@ import torch
 
 from nrtsearch_tpu_torch.schema.fields import DocValueKind, FieldDef, FieldType
 from nrtsearch_tpu_torch.utils.smallfloat import quantize_length
+
+# the reference's nested-document doc value (SegmentBuilder.NESTED_PATH_FIELD
+# / ROOT_PATH): the port's builder writes none, a reference commit may
+NESTED_PATH_FIELD = "_nested_path"
+ROOT_PATH = "_root"
 
 _SEG_COUNTER = itertools.count()
 _SEG_TOKEN = uuid.uuid4().hex[:8]
@@ -160,6 +171,72 @@ class Segment:
     def device(self) -> torch.device:
         return self.live.device
 
+    def parent_positions(self) -> Optional[np.ndarray]:
+        """Sorted local ids of parent (root) docs, None if no nesting info
+        (the port's builder writes none; a reference commit may carry it)."""
+        dv = self.doc_values.get(NESTED_PATH_FIELD)
+        if dv is None or not dv.ord_index:
+            return None
+        root_ord = dv.ord_index.get(ROOT_PATH)
+        if root_ord is None:
+            return None
+        return np.nonzero(dv.host_values[: self.num_docs] == root_ord)[0]
+
+    def with_doc_value_updates(self, updates: dict[str, dict[int, Any]]) -> "Segment":
+        """Copy-on-write doc-value updates (the reference's
+        ``Segment.with_doc_value_updates``). LONG and DOUBLE columns only;
+        each new column goes down through ``numeric_device_array``, so an
+        updated value can move it from f32 to f64 on the device. The result
+        carries a NEW seg_id, so persistence and replication treat it as a
+        fresh immutable segment."""
+        new_dv = dict(self.doc_values)
+        for field, per_doc in updates.items():
+            dv = new_dv.get(field)
+            if dv is None or dv.kind not in (DocValueKind.LONG, DocValueKind.DOUBLE):
+                raise ValueError(f"field {field!r} is not a numeric doc-values field")
+            host = dv.host_values.copy()
+            present = dv.host_present.copy()
+            for local, value in per_doc.items():
+                host[local] = value
+                present[local] = True
+            new_dv[field] = dataclasses.replace(
+                dv,
+                values=numeric_device_array(host, self.device),
+                present=torch.as_tensor(present, device=self.device),
+                host_values=host,
+                host_present=present,
+            )
+        return dataclasses.replace(self, doc_values=new_dv, seg_id=new_seg_id("_dv"))
+
+    def with_deletes(self, deleted_local_ids: np.ndarray) -> "Segment":
+        """A new segment with more docs marked deleted: the same seg_id, the
+        next del_gen, and a live mask rebuilt on the segment's device (the
+        postings and columns are shared, not copied).
+
+        Deleting a parent also deletes its nested children (Lucene block-join
+        delete semantics: blocks live and die together)."""
+        deleted_local_ids = np.asarray(deleted_local_ids, dtype=np.int64)
+        parents = self.parent_positions()
+        if parents is not None and len(parents):
+            expanded = set(int(d) for d in deleted_local_ids)
+            for d in deleted_local_ids:
+                idx = int(np.searchsorted(parents, int(d)))
+                if idx < len(parents) and parents[idx] == d:
+                    start = int(parents[idx - 1]) + 1 if idx > 0 else 0
+                    expanded.update(range(start, int(d)))
+            deleted_local_ids = np.asarray(sorted(expanded), dtype=np.int64)
+        host_live = self.host_live.copy()
+        host_live[deleted_local_ids] = False
+        live = np.zeros(self.capacity, dtype=bool)
+        live[: self.num_docs] = host_live
+        return dataclasses.replace(
+            self,
+            live=torch.as_tensor(live, device=self.device),
+            host_live=host_live,
+            del_count=int(self.num_docs - host_live.sum()),
+            del_gen=self.del_gen + 1,
+        )
+
 
 def numeric_device_array(host: np.ndarray, device: torch.device) -> torch.Tensor:
     """Device representation of a numeric column (counterpart:
@@ -213,6 +290,9 @@ class SegmentBuilder:
     """Accumulates analyzed documents in host memory; ``flush()`` packs them
     into a Segment on ``device``. The pure-Python layout of the reference's
     builder: term ids in first-seen order, postings doc-ascending."""
+
+    NESTED_PATH_FIELD = NESTED_PATH_FIELD
+    ROOT_PATH = ROOT_PATH
 
     def __init__(self, field_defs: dict[str, FieldDef], device: torch.device):
         for name, fd in field_defs.items():

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from nrtsearch_tpu_torch.analysis import get_analyzer
+from nrtsearch_tpu_torch.core.segment import NESTED_PATH_FIELD, ROOT_PATH
 from nrtsearch_tpu_torch.device import scalar_f32
 from nrtsearch_tpu_torch.ops import bm25 as bm25_ops
 from nrtsearch_tpu_torch.ops import masks as mask_ops
@@ -770,10 +771,6 @@ class CompiledQuery:
 
     def match(self):
         return _exec(self.tree, self.extra, ("match",), self.inputs)
-
-
-NESTED_PATH_FIELD = "_nested_path"
-ROOT_PATH = "_root"
 
 
 def root_mask(seg):

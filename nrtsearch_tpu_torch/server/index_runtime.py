@@ -1,7 +1,7 @@
 """Copy of ``nrtsearch_tpu/server/index_runtime.py`` that carries the device:
 ``IndexRuntime(..., device)`` builds its writer, opens commits and loads
-segments onto that device. An index sort raises at construction, that is at
-startIndex (ROADMAP item 10), not in the middle of a refresh.
+segments onto that device; a delete by query reads each segment's match
+mask back from that device.
 
 Per-index runtime: writer + searcher lifecycle + NRT roles.
 
@@ -106,8 +106,6 @@ class IndexRuntime:
         self.writer.index_sort = _parse_index_sort(
             state_info.settings, self.field_defs
         )
-        if self.writer.index_sort:
-            raise NotImplementedError("index sorts are not ported yet (ROADMAP item 10)")
         self.apply_live_settings(state_info.live_settings)
         self._version = 0
         self._gen = 0
@@ -188,7 +186,7 @@ class IndexRuntime:
         searcher = self.searcher
         masks = searcher.match_masks(node)
         for seg, mask in zip(searcher.segments, masks):
-            ids = np.nonzero(np.asarray(mask)[: seg.num_docs])[0]
+            ids = np.nonzero(np.asarray(mask[: seg.num_docs].cpu()))[0]
             if len(ids):
                 seg_matches[seg.seg_id] = ids
         return self.writer.delete_matches(seg_matches)

@@ -576,6 +576,102 @@ def test_bucket_rank_kernel_equals_plain(cuda_device, B, T, m, bits, density, sh
         assert bool((ref == br.QMAX).any())       # a clamped sum
 
 
+# ---------------------------------------------------------------------------
+# the write path: a deleted doc reaches every kernel as a zero impact (the
+# rebuilt view folds the live mask into the impacts and the head rows)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("require_all", [False, True])
+@pytest.mark.parametrize("B,U", [(1, 32), (8, 32), (32, 128)])
+def test_head_scores_kernel_zero_columns(cuda_device, B, U, require_all):
+    """Head rows with a third of their columns zeroed, head and residual
+    rows alike, as deleted docs leave them: the kernel against the plain
+    version (S within the summation bound, C bit-equal), and S and C exactly
+    0 in every zeroed column."""
+    rows, rows_lo, idx, W = _head_inputs(B * 11 + U, B, U, 4096)
+    dead = torch.from_numpy(np.random.default_rng(U + B).random(4096) < 1 / 3)
+    rows[:, dead] = 0
+    rows_lo[:, dead] = 0
+    g = [t.to(cuda_device) for t in (rows, rows_lo, idx, W)]
+    kernels.reset_launch_counts()
+    S, C = dense_fused.head_scores(*g, require_all)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["head_scores"] == 1
+    ref_s, ref_c = dense_fused.head_scores_plain(*g, require_all)
+    err = (S.cpu().double() - ref_s.cpu().double()).abs()
+    assert bool((err <= _head_bound(rows, rows_lo, idx, W)).all())
+    assert bool((S.cpu()[:, dead] == 0).all()) and bool((S.cpu()[:, ~dead] > 0).any())
+    if require_all:
+        assert torch.equal(C.cpu(), ref_c.cpu())
+        assert bool((C.cpu()[:, dead] == 0).all())
+
+
+def _deleted_postings(rng, P, max_doc, frac):
+    """Doc-sorted postings over few docs (each doc in many runs) whose
+    deleted docs carry impact 0 in every posting; returns the deleted set."""
+    docs, imps = _postings(rng, P, max_doc)
+    deleted = rng.random(max_doc) < frac
+    imps[:P][torch.from_numpy(deleted)[docs[:P].long()]] = 0.0
+    return docs, imps, torch.from_numpy(deleted)
+
+
+@pytest.mark.parametrize("R,run_len", [(32, 4096), (8, 16384)])
+@pytest.mark.parametrize("require_all", [False, True])
+def test_gather_and_finish_on_zero_contributions(cuda_device, R, run_len, require_all):
+    """Runs that hold zero contributions: gather_runs (alternating), the
+    alternating network and finish_mask on the card, each bit-equal to its
+    twin; a deleted doc's sum is 0, so finish_mask never emits it."""
+    rng = np.random.default_rng(R + run_len + require_all)
+    P = 4 * run_len
+    docs, imps, deleted = _deleted_postings(rng, P, P // 8, 0.25)
+    tabs = _tables(rng, 4, R, run_len, P)
+    n_terms = torch.tensor([2, 1, 3, 1], dtype=torch.int32)
+    kernels.reset_launch_counts()
+    gd, gc = ms.gather_runs_accel(docs.to(cuda_device), imps.to(cuda_device),
+                                  *[t.to(cuda_device) for t in tabs], run_len, True)
+    cd, cc = ms.gather_runs_twin(docs, imps, *tabs, run_len, True)
+    assert torch.equal(gd.cpu(), cd) and torch.equal(gc.cpu().view(torch.int32),
+                                                     cc.view(torch.int32))
+    md, mc = bm.merge_sorted_runs_alt(gd, gc)
+    hd, hc = bm.merge_sorted_runs_alt_twin(cd, cc)
+    assert torch.equal(md.cpu(), hd) and torch.equal(mc.cpu().view(torch.int32),
+                                                     hc.view(torch.int32))
+    out = ms.finish_mask(md, mc, n_terms.to(cuda_device), R, require_all)
+    torch.cuda.synchronize()
+    assert all(kernels.LAUNCHES[k] >= 1 for k in ("gather_runs", "finish_mask"))
+    ref = ms.finish_mask_twin(hd, hc, n_terms, R, require_all)
+    assert torch.equal(out.cpu().view(torch.int32), ref.view(torch.int32))
+    real = (hd >= 0) & (hd < P // 8)
+    dead = torch.zeros_like(real)
+    dead[real] = deleted[hd[real].long()]
+    assert bool(dead.any()) and bool(torch.isfinite(ref).any())
+    assert not bool(torch.isfinite(ref[dead]).any())
+
+
+@pytest.mark.parametrize("require_all", [False, True])
+@pytest.mark.parametrize("B,T,m,bits,density", [(4, 3, 8, 10, 0.05), (3, 16, 4, 12, 0.3)])
+def test_bucket_rank_on_deleted_postings(cuda_device, B, T, m, bits, density, require_all):
+    """bucket_rank over postings where every fifth doc is deleted (impact 0
+    in all its postings): equal to the plain version, and no deleted doc
+    holds a rank."""
+    tabs, tile = _bucket_inputs(B * T + bits + 1, B, T, m, bits, density)
+    docs, imps = tabs[0], tabs[1]
+    imps[docs % 5 == 0] = 0.0
+    n_terms = torch.from_numpy(np.arange(B, dtype=np.int32) % T + 1)
+    kernels.reset_launch_counts()
+    out = kernels.bucket_rank(*[t.to(cuda_device) for t in tabs], n_terms.to(cuda_device),
+                              bits, require_all)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bucket_rank"] == 1
+    ref = br.bucket_rank_plain(*tabs, n_terms, tile=tile, bucket_bits=bits,
+                               require_all=require_all)
+    assert torch.equal(out.cpu(), ref)
+    ranked = ref != int(br.I32_MIN)
+    assert bool(ranked.any())
+    assert not bool(ranked[:, ::5].any())
+
+
 def test_bucket_search_topk_cuda_equals_cpu(cuda_device):
     tabs, tile = _bucket_inputs(7, 3, 16, 4, 12, 0.3)
     n_terms = torch.tensor([2, 5, 1], dtype=torch.int32)

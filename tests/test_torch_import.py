@@ -599,15 +599,16 @@ COPY_EXCEPTIONS = {
         ["self.writer = IndexWriter(self.field_defs, merge_factor=merge_factor)",
          "manifest, segments = open_commit(self.index_dir)",
          "load_segment(sid, self.index_dir, del_gen)",
-         "load_segment(sid, self.index_dir, dg) for sid, dg in manifest.segments"],
+         "load_segment(sid, self.index_dir, dg) for sid, dg in manifest.segments",
+         "ids = np.nonzero(np.asarray(mask)[: seg.num_docs])[0]"],
         ["import torch", "*,", "device: str | torch.device,",
          "self.writer = IndexWriter(self.field_defs, device, merge_factor=merge_factor)",
-         "self.device = self.writer.device", "if self.writer.index_sort:",
-         'raise NotImplementedError("index sorts are not ported yet (ROADMAP item 10)")',
+         "self.device = self.writer.device",
          "manifest, segments = open_commit(self.index_dir, self.device)",
          "load_segment(sid, self.index_dir, self.device, del_gen)",
          "load_segment(sid, self.index_dir, self.device, dg)",
-         "for sid, dg in manifest.segments"]),
+         "for sid, dg in manifest.segments",
+         "ids = np.nonzero(np.asarray(mask[: seg.num_docs].cpu()))[0]"]),
     # the usage lines name the port's entry points
     "cli.py": (
         ["Usage: python -m nrtsearch_tpu.cli --host localhost --port 8000 <command> ..."],

@@ -3,8 +3,10 @@ gRPC, on the CPU (``device="cpu"``). Mirrors tests/test_push_replication.py:
 a replica registers with addReplicas, the primary pushes newNRTPoint on
 refresh, the replica copies files with recvCopyState / recvRawFile and
 swaps its searcher; acked copy, merge pre-copy, bandwidth pacing and
-compression. The reference's cases that delete on the primary keep their
-shape with adds only (the port's writer refuses deletes, ROADMAP item 10).
+compression. The reference's cases that delete on the primary keep the
+shape with adds only that they took before the write path was ported;
+tests/test_torch_replication.py carries points with deletes and doc-value
+updates in both directions.
 
 The servers of one configuration start once per module (``clusters``) and
 each test runs on an index of its own, started PRIMARY on one node and

@@ -1,8 +1,7 @@
 """NRT replication in the port, on the CPU: a primary publishes points to
 the object store (``LocalFileBackend``), a replica installs them and swaps
-its searcher. Mirrors tests/test_replication.py's cases that need no delete
-on the primary (the port's writer refuses deletes, ROADMAP item 10), with
-port runtimes on ``"cpu"``.
+its searcher. Mirrors tests/test_replication.py's cases, with port
+runtimes on ``"cpu"``.
 
 Every case drives ``sync_from_remote()`` on a replica whose poll thread was
 never started; the poll-thread case waits for the poll thread's own
@@ -15,7 +14,9 @@ installs it; a port primary publishes and a reference replica installs.
 Each replica answers as a replica of its own package does: the same docs
 in the same order and the same hit counts, the deleted doc gone, scores
 bit-equal (both serve the exact merge path on the CPU, as
-tests/test_torch_filtered.py holds it).
+tests/test_torch_filtered.py holds it). Both directions also carry a point
+written by the write path: deletes (a del_gen > 0 live file), an upsert and
+a doc-value update (a new ``_dv`` segment).
 """
 
 import time
@@ -325,3 +326,88 @@ def test_reference_replica_installs_port_point(tmp_path):
         primary.stop()
         port_replica.stop()
         ref_replica.stop()
+
+
+PRICE_QUERY = {"rangeQuery": {"field": "price", "lower": "1000"}}
+
+
+def _write_path_point(primary, seed: int) -> list:
+    """Two flushed segments, then a delete by id, an upsert and a price
+    update in the first, and a refresh: the point carries a del_gen > 0
+    segment and a ``_dv`` segment. Returns the deleted ids."""
+    docs = _seeded_docs(120, seed=seed)
+    primary.add_documents([dict(d) for d in docs[:70]])
+    primary.refresh()
+    primary.add_documents([dict(d) for d in docs[70:]])
+    primary.refresh()
+    gone = [d["doc_id"] for d in docs if "alpha" in d["body"].split()][:2]
+    primary.delete_by_id(gone)
+    primary.add_documents([{"doc_id": "75", "body": "needle upserted", "price": "3"}])
+    primary.update_doc_values([{"doc_id": "4", "price": "1234"}])
+    primary.refresh()
+    point = primary.current_point()
+    assert any(dg > 0 for _sid, dg in point.segments), point.segments
+    assert any(sid.endswith("_dv") for sid, _dg in point.segments), point.segments
+    return gone
+
+
+def _price_hits(searcher, parse) -> list:
+    td = searcher.search(parse(PRICE_QUERY), 5)
+    return [searcher.segments[h.segment_idx].stored[h.local_id]["doc_id"] for h in td.hits]
+
+
+def test_reference_replica_installs_port_point_with_deletes_and_updates(tmp_path):
+    """A port primary deletes, upserts and updates doc values; a reference
+    replica installs the point and answers as a port replica does."""
+    primary = make_primary(tmp_path / "primary", LocalFileBackend(tmp_path / "remote"))
+    port_replica = make_replica(tmp_path / "port_replica",
+                                LocalFileBackend(tmp_path / "remote"))
+    ref_replica = RefIndexRuntime(make_ref_info(), tmp_path / "ref_replica",
+                                  mode="REPLICA",
+                                  remote=RefLocalFileBackend(tmp_path / "remote"),
+                                  service_name="svc")
+    try:
+        primary.start()
+        gone = _write_path_point(primary, seed=7)
+        assert ref_replica.sync_from_remote() is True
+        assert port_replica.sync_from_remote() is True
+        assert ref_replica.searcher.num_docs == port_replica.searcher.num_docs == 118
+        port = _answers(port_replica.searcher, parse_query)
+        assert _answers(ref_replica.searcher, ref_parse_query) == port
+        assert _answers(primary.searcher, parse_query) == port
+        assert all(doc_id not in gone for _n, hits in port for _o, doc_id, _s in hits)
+        assert _price_hits(ref_replica.searcher, ref_parse_query) == ["4"]
+        assert _price_hits(port_replica.searcher, parse_query) == ["4"]
+    finally:
+        primary.stop()
+        port_replica.stop()
+        ref_replica.stop()
+
+
+def test_port_replica_installs_reference_point_with_deletes_and_updates(tmp_path):
+    """The reverse: a reference primary deletes, upserts and updates doc
+    values; a port replica installs the point and answers as a reference
+    replica does."""
+    ref_remote = RefLocalFileBackend(tmp_path / "remote")
+    primary = RefIndexRuntime(make_ref_info(), tmp_path / "primary", mode="PRIMARY",
+                              remote=ref_remote, service_name="svc", primary_gen=1)
+    ref_replica = RefIndexRuntime(make_ref_info(), tmp_path / "ref_replica",
+                                  mode="REPLICA", remote=ref_remote, service_name="svc")
+    port_replica = make_replica(tmp_path / "port_replica",
+                                LocalFileBackend(tmp_path / "remote"))
+    try:
+        primary.start()
+        gone = _write_path_point(primary, seed=9)
+        assert ref_replica.sync_from_remote() is True
+        assert port_replica.sync_from_remote() is True
+        assert port_replica.searcher.num_docs == ref_replica.searcher.num_docs == 118
+        port = _answers(port_replica.searcher, parse_query)
+        assert _answers(ref_replica.searcher, ref_parse_query) == port
+        assert all(doc_id not in gone for _n, hits in port for _o, doc_id, _s in hits)
+        assert _price_hits(port_replica.searcher, parse_query) == ["4"]
+        # the replica's writer maps ids as the primary's does
+        assert port_replica.writer._id_map.keys() == primary.writer._id_map.keys()
+    finally:
+        primary.stop()
+        ref_replica.stop()
+        port_replica.stop()

@@ -19,7 +19,9 @@ agrees within ``SUM_REL``. Searches sent by 16 client threads at once must
 equal their sequential answers to ``CONCURRENT_REL`` relative (other group
 sizes plan other merge widths, which may reorder the adds of one doc).
 Shapes this slice does not serve answer UNIMPLEMENTED and name their
-ROADMAP item.
+ROADMAP item. The write RPCs (delete, an upsert, deleteByQuery,
+UPDATE_DOC_VALUES, forceMergeDeletes) run on an index of their own on
+both servers and answer alike.
 """
 
 import threading
@@ -460,23 +462,98 @@ def test_unported_imports_answer_unimplemented(servers):
     assert answers["port"]["hits"][0]["fields"]["twice"]["fieldValue"][0]["doubleValue"] == 6.0
 
 
+WRITES = "writes"
+
+
+def _write_requests(index: str, docs, request_type=None):
+    for d in docs:
+        req = pb.AddDocumentRequest(indexName=index)
+        if request_type is not None:
+            req.requestType = request_type
+        for name, value in d.items():
+            req.fields[name].value.extend(value if isinstance(value, list) else [value])
+        yield req
+
+
 def test_unported_rpcs_answer_unimplemented(servers):
-    client = servers["port"][1]
-    req = pb.AddDocumentRequest(indexName=INDEX)
-    req.fields["doc_id"].value.append("d3")
-    with pytest.raises(grpc.RpcError) as err:
-        client.delete(req)
-    assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    assert "item 10" in err.value.details()
-    # an upsert of an indexed id (PRIMARY and REPLICA starts are served
-    # since the replication slice; tests/test_torch_replication.py)
-    upsert = pb.AddDocumentRequest(indexName=INDEX)
-    upsert.fields["doc_id"].value.append("d0")
-    upsert.fields["body"].value.append("alpha")
-    with pytest.raises(grpc.RpcError) as err:
-        client.add_documents(iter([upsert]))
-    assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    assert "item 10" in err.value.details()
+    """The write RPCs that answered UNIMPLEMENTED before the write path was
+    ported, served now on an index of their own, port against reference:
+    ``delete`` by id, an upsert of an indexed id, ``deleteByQuery``,
+    ``addDocuments`` with UPDATE_DOC_VALUES, ``forceMergeDeletes``. After
+    each refresh both servers answer alike, and no deleted or replaced
+    version of a doc answers."""
+    from google.protobuf.json_format import ParseDict
+
+    docs = _docs()[:120]
+    upserts = [dict(d, body="needle upserted " + d["body"]) for d in docs[20:30]]
+    updates = [{"doc_id": d["doc_id"], "price": "987.5", "ts": "3"} for d in docs[40:45]]
+    deleted = [d["doc_id"] for d in docs[:6]]
+    by_query = pb.DeleteByQueryRequest(indexName=WRITES)
+    ParseDict({"termQuery": {"field": "tag", "textValue": "t3"}}, by_query.query.add())
+
+    def searches(client) -> list:
+        reqs = [_match("common alpha needle", topHits=30, retrieveFields=["doc_id", "body"]),
+                _sorted(_match("common", topHits=25, retrieveFields=["doc_id", "price"]),
+                        "price", reverse=True),
+                _general({"rangeQuery": {"field": "price", "lower": "900"}}, topHits=10,
+                         retrieveFields=["doc_id"]),
+                _faceted(_match("common beta", topHits=10))]
+        for r in reqs:
+            r.indexName = WRITES
+        return [_plain(client.search(r)) for r in reqs]
+
+    answers = {}
+    for side in ("ref", "port"):
+        client = servers[side][1]
+        client.create_index(WRITES)
+        client.register_fields(pb.FieldDefRequest(indexName=WRITES, field=_fields()))
+        ls = pb.LiveSettingsV2Request(indexName=WRITES)
+        ls.liveSettings.maxRefreshSec.value = 3600.0
+        client.live_settings_v2(ls)
+        client.start_index(pb.StartIndexRequest(indexName=WRITES, mode=pb.Mode.STANDALONE))
+        steps = []
+        for lo in (0, 60):
+            client.add_documents(_write_requests(WRITES, docs[lo:lo + 60]))
+            client.refresh(WRITES)
+        for doc_id in deleted:
+            req = pb.AddDocumentRequest(indexName=WRITES)
+            req.fields["doc_id"].value.append(doc_id)
+            client.delete(req)
+        client.add_documents(_write_requests(WRITES, upserts))
+        client.refresh(WRITES)
+        steps.append(searches(client))
+        client.delete_by_query(by_query)
+        client.add_documents(_write_requests(WRITES, updates,
+                                             pb.IndexingRequestType.UPDATE_DOC_VALUES))
+        client.refresh(WRITES)
+        steps.append(searches(client))
+        client.force_merge_deletes(WRITES, do_wait=True)
+        steps.append(searches(client))
+        st = client.stats(WRITES)
+        steps.append((st.numDocs, st.maxDoc, st.currentSearcher.numSegments))
+        answers[side] = steps
+        client.stop_index(WRITES)
+    for i, (r, p) in enumerate(zip(answers["ref"][:-1], answers["port"][:-1])):
+        for j, (rr, pp) in enumerate(zip(r, p)):
+            _compare(rr, pp, f"step {i} search {j}")
+    assert answers["port"][-1] == answers["ref"][-1]
+    n_t3 = sum(1 for d in docs[6:] if d["tag"] == "t3")
+    assert answers["port"][-1][0] == 120 - 6 - n_t3
+    assert answers["port"][-1][0] == answers["port"][-1][1]   # forceMergeDeletes compacted
+    t3 = {d["doc_id"] for d in docs if d["tag"] == "t3"}
+    for i, step in enumerate(answers["port"][:-1]):
+        gone = set(deleted) | (t3 if i else set())
+        for resp in step:
+            for hit in resp.get("hits", []):
+                fields = hit.get("fields", {})
+                if "doc_id" in fields:
+                    assert fields["doc_id"]["fieldValue"][0]["textValue"] not in gone
+                if "body" in fields and fields["doc_id"]["fieldValue"][0]["textValue"] in {
+                        d["doc_id"] for d in upserts}:
+                    assert "upserted" in fields["body"]["fieldValue"][0]["textValue"]
+    updated = answers["port"][2][2]
+    assert {h["fields"]["doc_id"]["fieldValue"][0]["textValue"] for h in updated["hits"]} == {
+        d["doc_id"] for d in updates if d["doc_id"] not in t3}
 
 
 def test_commit_stop_start_answers_the_same(servers):

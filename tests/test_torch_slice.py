@@ -204,12 +204,27 @@ def test_port_ingest_matches_reference_segments(waves, searchers):
 
 
 def test_port_writer_refuses_unported_operations():
-    writer = PortWriter(_field_defs(), "cpu")
-    writer.add_documents([{"id": "1", "body": "common alpha"}])
-    with pytest.raises(NotImplementedError):
-        writer.add_documents([{"id": "1", "body": "common beta"}])
-    with pytest.raises(NotImplementedError):
-        writer.delete_by_id(["1"])
+    """An upsert and a delete by id answer as the reference's writer does
+    (the write path is ported); a POLYGON field still raises, naming item
+    10."""
+    from nrtsearch_tpu.core.searcher import Searcher as RefSearcher
+    from nrtsearch_tpu.core.writer import IndexWriter as RefWriter
+
+    ref_fds = _field_defs(ref_create_field_def)
+    writer, ref_writer = PortWriter(_field_defs(), "cpu"), RefWriter(ref_fds)
+    for w in (writer, ref_writer):
+        w.add_documents([{"id": "1", "body": "common alpha"},
+                         {"id": "2", "body": "common gamma"}])
+        w.refresh()
+        w.add_documents([{"id": "1", "body": "common beta"}])
+        w.delete_by_id(["2"])
+    port = PortSearcher(writer.refresh(), _field_defs())
+    ref = RefSearcher(ref_writer.refresh(), ref_fds)
+    for text in ("common", "alpha", "beta", "gamma"):
+        q = {"matchQuery": {"field": "body", "query": text}}
+        _assert_same(ref.search(ref_parse_query(q), 5), port.search(parse_query(q), 5),
+                     "merge", text)
+    assert port.num_docs == ref.num_docs == 1
     fds = {**_field_defs(), "shape": create_field_def("shape", {"type": "POLYGON",
                                                                  "storeDocValues": True})}
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
