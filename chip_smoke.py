@@ -191,6 +191,36 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    merge B=32 before and after the deletes, bucket B=32 after them, the
    peak device memory and the phase's seconds.
 
+14. vector search and the result tail on the card (BASELINE config #4,
+   SIFT1M's 1,000,000 x 128 shape, and config #5's hybrid request): 1M
+   clustered vectors (models.synthetic.clustered_vectors, 1,000 clusters,
+   the seed) doc for doc beside phase 4's text and columns, in the same 4
+   segments, as three fields: vec (f32, l2_norm), vec_bf16 (bf16, cosine)
+   and vec_i8 (int8, dot_product), built with convert.segment_from_numpy;
+   the commit also opened on the CPU (the plain runs). Ops: knn_search and
+   knn_search_quantized on one 262,144-doc segment for the 5 similarities
+   and 3 formats at B=1, k=100, against the CPU run of the same inputs
+   (ids equal but at near-ties, scores within 4 f32 ulps of their scale S,
+   tests/test_torch_knn.py), p50 by cuda_ms beside the bytes bound. Engine:
+   Searcher.knn_search at k=10 and 100, 32 queries per field, B=1 p50 and
+   p99, host waits per query; recall@10 of vec against an f64 brute force
+   (1.0 but at ties) and of vec_bf16 and vec_i8 against the f32 column
+   under their similarity; 8 queries per field plain, filtered on a tag and
+   after deleting a tag ordinal, against the CPU copy. Served: a PRIMARY
+   node on the card and a CPU node on the same commit; kNN-only (three
+   formats, a filter), query + kNN, multiRetriever (BM25 + kNN) under
+   WEIGHTED_RRF, WEIGHTED_SCORE SUM and MAX and a raw merge, a query and a
+   script rescorer over a window of 100, a drill-sideways facet, each held
+   to the CPU node (totals and facets equal, ids equal but at near-ties,
+   scores within FUSED_REL where a text score is in them, else the kNN
+   tolerance); the hybrid request's launch counters (reset just before,
+   read just after). Writes: 2,000 docs with vectors in 4 rounds on both
+   nodes (tiered merges carry the vector columns), then the requests again
+   with highlights over the new docs' stored text and kNN on the new docs.
+   Last, a REPLICA on the card syncs the commit and answers 8 of them bit
+   for bit as the primary. Prints the peak device memory and the phase's
+   seconds.
+
 Launches per main-path batch: the counters around one fast_search_batch
 of the first B=32 batch (merge path), one B=1 query (fused path) and, for
 the bucket kernels, one bucket batch.
@@ -201,7 +231,8 @@ run, or phase 8's for bucket_rank; ``launches_config3`` from phase 9's, and
 head_scores one fused config-#3 single; ``launches_served`` from phase 10's
 served searches, ``launches_replica`` from phase 11's searches sent to the
 replica alone, ``launches_general`` from phase 12's timeout and arrays
-searches, ``launches_write`` from phase 13's searches on the deleted index),
+searches, ``launches_write`` from phase 13's searches on the deleted index,
+``launches_vectors`` from phase 14's hybrid request),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
@@ -3672,6 +3703,609 @@ def _check_facet(cpu, node, resp, ctx: str) -> float:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 14: vector search and the result tail (BASELINE configs #4 and #5)
+# ---------------------------------------------------------------------------
+
+VEC_DIMS = 128             # SIFT1M's shape (BASELINE config #4)
+# field, storage format, similarity
+VEC_FIELDS = (("vec", "float32", "l2_norm"), ("vec_bf16", "float16", "cosine"),
+              ("vec_i8", "int8", "dot_product"))
+VEC_QUERIES = 32           # per field, at each k
+VEC_KS = (10, 100)
+VEC_REPLAY = 8             # queries per field replayed on the CPU copy of the commit
+VEC_ULPS = 4               # a score within 4 f32 ulps of its scale S (tests/test_torch_knn.py)
+VEC_OP_REPS = 15
+VEC_INGEST = 2000          # docs with vectors, in VEC_ROUNDS addDocuments + refresh rounds
+VEC_ROUNDS = 4
+VEC_WINDOW = 100           # rescore window
+VEC_DBQ_TAG = 13           # kNN after deleting one tag ordinal (about 1% of the docs)
+INT8_TOPS = 1979e12        # dense int8 tensor-core operations per second
+VEC_WIRE_FIELDS = [
+    ("body", {"type": "TEXT", "search": True, "store": True}),
+    *SERVED_FIELDS[1:],
+]
+
+
+def _vec_scale(q, V, sim: str, score) -> np.ndarray:
+    """S: the magnitude a kNN score is computed from (the dot product's sum
+    of |q_i v_i| carried through the similarity's mapping), f64; a score
+    is held within VEC_ULPS f32 ulps of it (tests/test_torch_knn.py)."""
+    q, V = np.asarray(q, np.float64).reshape(1, -1), np.asarray(V, np.float64)
+    A = (np.abs(V) @ np.abs(q[0]))
+    qn, vn = np.linalg.norm(q), np.linalg.norm(V, axis=1)
+    s = np.asarray(score, np.float64)
+    if sim == "l2_norm":
+        S = s * s * (qn ** 2 + vn ** 2 + 2 * A)
+    elif sim == "dot_product":
+        S = (A + 1) / 2
+    elif sim in ("cosine", "normalized_cosine"):
+        S = (A / np.maximum(qn * vn, 1e-30) + 1) / 2
+    else:
+        S = np.where(s >= 1, A + 1, s * s * (A + 1))
+    return np.maximum(S, np.abs(s))
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """f32 rows rounded through bf16, as a bf16 column's product sees its
+    queries."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _check_knn_lists(card_ids, card_s, cpu_ids, cpu_s, cpu_full, tol_of, ctx: str) -> int:
+    """Card against CPU top-k: equal ids but at near-ties (where the ids
+    differ at a rank, the CPU's own score of the card's doc lies within two
+    tolerances of the CPU's score there); scores within tolerance. Returns
+    the near-tie swaps."""
+    swaps = 0
+    for r in np.nonzero(np.asarray(card_ids) != np.asarray(cpu_ids))[0]:
+        a, b = int(card_ids[r]), int(cpu_ids[r])
+        if abs(cpu_full(a) - cpu_s[r]) > 2 * tol_of(b, cpu_s[r]):
+            raise AssertionError(f"{ctx}: rank {r} holds {a} on the card and {b} on the CPU")
+        swaps += 1
+    for r, (a, sa, sb) in enumerate(zip(card_ids, card_s, cpu_s)):
+        if abs(float(sa) - float(sb)) > tol_of(int(a), sb):
+            raise AssertionError(f"{ctx}: rank {r} score {sa} on the card, {sb} on the CPU")
+    return swaps
+
+
+def vector_segment_columns(corpus, base: np.ndarray, num_segments: int) -> list[dict]:
+    """The three vector fields of ``base`` cut into the doc ranges of
+    ``corpus.segment_arrays``, in the host layout convert.segment_from_numpy
+    takes (int8 quantized per segment, as the builder quantizes a flushed
+    segment; bf16 rounded on the device)."""
+    from nrtsearch_tpu_torch.core.segment import pad_to_bucket
+    from nrtsearch_tpu_torch.ops.knn import quantize_int8
+
+    bounds = np.linspace(0, corpus.num_docs, num_segments + 1).astype(np.int64)
+    out = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        capacity = pad_to_bucket(int(hi - lo))
+        mat = np.zeros((capacity, base.shape[1]), np.float32)
+        mat[: hi - lo] = base[lo:hi]
+        present = np.zeros(capacity, bool)
+        present[: hi - lo] = True
+        norms = np.linalg.norm(mat, axis=1).astype(np.float32)
+        q8, scale = quantize_int8(mat)
+        cols = {}
+        for name, fmt, _sim in VEC_FIELDS:
+            cols[name] = {"values": q8 if fmt == "int8" else mat, "present": present,
+                          "norms": norms, "fmt": fmt,
+                          "scale": scale if fmt == "int8" else 1.0}
+        out.append(cols)
+    return out
+
+
+def vector_field_defs():
+    from nrtsearch_tpu_torch.schema import create_field_def
+
+    fds = index_field_defs()
+    for name, fmt, sim in VEC_FIELDS:
+        fds[name] = create_field_def(name, {
+            "type": "VECTOR", "vectorDimensions": VEC_DIMS, "vectorSimilarity": sim,
+            "vectorIndexingOptions": fmt})
+    return fds
+
+
+def _vector_wire_fields():
+    """The served index's fields: phase 10's with a stored body and the
+    three vector fields. The wire's vectorIndexingOptions can name int8 (a
+    quantized type) but not float16: vec_bf16 registers as f32, and its
+    committed segments keep their bf16 columns (the column's format rules
+    its search; new docs get f32 columns, as in the reference)."""
+    from nrtsearch_tpu_torch.gen import pb
+
+    fields = [pb.Field(name=n, **{k: (pb.FieldType.Value(v) if k == "type" else v)
+                                  for k, v in spec.items()}) for n, spec in VEC_WIRE_FIELDS]
+    for name, fmt, sim in VEC_FIELDS:
+        f = pb.Field(name=name, type=pb.FieldType.VECTOR, vectorDimensions=VEC_DIMS,
+                     vectorSimilarity=sim)
+        if fmt == "int8":
+            f.vectorIndexingOptions.type = "hnsw_scalar_quantized"
+        fields.append(f)
+    return fields
+
+
+def phase_vector_ops(dev, seg, cpu_seg, queries, card: str) -> dict:
+    """knn_search / knn_search_quantized on one segment for the five
+    similarities and three formats, card against CPU (the plain run of the
+    same inputs); p50 by cuda_ms beside the bytes bound. Returns per-format
+    timings."""
+    from nrtsearch_tpu_torch.ops import knn
+
+    out = {}
+    q1 = queries[:1]
+    for name, fmt, _sim in VEC_FIELDS:
+        col, ccol = seg.vectors[name], cpu_seg.vectors[name]
+        mask, cmask = col.present & seg.live, ccol.present & cpu_seg.live
+        qt, cq = torch.from_numpy(q1).to(dev), torch.from_numpy(q1)
+        seen_rows = ccol.host_float()                  # dequantized or rounded rows
+        seen_q = _bf16(q1) if fmt == "float16" else q1
+        nbytes = (col.values.numel() * col.values.element_size() + 4 * col.values.shape[0]
+                  + mask.numel() + q1.nbytes + 100 * 12)
+        ops = 2.0 * col.values.shape[0] * VEC_DIMS
+        peak = {"float32": OPS_PER_S, "float16": TENSOR_OPS_PER_S, "int8": INT8_TOPS}[fmt]
+        bound_ms, bound_by = bound(nbytes, ops, peak)
+        times, swaps, worst = [], 0, 0.0
+        for sim in knn.SIMILARITIES:
+            if fmt == "int8":
+                def op(c=col, m=mask, q=qt, sim=sim):
+                    return knn.knn_search_quantized(c.values, c.scale, c.score_sq_norms, m, q,
+                                                    similarity=sim, k=100)
+                cpu_full = knn._quantized_scores(cq, ccol.values, ccol.scale,
+                                                 ccol.score_sq_norms, sim)[0].numpy()
+                cs, ci = knn.knn_search_quantized(ccol.values, ccol.scale, ccol.score_sq_norms,
+                                                  cmask, cq, similarity=sim, k=100)
+            else:
+                def op(c=col, m=mask, q=qt, sim=sim):
+                    return knn.knn_search(c.values, c.score_sq_norms, m, q,
+                                          similarity=sim, k=100)
+                cpu_full = knn._scores(cq, ccol.values, ccol.score_sq_norms, sim)[0].numpy()
+                cs, ci = knn.knn_search(ccol.values, ccol.score_sq_norms, cmask, cq,
+                                        similarity=sim, k=100)
+            gs, gi = op()
+            gs, gi = gs.cpu().numpy()[0], gi.cpu().numpy()[0]
+            cs, ci = cs.numpy()[0], ci.numpy()[0]
+
+            def tol_of(i, s, sim=sim):
+                return VEC_ULPS * 2.0 ** -23 * float(_vec_scale(seen_q, seen_rows[i:i + 1],
+                                                                sim, s)[0])
+
+            swaps += _check_knn_lists(gi, gs, ci, cs, lambda i: float(cpu_full[i]), tol_of,
+                                      f"ops {name} {sim}")
+            worst = max(worst, float(np.max(np.abs(gs.astype(np.float64) - cs))))
+            times.append(cuda_ms(op, reps=VEC_OP_REPS))
+        p50 = float(np.median(times))
+        whole = bound_ms * NUM_DOCS / seg.num_docs
+        prof = profile_call(lambda: op(sim="l2_norm"))
+        log(f"vectors ops: {fmt} l2_norm, one call traced: device busy "
+            f"{prof['device_busy_ms']:.4f} ms in {prof['device_items']} device items; top "
+            f"{json.dumps(prof['top'][:6])}")
+        out[fmt] = {"ms": p50, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "max_abs_err": worst, "swaps": swaps}
+        log(f"vectors ops: {fmt} {col.values.shape[0]} x {VEC_DIMS} segment, B=1 k=100: "
+            f"p50 {p50:.4f} ms over the 5 similarities ({', '.join(f'{t:.4f}' for t in times)}),"
+            f" bound {bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / p50:.1f}%; the 1M-doc "
+            f"field {whole:.4f} ms), card vs CPU max |diff| {worst:.3g}, near-tie swaps "
+            f"{swaps} | {card}")
+    return out
+
+
+def phase_vectors(dev, corpus, columns, singles, card: str) -> dict:
+    """Phase 14 (see the module docstring): the 1M-doc index with three
+    vector fields on the card; ops, the engine, the served node with the
+    result tail, writes and a replica, each against the CPU. Returns the
+    hybrid request's launches and the phase's measurements."""
+    import shutil
+    import tempfile
+
+    from google.protobuf.json_format import ParseDict
+
+    from nrtsearch_tpu_torch import kernels
+    from nrtsearch_tpu_torch.convert import segment_from_numpy
+    from nrtsearch_tpu_torch.core.directory import commit_segments, open_commit
+    from nrtsearch_tpu_torch.core.searcher import Searcher
+    from nrtsearch_tpu_torch.gen import pb
+    from nrtsearch_tpu_torch.models.synthetic import clustered_vectors
+    from nrtsearch_tpu_torch.ops import knn
+    from nrtsearch_tpu_torch.query import parse_query
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="vectors_")
+    nodes = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    try:
+        # 1. the index: phase 4's corpus and columns beside 1M clustered vectors
+        t = time.perf_counter()
+        base, queries = clustered_vectors(NUM_DOCS, VEC_DIMS, VEC_QUERIES + 4, seed=SEED)
+        vcols = vector_segment_columns(corpus, base, SEGMENTS)
+        segs = [segment_from_numpy(a, dev, doc_values=dv, vectors=vv) for a, dv, vv in zip(
+            corpus.segment_arrays(SEGMENTS), corpus.segment_doc_values(columns, SEGMENTS),
+            vcols)]
+        fds = vector_field_defs()
+        s_card = Searcher(segs, fds)
+        torch.cuda.synchronize()
+        vec_bytes = sum(c.values.numel() * c.values.element_size()
+                        for s in segs for c in s.vectors.values())
+        log(f"vectors: {NUM_DOCS} x {VEC_DIMS} clustered vectors ({max(NUM_DOCS // 1000, 8)} "
+            f"clusters, seed {SEED}) as {', '.join(f'{n} ({f}, {m})' for n, f, m in VEC_FIELDS)}"
+            f" in {SEGMENTS} segments beside phase 4's text and columns: "
+            f"{vec_bytes / 2**20:.1f} MiB of vectors on the card, built in "
+            f"{time.perf_counter() - t:.1f} s")
+        # the commit, and the same commit opened on the CPU (the plain runs)
+        t = time.perf_counter()
+        commit_dir = f"{root}/commit"
+        commit_segments(segs, commit_dir, gen=1, version=1, primary_gen=1)
+        _m, cpu_segs = open_commit(commit_dir, "cpu")
+        s_cpu = Searcher(cpu_segs, fds)
+        log(f"vectors: committed ({sum(os.path.getsize(os.path.join(commit_dir, f)) for f in os.listdir(commit_dir)) / 2**30:.3f} GiB)"
+            f" and opened on the CPU in {time.perf_counter() - t:.1f} s")
+
+        # 2. ops on one 262,144-doc segment
+        ops = phase_vector_ops(dev, segs[0], cpu_segs[0], queries, card)
+
+        # 3. the engine: Searcher.knn_search at B = 1
+        qs = queries[:VEC_QUERIES]
+        lat, answers = {}, {}
+        for name, _fmt, _sim in VEC_FIELDS:
+            s_card.knn_search(name, qs[0], 10)        # first call: cuBLAS handles
+            for k in VEC_KS:
+                ts, res = [], []
+                for q in qs:
+                    t = time.perf_counter()
+                    res.append(s_card.knn_search(name, q, k))
+                    ts.append(1e3 * (time.perf_counter() - t))
+                lat[(name, k)] = ts
+                answers[(name, k)] = res
+        with SyncCount() as sc:
+            s_card.knn_search("vec", qs[0], 10)
+        log(f"vectors engine: Searcher.knn_search B=1 over {SEGMENTS} segments, "
+            + "; ".join(f"{n} k={k} p50 {np.median(lat[(n, k)]):.3f} ms p99 "
+                        f"{np.percentile(lat[(n, k)], 99):.3f} ms" for n, _f, _s in VEC_FIELDS
+                        for k in VEC_KS)
+            + f"; host waits per query {sc.n} | {card}")
+
+        # recall@10 of the f32 field against an f64 brute force (1.0 but at ties)
+        b64 = base.astype(np.float64)
+        sq64 = np.einsum("ij,ij->i", b64, b64)
+        hits, ties = 0, 0
+        for i, q in enumerate(qs):
+            d2 = sq64 - 2.0 * (b64 @ q.astype(np.float64)) + float(q.astype(np.float64) @ q)
+            exact = np.argsort(d2, kind="stable")[:10]
+            got = [h.global_ord for h in answers[("vec", 10)][i].hits]
+            miss = set(exact.tolist()) - set(got)
+            hits += 10 - len(miss)
+            for m in miss:
+                # a tie: the missed doc's distance equals the card's 10th within f32 rounding
+                if abs(d2[m] - d2[got[-1]]) > 8 * 2.0 ** -23 * (sq64[m] + float(q @ q)):
+                    raise AssertionError(f"recall: query {i} misses doc {m} (d2 {d2[m]}) "
+                                         f"for {got[-1]} (d2 {d2[got[-1]]})")
+                ties += 1
+        recall_f32 = hits / (10 * len(qs))
+
+        # recall@10 of bf16 and int8 against the f32 column under their similarity
+        def f32_top10(sim, q):
+            cand = []
+            qt = torch.from_numpy(q[None]).to(dev)
+            for j, seg in enumerate(segs):
+                c = seg.vectors["vec"]
+                sq = c.sq_norms
+                s_, i_ = knn.knn_search(c.values, sq, c.present & seg.live, qt,
+                                        similarity=sim, k=10)
+                cand += [(float(a), int(s_card.bases[j]) + int(b))
+                         for a, b in zip(s_[0].cpu().numpy(), i_[0].cpu().numpy())]
+            cand.sort(key=lambda x: (-x[0], x[1]))
+            return {o for _s, o in cand[:10]}
+
+        recall_q = {}
+        for name, _fmt, sim in VEC_FIELDS[1:]:
+            got = sum(len(f32_top10(sim, q) & {h.global_ord for h in answers[(name, 10)][i].hits})
+                      for i, q in enumerate(qs))
+            recall_q[name] = got / (10 * len(qs))
+        log(f"vectors recall@10: vec (f32, l2) {recall_f32:.4f} against an f64 brute force "
+            f"({ties} ties); vec_bf16 {recall_q['vec_bf16']:.4f} and vec_i8 "
+            f"{recall_q['vec_i8']:.4f} against the f32 column under their similarity")
+        if min(recall_q.values()) < 0.8:
+            raise AssertionError(f"quantized recall {recall_q}")
+
+        # filtered, and after a deleteByQuery, each held to the CPU copy
+        names = columns["tag"][2]
+        filt = {"termQuery": {"field": "tag", "textValue": names[7]}}
+        tag_vals = columns["tag"][0]
+        seg_bounds = np.linspace(0, NUM_DOCS, SEGMENTS + 1).astype(np.int64)
+        deleted = [np.nonzero(tag_vals[lo:hi] == VEC_DBQ_TAG)[0]
+                   for lo, hi in zip(seg_bounds[:-1], seg_bounds[1:])]
+        s_card_del = Searcher([s.with_deletes(d) for s, d in zip(segs, deleted)], fds)
+        s_cpu_del = Searcher([s.with_deletes(d) for s, d in zip(cpu_segs, deleted)], fds)
+        fmt_of = {n: (f, m) for n, f, m in VEC_FIELDS}
+        swaps = 0
+        cond = 0.0
+        t = time.perf_counter()
+        for name, fmt, sim in VEC_FIELDS:
+            for label, sc_, sp_, node in (
+                    ("plain", s_card, s_cpu, None),
+                    ("filtered", s_card, s_cpu, filt),
+                    ("deleted", s_card_del, s_cpu_del, None)):
+                for q in qs[:VEC_REPLAY]:
+                    g = sc_.knn_search(name, q, 100, filter_node=parse_query(node) if node else None)
+                    c = sp_.knn_search(name, q, 100, filter_node=parse_query(node) if node else None)
+                    if g.total_hits != c.total_hits or not g.hits:
+                        raise AssertionError(f"engine {name} {label}: totals {g.total_hits} "
+                                             f"{c.total_hits}")
+                    gi = [h.global_ord for h in g.hits]
+                    ci = [h.global_ord for h in c.hits]
+                    seen_q = _bf16(q[None])[0] if fmt == "float16" else q
+
+                    def column_row(o, name=name, sp_=sp_):
+                        j = int(np.searchsorted(s_card.bases, o, side="right") - 1)
+                        return sp_.segments[j].vectors[name], o - int(s_card.bases[j])
+
+                    def tol_of(o, s, sim=sim, seen_q=seen_q, column_row=column_row):
+                        col, local = column_row(o)
+                        return VEC_ULPS * 2.0 ** -23 * float(
+                            _vec_scale(seen_q, col.host_row(local)[None], sim, s)[0])
+
+                    def cpu_score(o, q=q, sim=sim, column_row=column_row):
+                        # the CPU's score of one doc: its row alone through the plain run
+                        col, local = column_row(o)
+                        qt = torch.from_numpy(q[None])
+                        row = col.values[local:local + 1]
+                        if col.fmt == "int8":
+                            sc = knn._quantized_scores(qt, row, col.scale,
+                                                       col.score_sq_norms[local:local + 1], sim)
+                        else:
+                            sc = knn._scores(qt, row, col.score_sq_norms[local:local + 1], sim)
+                        return float(sc[0, 0])
+
+                    swaps += _check_knn_lists(gi, [h.score for h in g.hits], ci,
+                                              [h.score for h in c.hits], cpu_score, tol_of,
+                                              f"engine {name} {label}")
+                    cond = max(cond, max(tol_of(o, sc) / (VEC_ULPS * 2.0 ** -23) / abs(sc)
+                                         for o, sc in zip(ci[:10], [h.score for h in c.hits])))
+                    if label == "deleted":
+                        gone = {int(seg_bounds[j] + d) for j, dd in enumerate(deleted) for d in dd}
+                        if gone & set(gi):
+                            raise AssertionError(f"engine {name}: a deleted doc answers")
+        log(f"vectors engine: {VEC_REPLAY} queries per field, plain, filtered on {names[7]} "
+            f"and after deleting tag ordinal {VEC_DBQ_TAG} "
+            f"({sum(len(d) for d in deleted)} docs), k=100, equal to the CPU copy (near-tie "
+            f"swaps {swaps}; the CPU replay {time.perf_counter() - t:.1f} s)")
+        del s_card_del, s_cpu_del
+
+        # 4. served: a PRIMARY node on the card and a CPU node on the same commit
+        state = f"{root}/state"
+        primary, pc = _node(root, "primary", dev=dev, state=state)
+        nodes.append((primary, pc))
+        cpu_node, cc = _node(root, "cpu", dev=torch.device("cpu"), state=f"{root}/cpu_state")
+        nodes.append((cpu_node, cc))
+        index_dirs = []
+        for node, client in ((primary, pc), (cpu_node, cc)):
+            client.create_index(SERVED_INDEX)
+            client.register_fields(pb.FieldDefRequest(indexName=SERVED_INDEX,
+                                                      field=_vector_wire_fields()))
+            index_dir = os.path.join(node.config.index_dir,
+                                     node.global_state.index_ids[SERVED_INDEX])
+            shutil.copytree(commit_dir, index_dir, dirs_exist_ok=True)
+            index_dirs.append(index_dir)
+            ls = pb.LiveSettingsV2Request(indexName=SERVED_INDEX)
+            ls.liveSettings.maxMergedSegmentMB.value = 1
+            ls.liveSettings.segmentsPerTier.value = 6
+            ls.liveSettings.maxRefreshSec.value = 3600.0
+            client.live_settings_v2(ls)
+        shutil.rmtree(commit_dir)
+        pc.start_index(pb.StartIndexRequest(indexName=SERVED_INDEX, mode=pb.Mode.PRIMARY,
+                                            primaryGen=1))
+        cc.start_index(pb.StartIndexRequest(indexName=SERVED_INDEX, mode=pb.Mode.STANDALONE))
+        p_rt = primary.global_state.runtimes[SERVED_INDEX]
+        discovery = f"{root}/primary.json"
+        with open(discovery, "w") as f:
+            json.dump({"host": "localhost", "port": primary.replication_port}, f)
+
+        knn_rel = 2 * VEC_ULPS * 2.0 ** -23 * cond     # two clauses or a weight of 2
+
+        def req(query=None, k=10, **kw):
+            r = pb.SearchRequest(indexName=SERVED_INDEX, topHits=k, **kw)
+            if query is not None:
+                ParseDict(query, r.query)
+            return r
+
+        def knn_clause(r, field, q, k=10, filt=None):
+            c = r.knn.add()
+            c.field, c.k, c.num_candidates = field, k, 4 * k
+            c.query_vector.extend(float(x) for x in q)
+            if filt is not None:
+                ParseDict(filt, c.filter)
+            return r
+
+        def multi(blender, q, text):
+            r = req(k=20)
+            rt_ = r.multiRetriever.retrievers.add()
+            rt_.name = "bm25"
+            ParseDict(_match_dict(text), rt_.textRetriever.query)
+            rt_.textRetriever.topHits = 100
+            rv = r.multiRetriever.retrievers.add()
+            rv.name = "knn"
+            rv.knnRetriever.knnQuery.field = "vec"
+            rv.knnRetriever.knnQuery.k = 100
+            rv.knnRetriever.knnQuery.num_candidates = 100
+            rv.knnRetriever.knnQuery.query_vector.extend(float(x) for x in q)
+            if blender == "raw":
+                r.multiRetriever.blender.scorelessRawMerge.SetInParent()
+            elif blender != "rrf":
+                r.multiRetriever.blender.weightedScoreOrder.scoreMode = \
+                    pb.WeightedScoreOrderBlender.ScoreMode.Value(blender)
+            return r
+
+        def rescored(kind, text, rescore_text):
+            r = req(_match_dict(text), k=20)
+            rs = r.rescorers.add()
+            rs.windowSize = VEC_WINDOW
+            if kind == "query":
+                ParseDict(_match_dict(rescore_text), rs.queryRescorer.rescoreQuery)
+                rs.queryRescorer.queryWeight = 0.7
+                rs.queryRescorer.rescoreQueryWeight = 1.3
+            else:
+                rs.scriptRescorer.script.source = "_score * 2 + price / 1000"
+            return r
+
+        def drill_sideways(text):
+            r = req({"booleanQuery": {"clauses": [
+                {"occur": "MUST", "query": _match_dict(text)},
+                {"occur": "FILTER", "query": {"termQuery": {"field": "tag",
+                                                            "textValue": names[3]}}}]}}, k=20)
+            f = r.facets.add()
+            f.dim, f.topN = "tag", 10
+            return r
+
+        q_a, q_b = queries[VEC_QUERIES], queries[VEC_QUERIES + 1]
+        requests = {
+            "knn_only": lambda: knn_clause(req(k=10), "vec", q_a),
+            "knn_only_bf16": lambda: knn_clause(req(k=10), "vec_bf16", q_b),
+            "knn_only_i8_filtered": lambda: knn_clause(req(k=10), "vec_i8", q_a, filt=filt),
+            "query_plus_knn": lambda: knn_clause(req(_match_dict(singles[0]), k=20), "vec", q_b,
+                                                 k=20),
+            "multi_rrf": lambda: multi("rrf", q_a, singles[1]),
+            "multi_sum": lambda: multi("SUM", q_a, singles[1]),
+            "multi_max": lambda: multi("MAX", q_b, singles[2]),
+            "multi_raw": lambda: multi("raw", q_b, singles[2]),
+            "query_rescorer": lambda: rescored("query", singles[3], singles[4][:2]),
+            "script_rescorer": lambda: rescored("script", singles[5], None),
+            "drill_sideways": lambda: drill_sideways(singles[6]),
+        }
+        text_rel = FUSED_REL
+
+        def compare(name, g, c, ctx):
+            """Card against CPU node: totals equal, ids equal but at near-ties
+            (the two scores at a differing rank within the tolerance), scores
+            within FUSED_REL (text: the card's fused path against the CPU's
+            exact merge path) or knn_rel (kNN alone) relative, facets equal."""
+            rel = knn_rel if name.startswith("knn_only") else max(text_rel, knn_rel)
+            if g.totalHits.value != c.totalHits.value:
+                raise AssertionError(f"{ctx}: totalHits {g.totalHits.value} {c.totalHits.value}")
+            if len(g.hits) != len(c.hits) or not g.hits:
+                raise AssertionError(f"{ctx}: {len(g.hits)} hits on the card, {len(c.hits)}")
+            n_swaps = 0
+            for r, (a, b) in enumerate(zip(g.hits, c.hits)):
+                # a differing doc at a rank is a near-tie: both scores there agree
+                tol = rel * max(abs(b.score), abs(a.score))
+                if abs(a.score - b.score) > tol:
+                    raise AssertionError(f"{ctx}: rank {r} score {a.score} / {b.score}")
+                n_swaps += a.luceneDocId != b.luceneDocId
+            gf = [(f.dim, [(lv.label, lv.value) for lv in f.labelValues]) for f in g.facetResult]
+            cf = [(f.dim, [(lv.label, lv.value) for lv in f.labelValues]) for f in c.facetResult]
+            if gf != cf:
+                raise AssertionError(f"{ctx}: facets {gf} / {cf}")
+            for a, b in zip(g.hits, c.hits):
+                if a.luceneDocId == b.luceneDocId and dict(a.highlights) != dict(b.highlights):
+                    raise AssertionError(f"{ctx}: highlights of {a.luceneDocId} differ")
+            return n_swaps
+
+        def served_round(label, which):
+            lat_s, n_swaps = {}, 0
+            for name in which:
+                t = time.perf_counter()
+                g = pc.search(requests[name]())
+                lat_s[name] = 1e3 * (time.perf_counter() - t)
+                n_swaps += compare(name, g, cc.search(requests[name]()), f"served {label} {name}")
+            return lat_s, n_swaps
+
+        pc.search(requests["knn_only"]())                   # the card's first search
+        pc.search(requests["multi_rrf"]())
+        served_lat, served_swaps = served_round("before writes", list(requests))
+        # the hybrid request's launches, counted alone
+        view = p_rt.searcher.packed_view("body")
+        before = dict(view.path_counts)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        pc.search(requests["multi_rrf"]())
+        torch.cuda.synchronize()
+        hybrid_launches = dict(kernels.LAUNCHES)
+        route = {k: view.path_counts[k] - before[k] for k in before}
+        log(f"vectors served: the hybrid request (BM25 '{' '.join(singles[1])}' + kNN, RRF) "
+            f"took the {route} route(s); kernel launches {hybrid_launches}")
+        if route.get("fused", 0) and hybrid_launches.get("head_scores", 0) == 0:
+            raise AssertionError("the hybrid's fused text retriever launched no head_scores")
+        if not sum(hybrid_launches.values()):
+            raise AssertionError("the hybrid request launched no kernel")
+        log(f"vectors served: {len(requests)} requests equal to the CPU node (near-tie swaps "
+            f"{served_swaps}; kNN scores within {knn_rel:.3g}, text within {text_rel} "
+            f"relative): " + ", ".join(f"{n} {ms:.2f} ms" for n, ms in served_lat.items())
+            + f" | {card}")
+
+        # 5. writes: 2,000 docs with vectors in 4 rounds on both nodes
+        new_vecs, _ = clustered_vectors(VEC_INGEST, VEC_DIMS, 0, seed=SEED + 14)
+        docs = _served_ingest_docs(VEC_INGEST)
+        for d, v in zip(docs, new_vecs):
+            for name, _f, _s in VEC_FIELDS:
+                d[name] = str([float(x) for x in v])
+        t = time.perf_counter()
+        per = VEC_INGEST // VEC_ROUNDS
+        for r in range(VEC_ROUNDS):
+            for client in (pc, cc):
+                client.add_documents(_add_requests(docs[r * per:(r + 1) * per]))
+                client.refresh(SERVED_INDEX)
+        ingest_s = time.perf_counter() - t
+        stats = [node.global_state.runtimes[SERVED_INDEX].stats() for node, _c in nodes]
+        if stats[0]["merges"] == 0 or stats[0]["merges"] != stats[1]["merges"]:
+            raise AssertionError(f"writes: merges {[s['merges'] for s in stats]}")
+        layout = [[(s.num_docs, sorted(s.vectors)) for s in node.global_state.runtimes[
+            SERVED_INDEX].searcher.segments] for node, _c in nodes]
+        if layout[0] != layout[1]:
+            raise AssertionError(f"writes: segments {layout}")
+        highlight = req(_match_dict(["needle", "gamma"]), k=10)
+        highlight.highlight.fields.append("body")
+        highlight.highlight.settings.fragment_size.value = 40
+        requests["highlight"] = lambda: highlight
+        new_q = new_vecs[17] + 0.01
+        requests["knn_new_docs"] = lambda: knn_clause(req(k=10), "vec", new_q)
+        requests["knn_new_docs_i8"] = lambda: knn_clause(req(k=10), "vec_i8", new_q)
+        requests["knn_new_docs_bf16"] = lambda: knn_clause(req(k=10), "vec_bf16", new_q)
+        after_lat, after_swaps = served_round("after writes", list(requests))
+        hl = pc.search(highlight)
+        if not any(h.highlights["body"].fragments for h in hl.hits):
+            raise AssertionError("highlight: no fragment")
+        top_req = requests["knn_new_docs"]()
+        top_req.retrieveFields.append("body")
+        top = pc.search(top_req)
+        if top.hits[0].fields["body"].fieldValue[0].textValue != docs[17]["body"]:
+            raise AssertionError("writes: the ingested doc nearest its own vector does not lead")
+        log(f"vectors writes: {VEC_INGEST} docs with vectors in {VEC_ROUNDS} rounds on both "
+            f"nodes in {ingest_s:.1f} s, {stats[0]['merges']} merges carried vector columns; "
+            f"{len(requests)} requests (highlights, kNN on the new docs) equal to the CPU node "
+            f"(near-tie swaps {after_swaps}): "
+            + ", ".join(f"{n} {ms:.2f} ms" for n, ms in after_lat.items()) + f" | {card}")
+
+        # 6. a REPLICA of the vector commit on the card
+        cc.close()
+        cpu_node.stop()
+        nodes.remove((cpu_node, cc))
+        replica, rc = _node(root, "replica", dev=dev, state=state)
+        nodes.append((replica, rc))
+        t = time.perf_counter()
+        rc.start_index(pb.StartIndexRequest(indexName=SERVED_INDEX, mode=pb.Mode.REPLICA,
+                                            primaryDiscoveryFile=discovery))
+        sync_s = time.perf_counter() - t
+        for name in ("multi_rrf", "multi_sum", "query_plus_knn", "knn_only", "knn_only_bf16",
+                     "knn_only_i8_filtered", "knn_new_docs", "highlight"):
+            if _strip(rc.search(requests[name]())) != _strip(pc.search(requests[name]())):
+                raise AssertionError(f"replica: {name} differs from the primary")
+        peak = torch.cuda.max_memory_allocated(dev)
+        seconds = time.perf_counter() - t_phase
+        log(f"vectors replica: synced the vector commit in {sync_s:.2f} s and answers 8 "
+            f"requests bit for bit as the primary; peak device memory {peak / 2**30:.3f} GiB "
+            f"(phase start {mem0 / 2**30:.3f} GiB); phase {seconds:.1f} s | {card}")
+        return {"launches": hybrid_launches, "ops": ops, "seconds": seconds, "peak": peak,
+                "recall": recall_f32, "recall_q": recall_q}
+    finally:
+        for node, client in nodes:
+            client.close()
+            node.stop()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -3791,6 +4425,10 @@ def main() -> int:
     # over the same index, every path on the deleted index, a replica
     write = phase_write(dev, corpus, columns, searcher, singles, batches, card)
 
+    # 14. vector search and the result tail: three vector fields beside the
+    # same corpus, kNN, the served hybrid and result tail, writes, a replica
+    vectors = phase_vectors(dev, corpus, columns, singles, card)
+
     table = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         st = stats[name]
@@ -3808,6 +4446,7 @@ def main() -> int:
             "launches_replica": replication["launches"].get(name, 0),
             "launches_general": general_launches.get(name, 0),
             "launches_write": write["launches"].get(name, 0),
+            "launches_vectors": vectors["launches"].get(name, 0),
         })
         if name == "head_scores":
             table[-1].update({k: st[k] for k in ("parent_ms", "index_select_ms", "max_rel_err",
@@ -3823,7 +4462,8 @@ def main() -> int:
             f"{served['launches'].get(name, 0)} served, "
             f"{replication['launches'].get(name, 0)} served by the replica, "
             f"{general_launches.get(name, 0)} in the general phase, "
-            f"{write['launches'].get(name, 0)} on the deleted index | {card}")
+            f"{write['launches'].get(name, 0)} on the deleted index, "
+            f"{vectors['launches'].get(name, 0)} in the hybrid request | {card}")
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

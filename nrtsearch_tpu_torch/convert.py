@@ -16,6 +16,12 @@ plain numpy (a reference segment's arrays through ``np.asarray``, or
 LONG, f64 for DOUBLE, int32 ordinals with -1 where absent), ``present`` bool
 [capacity], and for ORDINAL columns ``ord_terms`` (sorted); multi-valued
 columns add ``mv_offsets`` / ``mv_values``.
+
+``vectors`` (optional) maps a VECTOR field to its column's host arrays:
+``values`` [capacity, dims] (f32, or int8 for the ``int8`` format; a
+``float16`` column's bf16 values as f32), ``present`` bool [capacity],
+``norms`` f32 [capacity] (of the original f32 vectors), ``fmt`` and
+``scale``. The column's squared norms are computed on ``device``.
 """
 
 from __future__ import annotations
@@ -24,16 +30,17 @@ import numpy as np
 import torch
 
 from nrtsearch_tpu_torch.core.segment import (
-    Segment, TextFieldIndex, doc_value_column, new_seg_id,
+    Segment, TextFieldIndex, VectorColumn, doc_value_column, new_seg_id,
 )
 from nrtsearch_tpu_torch.device import resolve_device
 from nrtsearch_tpu_torch.schema.fields import DocValueKind
 
 
 def segment_from_numpy(arrays: dict, device: str | torch.device,
-                       field: str = "body", doc_values: dict | None = None) -> Segment:
+                       field: str = "body", doc_values: dict | None = None,
+                       vectors: dict | None = None) -> Segment:
     """A port Segment holding ``arrays`` as field ``field`` (and the
-    ``doc_values`` columns) on ``device``."""
+    ``doc_values`` and ``vectors`` columns) on ``device``."""
     dev = resolve_device(device)
 
     def put(name, dtype):
@@ -59,6 +66,7 @@ def segment_from_numpy(arrays: dict, device: str | torch.device,
         )
         for name, col in (doc_values or {}).items()
     }
+    vector_columns = {name: _vector_column(col, dev) for name, col in (vectors or {}).items()}
     num_docs = int(arrays["num_docs"])
     return Segment(
         seg_id=new_seg_id("_np"),
@@ -70,4 +78,18 @@ def segment_from_numpy(arrays: dict, device: str | torch.device,
         host_live=host_live,
         del_count=int(num_docs - host_live.sum()),
         doc_values=columns,
+        vectors=vector_columns,
+    )
+
+
+def _vector_column(col: dict, dev: torch.device) -> VectorColumn:
+    fmt = col.get("fmt", "float32")
+    values = np.array(col["values"], np.int8 if fmt == "int8" else np.float32)
+    t = torch.as_tensor(values, device=dev)
+    return VectorColumn(
+        values=t.to(torch.bfloat16) if fmt == "float16" else t,
+        present=torch.as_tensor(np.array(col["present"], bool), device=dev),
+        host_norms=np.array(col["norms"], np.float32),
+        fmt=fmt,
+        scale=float(col.get("scale", 1.0)),
     )

@@ -15,9 +15,9 @@ A committed index directory contains:
 The port keeps no term positions: it writes ``has_positions`` false and no
 ``positions`` arrays, and ignores them on load. msgpack is imported inside
 the functions that read or write the meta file, so no search path needs it.
-Loading an index moves its arrays to the device the caller names; a
-float16 (bf16) vector column raises ``NotImplementedError`` (ROADMAP item
-12).
+Loading an index moves its arrays to the device the caller names. A
+float16 (bf16) vector column is written as f32 and rounded back to bf16 on
+load, as the reference does, so each package opens the other's commit.
 """
 
 from __future__ import annotations
@@ -135,7 +135,10 @@ def save_segment(seg: Segment, directory: str | Path) -> list[str]:
         }
     for name, vc in seg.vectors.items():
         key = f"v.{name}"
-        arrays[f"{key}.values"] = _host(vc.values)
+        vals = vc.values
+        if vals.dtype == torch.bfloat16:
+            vals = vals.float()  # bf16 serializes as f32
+        arrays[f"{key}.values"] = _host(vals)
         arrays[f"{key}.present"] = _host(vc.present)
         arrays[f"{key}.norms"] = vc.host_norms
         meta["vectors"][name] = {"fmt": vc.fmt, "scale": vc.scale}
@@ -188,13 +191,9 @@ def load_segment(seg_id: str, directory: str | Path, device: str | torch.device,
     for name, vm in meta["vectors"].items():
         key = f"v.{name}"
         fmt = (vm or {}).get("fmt", "float32")
-        if fmt == "float16":
-            raise NotImplementedError(
-                f"vector field {name!r}: bf16 vector columns are not ported yet "
-                "(ROADMAP item 12)"
-            )
+        values = put(arrays[f"{key}.values"])
         vectors[name] = VectorColumn(
-            values=put(arrays[f"{key}.values"]),
+            values=values.to(torch.bfloat16) if fmt == "float16" else values,
             present=put(arrays[f"{key}.present"]),
             host_norms=arrays[f"{key}.norms"],
             fmt=fmt,

@@ -11,9 +11,12 @@ lengths (re-quantized, which leaves them unchanged), doc values and rows.
 
 With an index sort the merged docs are laid out in its doc-value order,
 doc id for doc id as the reference lays them out; the writer also sorts
-each flushed segment this way. Vector columns and suggest entries raise
-``NotImplementedError`` (ROADMAP items 12 and 10): the port's builder makes
-neither.
+each flushed segment this way. Vector columns are carried by index: one
+host copy of each segment's matrix (dequantized, as the reference's
+``host_float``), its live rows scattered to their new ids, then packed in
+the field's format (an int8 column re-quantizes with the merged matrix's
+scale, as in the reference). Suggest entries raise ``NotImplementedError``
+(ROADMAP item 10): the port's builder makes none.
 """
 
 from __future__ import annotations
@@ -40,10 +43,6 @@ def merge_segments(
     merged segment's docs follow this doc-value order. Segments holding
     nested child docs are never sorted (blocks must stay contiguous)."""
     for seg in segments:
-        if seg.vectors:
-            raise NotImplementedError(
-                "merging vector columns is not ported yet (ROADMAP item 12)"
-            )
         if seg.suggest:
             raise NotImplementedError(
                 "merging suggest entries is not ported yet (ROADMAP item 10)"
@@ -107,6 +106,10 @@ def merge_segments(
                         out.append((int(new), (float(lat), float(lon))))
                     else:
                         out.append((int(new), dv.host_values[old].item()))
+        for fname, vc in seg.vectors.items():
+            keep = np.nonzero((m >= 0) & vc.host_present()[: seg.num_docs])[0]
+            builder._vectors.setdefault(fname, []).append(
+                (m[keep], vc.host_float()[keep]))
         for old in range(seg.num_docs):
             new = m[old]
             if new >= 0:

@@ -17,8 +17,9 @@ or the eager evaluator (query/eval.py), then a per-segment top-k by score
 or sort key, or the exact host sort for f64 keys and multi-component,
 docid and score sorts, and a merge of the segments' hits on the host.
 Timeouts and ``terminate_after`` cut at segment granularity there, and
-``terminate_after`` also within a segment. ``knn_search`` names ROADMAP item
-12 and ``dist_shards`` above 1 (the server's virtualShards) item 13.
+``terminate_after`` also within a segment. ``knn_search`` runs exact kNN
+per segment (ops/knn.py); ``dist_shards`` above 1 (the server's
+virtualShards) names ROADMAP item 13.
 
 A multi-component sort never reads the single-sort key cache: the
 reference's cache keys a sort by its first component only
@@ -399,9 +400,64 @@ class Searcher:
             out.append(match & qc.live_root_mask(seg))
         return out
 
-    def knn_search(self, field: str, query_vector, k: int, filter_node=None,
-                   boost: float = 1.0):
-        raise NotImplementedError("vector search is not ported yet (ROADMAP item 12)")
+    def knn_search(self, field: str, query_vector, k: int,
+                   filter_node: Optional[qp.QueryNode] = None,
+                   boost: float = 1.0) -> TopDocs:
+        """Exact kNN over all segments (ops/knn.py), the filter applied
+        before the top-k (the FANOUT pre-filter strategy,
+        search.proto:1720-1729). Per segment: the mask present & live &
+        filter (the filter through the eager evaluator, as the reference's),
+        one product and top-k, and one read to the host of the top-k and the
+        filtered match count; -inf slots are dropped and the boost applied,
+        then the hits merge on the host by (-score, global ord). Total hits
+        is the filtered match count (NrtKnnFloatVectorQuery's)."""
+        from nrtsearch_tpu_torch.ops.knn import knn_search as knn_op
+        from nrtsearch_tpu_torch.ops.knn import knn_search_quantized
+
+        fd = self.field_defs.get(field)
+        if fd is None or not fd.vector_queryable:
+            raise KeyError(f"field {field!r} is not a vector field")
+        q = np.asarray(query_vector, np.float32).reshape(1, -1)
+        if q.shape[1] != fd.dims:
+            raise ValueError(
+                f"query vector has {q.shape[1]} dims; field {field!r} has {fd.dims}"
+            )
+        hits: list[Hit] = []
+        total_matches = 0
+        qt = None
+        for idx, seg in enumerate(self.segments):
+            vc = seg.vectors.get(field)
+            if vc is None:
+                continue
+            if qt is None or qt.device != seg.device:
+                qt = torch.as_tensor(q, device=seg.device)
+            mask = vc.present & seg.live
+            if filter_node is not None:
+                _, fmask = qeval.eval_node(
+                    filter_node, EvalContext(seg, self.field_defs, self.stats))
+                mask = mask & fmask
+            kk = min(k, seg.capacity)
+            if vc.fmt == "int8":
+                scores, ids = knn_search_quantized(
+                    vc.values, vc.scale, vc.score_sq_norms, mask, qt,
+                    similarity=fd.similarity, k=kk)
+            else:
+                scores, ids = knn_op(vc.values, vc.score_sq_norms, mask, qt,
+                                     similarity=fd.similarity, k=kk)
+            # one read: the top-k ids, their scores' bits and the filtered
+            # match count (not k per segment)
+            packed = torch.cat([ids[0], scores[0].view(torch.int32).to(torch.int64),
+                                mask.sum(dtype=torch.int64)[None]]).cpu().numpy()
+            seg_ids = packed[:kk]
+            seg_scores = packed[kk:2 * kk].astype(np.int32).view(np.float32)
+            total_matches += int(packed[-1])
+            base = int(self.bases[idx])
+            for sc, i in zip(seg_scores, seg_ids):
+                if sc == -np.inf:
+                    continue
+                hits.append(Hit(idx, int(i), base + int(i), float(sc) * boost))
+        hits.sort(key=lambda h: (-h.score, h.global_ord))
+        return TopDocs(hits[:k], total_matches)
 
     def fast_search_reduce(self, spec, top_hits: int, reduce_plan):
         """Search + flat reductions in one merge-path dispatch.

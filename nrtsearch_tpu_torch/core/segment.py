@@ -18,10 +18,14 @@ the next del_gen and a new live mask (``with_deletes``), a doc-value update
 a new ``_dv`` segment with new columns (``with_doc_value_updates``); both
 share the postings and everything else they do not change.
 
-The builder takes TEXT, _ID, ATOM, LAT_LON and the numeric field types.
-POLYGON, VECTOR, suggest, nested (OBJECT), child and prefix fields raise
-``NotImplementedError`` (ROADMAP item 10; item 12 for vectors). Term
-positions are not kept: phrase and span queries need them (item 10).
+A VECTOR field is one ``VectorColumn`` per segment: f32, bf16 or int8
+[capacity, dims] on the device, with its squared norms computed once when
+the column is made.
+
+The builder takes TEXT, _ID, ATOM, LAT_LON, VECTOR and the numeric field
+types. POLYGON, suggest, nested (OBJECT), child and prefix fields raise
+``NotImplementedError`` (ROADMAP item 10). Term positions are not kept:
+phrase and span queries need them (item 10).
 """
 
 from __future__ import annotations
@@ -135,15 +139,70 @@ class DocValueColumn:
 
 @dataclass(frozen=True)
 class VectorColumn:
-    """A vector column as the on-disk format holds it. No ported path
-    searches vectors yet (ROADMAP item 12); ``core/directory.py`` carries
-    them through a load and a save."""
+    """One vector field's column in one segment (counterpart:
+    ``nrtsearch_tpu/core/segment.py`` ``VectorColumn``).
 
-    values: torch.Tensor   # device [capacity, dims]: f32 | int8 (see fmt)
+    ``values`` is [capacity, dims] on the device: f32, bf16 (the
+    ``float16`` format) or int8 (``round(v / scale)``); ``host_norms`` are
+    the L2 norms of the original f32 vectors. The squared norms every query
+    reads are computed once, on the device, when the column is made:
+    ``sq_norms`` (exact, ``host_norms ** 2`` in f32, for the exact vector
+    query) and ``score_sq_norms`` (those the format scores with: exact for
+    f32, the rounded rows' for bf16, the quantized rows' for int8), where
+    the reference rebuilds and uploads them on every query."""
+
+    values: torch.Tensor   # device [capacity, dims]: f32 | bf16 | int8 (see fmt)
     present: torch.Tensor  # device bool [capacity]
     host_norms: np.ndarray
     fmt: str = "float32"
     scale: float = 1.0
+    sq_norms: torch.Tensor = dc_field(init=False, repr=False, compare=False)
+    score_sq_norms: torch.Tensor = dc_field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        from nrtsearch_tpu_torch.ops.knn import quantized_sq_norms, rounded_sq_norms
+
+        sq = torch.as_tensor((self.host_norms ** 2).astype(np.float32),
+                             device=self.values.device)
+        if self.fmt == "int8":
+            score_sq = quantized_sq_norms(self.values, self.scale)
+        elif self.fmt == "float16":
+            score_sq = rounded_sq_norms(self.values)
+        else:
+            score_sq = sq
+        object.__setattr__(self, "sq_norms", sq)
+        object.__setattr__(self, "score_sq_norms", score_sq)
+
+    @property
+    def dims(self) -> int:
+        return int(self.values.shape[1])
+
+    def device_float(self) -> torch.Tensor:
+        """The dequantized f32 [capacity, dims] matrix on the device (a new
+        tensor per call for bf16 and int8 columns, as the reference's)."""
+        if self.fmt == "int8":
+            return self.values.to(torch.float32) * np.float32(self.scale)
+        return self.values.to(torch.float32)
+
+    def host_float(self) -> np.ndarray:
+        """The dequantized f32 host matrix (the whole column: merge)."""
+        return _dequantize(self.values.cpu(), self.fmt, self.scale)
+
+    def host_present(self) -> np.ndarray:
+        return self.present.cpu().numpy()
+
+    def host_row(self, local: int) -> np.ndarray:
+        """One doc's dequantized f32 vector: a copy of that row alone
+        (fetch), equal to ``host_float()[local]``."""
+        return _dequantize(self.values[local].cpu(), self.fmt, self.scale)
+
+
+def _dequantize(values: torch.Tensor, fmt: str, scale: float) -> np.ndarray:
+    """A host tensor of stored values as the reference's ``host_float``
+    gives them: int8 times the scale, bf16 and f32 as f32."""
+    if fmt == "int8":
+        return values.numpy().astype(np.float32) * scale
+    return values.to(torch.float32).numpy()
 
 
 @dataclass(frozen=True)
@@ -279,10 +338,34 @@ def doc_value_column(
     )
 
 
+def vector_column(mat: np.ndarray, present: np.ndarray, fmt: str,
+                  device: torch.device) -> VectorColumn:
+    """A column from the f32 host matrix: int8 through ``quantize_int8``
+    (its scale from this matrix), bf16 by rounding on the device."""
+    norms = np.linalg.norm(mat, axis=1)
+    scale = 1.0
+    if fmt == "int8":
+        from nrtsearch_tpu_torch.ops.knn import quantize_int8
+
+        q, scale = quantize_int8(mat)
+        values = torch.as_tensor(q, device=device)
+    elif fmt == "float16":
+        values = torch.as_tensor(mat, device=device).to(torch.bfloat16)
+    else:
+        values = torch.as_tensor(mat, device=device)
+    return VectorColumn(
+        values=values,
+        present=torch.as_tensor(present, device=device),
+        host_norms=norms.astype(np.float32),
+        fmt=fmt,
+        scale=scale,
+    )
+
+
 _BUILT_TYPES = (
     FieldType.TEXT, FieldType.ID, FieldType.ATOM, FieldType.BOOLEAN,
     FieldType.LONG, FieldType.INT, FieldType.DATE_TIME, FieldType.DOUBLE,
-    FieldType.FLOAT, FieldType.LAT_LON,
+    FieldType.FLOAT, FieldType.LAT_LON, FieldType.VECTOR,
 )
 
 
@@ -307,6 +390,8 @@ class SegmentBuilder:
         self._postings: dict[str, dict[str, list]] = {}
         self._doc_lens: dict[str, list[int]] = {}
         self._dv: dict[str, list] = {}          # field -> [(doc, value)]
+        # field -> [(doc, f32 vector)] or, from a merge, [(docs, rows)]
+        self._vectors: dict[str, list] = {}
         self._stored: list[dict] = []
 
     def add_document(self, doc: dict[str, Any]) -> int:
@@ -323,12 +408,17 @@ class SegmentBuilder:
             if fd is None:
                 raise KeyError(f"unregistered field: {name!r}")
             if fd.type not in _BUILT_TYPES or fd.index_prefixes is not None:
-                item = 12 if fd.type == FieldType.VECTOR else 10
                 raise NotImplementedError(
                     f"field {name!r} of type {fd.type.value}: not ported yet "
-                    f"(ROADMAP item {item})"
+                    f"(ROADMAP item 10)"
                 )
             values = value if isinstance(value, (list, tuple)) else [value]
+            if fd.type == FieldType.VECTOR:
+                # a raw number list (one vector) or a single json string
+                parsed_fields.append((fd, fd.parse_vector(
+                    values if len(values) > 1 and not isinstance(values[0], str)
+                    else values[0])))
+                continue
             if fd.type == FieldType.LAT_LON:
                 parsed_fields.append((fd, [(float(values[0]), float(values[1]))]))
                 continue
@@ -337,6 +427,11 @@ class SegmentBuilder:
             parsed_fields.append((fd, [fd.parse_doc_value(v) for v in values]))
         self.num_docs += 1
         for fd, parsed in parsed_fields:
+            if fd.type == FieldType.VECTOR:
+                self._vectors.setdefault(fd.name, []).append((doc_id, parsed))
+                if fd.store:
+                    stored_row[fd.name] = parsed.tolist()
+                continue
             if fd.type == FieldType.LAT_LON:
                 self._dv.setdefault(fd.name, []).append((doc_id, parsed[0]))
                 if fd.store:
@@ -378,6 +473,10 @@ class SegmentBuilder:
             name: self._pack_doc_values(self.field_defs[name], vals, capacity)
             for name, vals in self._dv.items()
         }
+        vectors = {
+            name: self._pack_vectors(self.field_defs[name], vals, capacity)
+            for name, vals in self._vectors.items()
+        }
         live = np.zeros(capacity, dtype=bool)
         live[: self.num_docs] = True
         return Segment(
@@ -389,7 +488,20 @@ class SegmentBuilder:
             live=torch.as_tensor(live, device=self.device),
             host_live=np.ones(self.num_docs, dtype=bool),
             doc_values=doc_values,
+            vectors=vectors,
         )
+
+    def _pack_vectors(self, fd: FieldDef, vals: list, capacity: int) -> VectorColumn:
+        """One vector column (the reference's ``_pack_vectors``): an f32
+        [capacity, dims] matrix, zero where a doc has no vector, stored in
+        the field's format; norms of the f32 rows."""
+        mat = np.zeros((capacity, fd.dims), dtype=np.float32)
+        present = np.zeros(capacity, dtype=bool)
+        for doc, vec in vals:
+            mat[doc] = vec
+            present[doc] = True
+        return vector_column(mat, present, getattr(fd, "vector_format", "float32"),
+                             self.device)
 
     def _pack_doc_values(self, fd: FieldDef, vals: list, capacity: int) -> DocValueColumn:
         """One column in the reference's layout (nrtsearch_tpu/core/segment.py

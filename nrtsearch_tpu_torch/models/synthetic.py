@@ -4,6 +4,8 @@ nrtsearch_tpu/models/flagship.py ``SyntheticCorpus``).
 The same seed gives the same arrays as the reference: the random draws run
 in the same order. ``segment_arrays`` cuts the corpus into doc-range
 segments in the layout ``convert.segment_from_numpy`` takes.
+``clustered_vectors`` is benchmarks/vector_recall.py's clustered Gaussian
+vector corpus, drawn in the same order.
 """
 
 from __future__ import annotations
@@ -143,6 +145,22 @@ def column_clauses(q: dict) -> dict:
     """The non-text part of a ``config3_query`` tree: a boolean of every
     clause but the first (the text clause), for ``eval_column_query``."""
     return {"booleanQuery": {"clauses": q["booleanQuery"]["clauses"][1:]}}
+
+
+def clustered_vectors(n: int, dims: int, n_queries: int,
+                      seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """(base f32 [n, dims], queries f32 [n_queries, dims]): Gaussian
+    clusters (one per 1,000 docs, at least 8) with sigma 0.35 around unit
+    normal centers, kNN structure like real embeddings (a copy of
+    benchmarks/vector_recall.py ``synthetic``)."""
+    rng = np.random.default_rng(seed)
+    n_clusters = max(n // 1000, 8)
+    centers = rng.normal(0, 1.0, (n_clusters, dims)).astype(np.float32)
+    assign = rng.integers(0, n_clusters, n)
+    base = centers[assign] + rng.normal(0, 0.35, (n, dims)).astype(np.float32)
+    qassign = rng.integers(0, n_clusters, n_queries)
+    qs = centers[qassign] + rng.normal(0, 0.35, (n_queries, dims)).astype(np.float32)
+    return base.astype(np.float32), qs.astype(np.float32)
 
 
 class SyntheticCorpus:

@@ -17,8 +17,8 @@ segment has fewer than k matches or a tie plateau at its threshold
 Node kinds with host-side work keep the eager evaluator (query/eval.py)
 and enter as precomputed (scores, match) pairs (``_host_fallback``): f64
 and multi-valued doc-value columns, resolved joins, and the node kinds the
-port does not serve yet (phrase, span, nested, completion: ROADMAP item 10;
-exact vectors: item 12), which raise there.
+port does not serve yet (phrase, span, nested, completion: ROADMAP item
+10), which raise there.
 """
 
 from __future__ import annotations
@@ -345,6 +345,12 @@ def prepare(node: qp.QueryNode, prep: _Prep) -> CNode:
         return CNode("geo_rings", slots=(
             prep.slot(dv.values), prep.slot(dv.present), prep.f32(node.boost),
         ) + ring_slots)
+    if isinstance(node, qp.ExactVectorQueryNode):
+        q, vc, similarity = qeval.exact_vector_inputs(node, prep.ctx)
+        return CNode("exact_vector", static=(similarity,), slots=(
+            prep.slot(q), prep.slot(vc.device_float()), prep.slot(vc.sq_norms),
+            prep.slot(vc.present), prep.slot(seg.live), prep.f32t(node.boost),
+        ))
     # host-verified / host-resident node kinds keep the eager path (and
     # raise there when not ported)
     return _host_fallback(node, prep)
@@ -555,6 +561,14 @@ def _run(c: CNode, inp: list, D: int, dev: torch.device):
             m = mask_ops.point_in_rings_mask(latlon, present, inp[ring_slot])
             match = m if match is None else (match | m)
         return _const(match, boost), match
+    if c.kind == "exact_vector":
+        from nrtsearch_tpu_torch.ops.knn import _scores as knn_scores
+
+        (similarity,) = c.static
+        q, vals, sq, present, live, boost = (inp[i] for i in c.slots)
+        scores = knn_scores(q, vals, sq, similarity)[0]
+        match = present & live
+        return torch.where(match, scores * boost, _zero(dev)), match
     if c.kind == "cross_fields":
         n_terms, n_fields = c.static
         need, boost = inp[c.slots[0]], inp[c.slots[1]]

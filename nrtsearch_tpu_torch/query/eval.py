@@ -13,9 +13,8 @@ transcendental function is involved (scripts, geo distance).
 
 Not ported: phrase, match-phrase, phrase-prefix and span-near queries need
 term positions, and completion, nested and polygon-contains queries need
-suggest, nested and POLYGON fields (ROADMAP item 10); the exact vector
-query needs vectors (item 12). Each raises ``NotImplementedError`` naming
-its item.
+suggest, nested and POLYGON fields (ROADMAP item 10). Each raises
+``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -180,7 +179,7 @@ def _eval_node_impl(node: qp.QueryNode, ctx: EvalContext):
         match = (vals > 0.0) & seg.live
         return torch.where(match, vals * scalar_f32(node.boost, seg.device), _zero(ctx)), match
     if isinstance(node, qp.ExactVectorQueryNode):
-        raise not_ported("an exact vector query", 12, "vector columns")
+        return _eval_exact_vector(node, ctx)
     if isinstance(node, qp.SpanNearNode):
         raise not_ported("a span-near query")
     if isinstance(node, qp.ResolvedJoinNode):
@@ -453,6 +452,35 @@ def _eval_dismax(node: qp.DisjunctionMaxNode, ctx: EvalContext):
         match = match | m
     scores = best + scalar_f32(node.tie_breaker, dev) * (total - best)
     return torch.where(match, scores * scalar_f32(node.boost, dev), _zero(ctx)), match
+
+
+def exact_vector_inputs(node: qp.ExactVectorQueryNode, ctx: "EvalContext"):
+    """(query [1, dims] on the device, the column, its similarity) of an
+    exact vector query, after the reference's checks."""
+    vc = ctx.segment.vectors.get(node.field)
+    fd = ctx.field_defs.get(node.field)
+    if vc is None or fd is None:
+        raise ValueError(f"{node.field} is not a VECTOR field")
+    if len(node.query_vector) != vc.dims:
+        raise ValueError(
+            f"query vector dimension {len(node.query_vector)} != field dims {vc.dims}"
+        )
+    q = torch.as_tensor(np.asarray(node.query_vector, np.float32)[None, :],
+                        device=ctx.segment.device)
+    return q, vc, fd.similarity or "l2_norm"
+
+
+def _eval_exact_vector(node: qp.ExactVectorQueryNode, ctx: EvalContext):
+    """Exact brute-force similarity over the whole segment (reference:
+    query/vector/ExactVectorQuery.java): the dequantized f32 matrix and the
+    exact squared norms, one product."""
+    from nrtsearch_tpu_torch.ops.knn import _scores as knn_scores
+
+    q, vc, similarity = exact_vector_inputs(node, ctx)
+    scores = knn_scores(q, vc.device_float(), vc.sq_norms, similarity)[0]
+    match = vc.present & ctx.segment.live
+    return torch.where(match, scores * scalar_f32(node.boost, ctx.segment.device),
+                       _zero(ctx)), match
 
 
 def _eval_boolean(node: qp.BooleanQueryNode, ctx: EvalContext):

@@ -1,8 +1,9 @@
 """Copy of ``nrtsearch_tpu/search/fetch.py``, kept whole but for the vector
-branch: the port's vector columns live on the device and vector search is
-not ported yet, so fetching a vector field raises (ROADMAP item 12) where the
-reference read ``np.asarray(vc.present)``, which a CUDA tensor refuses.
-Every other read here is of host arrays (stored rows, ``host_values``,
+branch: the port's vector columns live on the device, so a vector field's
+fetch reads the hit's presence bit and copies its row alone, where the
+reference read ``np.asarray(vc.present)`` (which a CUDA tensor refuses) and
+copied the segment's whole matrix to the host for every hit; the values
+are the same. Every other read here is of host arrays (stored rows, ``host_values``,
 ``host_present``, CSR arrays). Script fields run the port's ``script.expr``:
 called with a numpy score, as here, it hands back a numpy array.
 
@@ -112,10 +113,11 @@ def fetch_field_values(
 
             return [_json.loads(dv.ord_terms[local])]
         return [dv.host_values[local].item()]
-    if field_name in seg.vectors:
-        raise NotImplementedError(
-            f"vector field {field_name!r}: vectors are not ported yet (ROADMAP item 12)"
-        )
+    vc = seg.vectors.get(field_name)
+    if vc is not None:
+        if not bool(vc.present[local]):
+            return None
+        return [vc.host_row(local).tolist()]
     if fd is None:
         raise KeyError(f"unknown field: {field_name!r}")
     row = seg.stored[local]

@@ -13,11 +13,10 @@ the caller asks (tests do). Asking for CUDA without a card fails at startup
 The reference's XLA compile cache and its JAX platform pin have no
 counterpart: the port's kernels build once per process (``kernels``).
 
-What this slice does not serve answers ``UNIMPLEMENTED`` and names the
+What the port does not serve yet answers ``UNIMPLEMENTED`` and names the
 ROADMAP item that brings it, never ``INTERNAL``: a ``NotImplementedError``
-from the engine, a lazy import of a port module that does not exist yet,
-and the search request fields whose code is not ported (``_UNPORTED_SEARCH``,
-checked before the handler runs).
+from the engine, and the search request fields whose code is not ported
+(``_UNPORTED_SEARCH``, checked before the handler runs).
 """
 
 from __future__ import annotations
@@ -50,33 +49,10 @@ _STATUS_MAP = {
     NotImplementedError: grpc.StatusCode.UNIMPLEMENTED,
 }
 
-# port modules (or names in them) that the copied handlers, fetch and
-# plugins import lazily and that are not ported yet, with what they are and
-# the ROADMAP item that brings each
-_UNPORTED_MODULES = {
-    "nrtsearch_tpu_torch.search.rescore": ("rescorers", 9),
-    "nrtsearch_tpu_torch.search.retrievers": ("retrievers", 9),
-    "nrtsearch_tpu_torch.search.highlight": ("highlights", 9),
-}
-
 # SearchRequest fields whose serving code is not ported, with the item
 _UNPORTED_SEARCH = {
-    "knn": "12 (vector search)",
-    "multiRetriever": "9 (retrievers and blenders)",
-    "rescorers": "9 (search/rescore.py)",
-    "highlight": "9 (search/highlight.py)",
     "inner_hits": "10 (nested documents)",
 }
-
-
-def _unported_import(e: ImportError) -> Optional[tuple[str, int]]:
-    """What a failed import of the port needs and its ROADMAP item, or
-    None."""
-    name = e.name or ""
-    for mod, what in _UNPORTED_MODULES.items():
-        if name == mod or name.startswith(mod + "."):
-            return what
-    return None
 
 
 def _status_of(e: Exception) -> tuple[grpc.StatusCode, str]:
@@ -84,12 +60,6 @@ def _status_of(e: Exception) -> tuple[grpc.StatusCode, str]:
     code = _STATUS_MAP.get(type(e))
     if code is not None:
         return code, f"{type(e).__name__}: {e}"
-    unported = _unported_import(e) if isinstance(e, ImportError) else None
-    if unported is not None:
-        what, item = unported
-        return grpc.StatusCode.UNIMPLEMENTED, (
-            f"NotImplementedError: {what} is not ported yet (ROADMAP item {item}): {e.msg}"
-        )
     return grpc.StatusCode.INTERNAL, f"{type(e).__name__}: {e}"
 
 
@@ -97,12 +67,7 @@ def check_search_shape(req) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item when a search
     request uses a field this slice does not serve."""
     for fname, item in _UNPORTED_SEARCH.items():
-        value = getattr(req, fname)
-        if fname == "multiRetriever":
-            value = value.retrievers
-        elif fname == "highlight":
-            value = value.fields
-        if value:
+        if getattr(req, fname):
             raise NotImplementedError(
                 f"SearchRequest.{fname} is not ported yet (ROADMAP item {item})"
             )

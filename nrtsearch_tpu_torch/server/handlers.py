@@ -1056,8 +1056,8 @@ class Handlers:
                     qs = 0.0
                     if arrays:
                         s_arr, m_arr = arrays[h.segment_idx]
-                        if bool(np.asarray(m_arr[h.local_id])):
-                            qs = float(np.asarray(s_arr[h.local_id]))
+                        if bool(m_arr[h.local_id].item()):
+                            qs = float(s_arr[h.local_id].item())
                         else:
                             total += 1
                     scores[h.global_ord] = qs + h.score
@@ -1371,7 +1371,7 @@ class Handlers:
             )
             masks = matches.searcher.match_masks(reduced)
             out[dim] = coll.SegmentMatches(
-                matches.searcher, [np.asarray(m) for m in masks]
+                matches.searcher, [np.asarray(m.cpu()) for m in masks]
             )
         return out
 

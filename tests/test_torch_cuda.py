@@ -1021,3 +1021,291 @@ def test_text_scatter_waits_for_no_copy(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert scalar_f32(0.1, cuda_device).item() == float(np.float32(0.1))
+
+
+def _drill_sideways_requests(pb):
+    """A facet on ``tag`` beside a FILTER clause on ``tag``: the handler
+    re-matches the query without that clause for the facet's counts (drill
+    sideways) and reads each segment's mask on the host."""
+    from google.protobuf.json_format import ParseDict
+
+    out = []
+    for tag in ("t1", "t3"):
+        req = pb.SearchRequest(indexName="i", topHits=10, retrieveFields=["tag"])
+        ParseDict({"booleanQuery": {"clauses": [
+            {"occur": "MUST", "query": {"matchQuery": {"field": "body", "query": "alpha"}}},
+            {"occur": "FILTER", "query": {"termQuery": {"field": "tag", "textValue": tag}}}]}},
+            req.query)
+        f = req.facets.add()
+        f.dim = "tag"
+        f.topN = 10
+        out.append(req)
+    return out
+
+
+def test_drill_sideways_facet_cuda_equals_cpu(cuda_device, tmp_path, monkeypatch):
+    """A served drill-sideways facet with a FILTER on its own dimension
+    answers on the card (the handler copies each segment's match mask to
+    the host before numpy reads it) and equals the CPU's answer, both on
+    the merge path (bit-equal below 2^17, as test_served_path_cuda_equals_cpu
+    holds it)."""
+    monkeypatch.setenv("NRT_FAST_PATH", "merge")
+    gpu, _ = _served_answers(cuda_device, tmp_path / "gpu", _drill_sideways_requests)
+    cpu, _ = _served_answers("cpu", tmp_path / "cpu", _drill_sideways_requests)
+    for answer in gpu:
+        counts = {lv["label"] for lv in answer["facetResult"][0]["labelValues"]}
+        assert len(counts) > 1, counts
+    assert gpu == cpu
+
+
+# ---------------------------------------------------------------------------
+# vector search on the card (ops/knn.py, Searcher.knn_search, served)
+# ---------------------------------------------------------------------------
+
+KNN_ULPS = 4
+
+
+def _knn_scale(Q, V, sim, score) -> np.ndarray:
+    """The magnitude a score is computed from (tests/test_torch_knn.py's S):
+    the dot product's sum of |q_i v_i| carried through the similarity."""
+    Q, V = np.asarray(Q, np.float64), np.asarray(V, np.float64)
+    A = np.abs(Q) @ np.abs(V).T
+    qn = np.linalg.norm(Q, axis=1)[:, None]
+    vn = np.linalg.norm(V, axis=1)[None, :]
+    s = np.asarray(score, np.float64)
+    if sim == "l2_norm":
+        S = s * s * (qn ** 2 + vn ** 2 + 2 * A)
+    elif sim == "dot_product":
+        S = (A + 1) / 2
+    elif sim in ("cosine", "normalized_cosine"):
+        S = (A / np.maximum(qn * vn, 1e-30) + 1) / 2
+    else:
+        S = np.where(s >= 1, A + 1, s * s * (A + 1))
+    return np.maximum(S, np.abs(s))
+
+
+@pytest.mark.parametrize("B", [1, 5, 20])
+@pytest.mark.parametrize("fmt", ["float32", "float16", "int8"])
+@pytest.mark.parametrize("dims", [16, 100, 128])
+def test_knn_ops_cuda_equal_cpu(cuda_device, dims, fmt, B):
+    """Scores of the five similarities and knn_search / knn_search_quantized
+    on the card against the same inputs on the CPU: scores within 4 f32
+    ulps of their scale (cuBLAS adds in another order than the CPU), top-k
+    ids equal but at near-ties; int8 dots exact (torch._int_mm with query
+    rows padded to 32 and dims to a multiple of 8: 100 is not one, and B = 1
+    and 5 are under _int_mm's 17 rows)."""
+    from nrtsearch_tpu_torch.core.segment import vector_column
+    from nrtsearch_tpu_torch.ops import knn
+
+    rng = np.random.default_rng(dims * 7 + B)
+    V = rng.normal(size=(4096, dims)).astype(np.float32)
+    Q = rng.normal(size=(B, dims)).astype(np.float32)
+    Q[0] = V[11] + 0.02
+    mask = rng.random(4096) < 0.8
+    present = np.ones(4096, bool)
+    cols = [vector_column(V, present, fmt, d) for d in (cuda_device, torch.device("cpu"))]
+    seen_v = cols[1].host_float()
+    seen_q = Q if fmt != "float16" else torch.from_numpy(Q).to(torch.bfloat16).float().numpy()
+    if fmt == "int8":
+        qq = torch.from_numpy(rng.integers(-127, 128, size=(B, dims)).astype(np.int8))
+        dots = knn._int8_dots(qq.to(cuda_device), cols[0].values)
+        torch.cuda.synchronize()
+        assert torch.equal(dots.cpu(), knn._int8_dots(qq, cols[1].values))
+    for sim in knn.SIMILARITIES:
+        out = []
+        for col in cols:
+            qt = torch.from_numpy(Q).to(col.values.device)
+            mt = torch.from_numpy(mask).to(col.values.device)
+            if fmt == "int8":
+                full = knn._quantized_scores(qt, col.values, col.scale, col.score_sq_norms, sim)
+                top = knn.knn_search_quantized(col.values, col.scale, col.score_sq_norms, mt,
+                                               qt, similarity=sim, k=10)
+            else:
+                full = knn._scores(qt, col.values, col.score_sq_norms, sim)
+                top = knn.knn_search(col.values, col.score_sq_norms, mt, qt,
+                                     similarity=sim, k=10)
+            out.append((full.cpu().numpy(), top[0].cpu().numpy(), top[1].cpu().numpy()))
+        (gf, gs, gi), (cf, cs, ci) = out
+        tol = KNN_ULPS * 2.0 ** -23 * _knn_scale(seen_q, seen_v, sim, cf)
+        assert (np.abs(gf.astype(np.float64) - cf) <= tol).all(), (sim, fmt)
+        for b in range(B):
+            for r in np.nonzero(gi[b] != ci[b])[0]:
+                assert abs(cf[b, gi[b, r]] - cs[b, r]) <= 2 * tol[b, ci[b, r]], (sim, b, r)
+            assert mask[gi[b]].all()
+
+
+def _knn_writers(device):
+    from nrtsearch_tpu_torch.core.searcher import Searcher
+    from nrtsearch_tpu_torch.core.writer import IndexWriter
+    from nrtsearch_tpu_torch.schema import create_field_def
+
+    specs = {"id": {"type": "_ID", "store": True},
+             "price": {"type": "INT", "storeDocValues": True}}
+    for fmt, sim in (("float32", "l2_norm"), ("float16", "cosine"), ("int8", "dot_product")):
+        specs[f"v_{fmt}"] = {"type": "VECTOR", "vectorDimensions": 24, "vectorSimilarity": sim,
+                             "vectorIndexingOptions": fmt}
+    fds = {n: create_field_def(n, s) for n, s in specs.items()}
+    w = IndexWriter(fds, device, merge_factor=100)
+    vecs = np.random.default_rng(8).normal(size=(3000, 24)).astype(np.float32)
+    for lo in range(0, 3000, 1000):
+        w.add_documents([{"id": str(i), "price": str(i % 97),
+                          **{f: (vecs[i] * 0.3).tolist() for f in specs if f.startswith("v_")}}
+                         for i in range(lo, lo + 1000)])
+        w.refresh()
+    w.delete_by_id([str(i) for i in range(0, 3000, 37)])
+    w.refresh()
+    return Searcher(w.segments, fds), vecs * np.float32(0.3)
+
+
+def test_knn_searcher_cuda_equals_cpu(cuda_device):
+    """Searcher.knn_search over 3 segments with deletes, filtered and not,
+    k = 10 and 100, on the card and on the CPU: the same hits and totals,
+    scores within 4 f32 ulps of (|q| + |v|)^2 (the largest scale of the
+    three similarities here); no deleted doc answers."""
+    from nrtsearch_tpu_torch.query import parse_query
+
+    gpu, vecs = _knn_writers(cuda_device)
+    cpu, _ = _knn_writers("cpu")
+    q = vecs[5] + 0.01
+    tol = KNN_ULPS * 2.0 ** -23 * 4 * float(np.max(np.sum(vecs.astype(np.float64) ** 2, 1)))
+    for field in ("v_float32", "v_float16", "v_int8"):
+        for filt in (None, {"rangeQuery": {"field": "price", "upper": "40"}}):
+            for k in (10, 100):
+                node = parse_query(filt) if filt else None
+                g = gpu.knn_search(field, q, k, filter_node=node)
+                c = cpu.knn_search(field, q, k, filter_node=node)
+                assert g.total_hits == c.total_hits > 0
+                assert [h.global_ord for h in g.hits] == [h.global_ord for h in c.hits], field
+                np.testing.assert_allclose([h.score for h in g.hits], [h.score for h in c.hits],
+                                           rtol=0, atol=tol)
+                assert all(h.global_ord % 37 for h in g.hits)
+
+
+def _vector_served(device, root):
+    """The port's server on ``device`` over a 600-doc index with an f32 and
+    an int8 vector field: kNN, query + kNN, multiRetriever, rescorers and
+    highlights; answers without diagnostics and timestamps."""
+    from google.protobuf.json_format import MessageToDict, ParseDict
+
+    from nrtsearch_tpu_torch.client import NrtsearchClient
+    from nrtsearch_tpu_torch.config import NrtsearchConfig
+    from nrtsearch_tpu_torch.gen import pb
+    from nrtsearch_tpu_torch.server.grpc_server import NrtsearchServer
+
+    srv = NrtsearchServer(NrtsearchConfig.from_dict(
+        {"stateDir": str(root / "state"), "indexDir": str(root / "index")}), device=device)
+    client = NrtsearchClient(f"localhost:{srv.start(0)}")
+    rng = np.random.default_rng(17)
+    vecs = rng.normal(size=(600, 16)).astype(np.float32)
+    words = ["alpha", "beta", "gamma", "delta", "needle", "common"]
+    try:
+        client.create_index("v")
+        client.register_fields(pb.FieldDefRequest(indexName="v", field=[
+            pb.Field(name="body", type=pb.FieldType.TEXT, search=True, store=True),
+            pb.Field(name="price", type=pb.FieldType.FLOAT, storeDocValues=True),
+            pb.Field(name="tag", type=pb.FieldType.ATOM, storeDocValues=True),
+            pb.Field(name="vec", type=pb.FieldType.VECTOR, vectorDimensions=16,
+                     vectorSimilarity="l2_norm"),
+            pb.Field(name="vec_i8", type=pb.FieldType.VECTOR, vectorDimensions=16,
+                     vectorSimilarity="dot_product",
+                     vectorIndexingOptions=pb.VectorIndexingOptions(
+                         type="hnsw_scalar_quantized"))]))
+        ls = pb.LiveSettingsV2Request(indexName="v")
+        ls.liveSettings.maxRefreshSec.value = 3600.0
+        client.live_settings_v2(ls)
+        client.start_index(pb.StartIndexRequest(indexName="v", mode=pb.Mode.STANDALONE))
+        for lo in range(0, 600, 200):
+            reqs = []
+            for i in range(lo, lo + 200):
+                req = pb.AddDocumentRequest(indexName="v")
+                req.fields["body"].value.append(" ".join(rng.choice(words, 2 + i % 5)))
+                req.fields["price"].value.append(str(float(i % 50)))
+                req.fields["tag"].value.append(f"t{i % 4}")
+                req.fields["vec"].value.append(str(vecs[i].tolist()))
+                req.fields["vec_i8"].value.append(str((vecs[i] * 0.25).tolist()))
+                reqs.append(req)
+            client.add_documents(iter(reqs))
+            client.refresh("v")
+        q = [float(x) for x in vecs[42] + 0.03]
+        reqs = []
+        for query in (None, {"matchQuery": {"field": "body", "query": "alpha needle"}}):
+            req = pb.SearchRequest(indexName="v", topHits=12, retrieveFields=["body", "vec_i8"])
+            if query:
+                ParseDict(query, req.query)
+            for field in ("vec", "vec_i8"):
+                knn = req.knn.add()
+                knn.field, knn.k, knn.num_candidates = field, 10, 40
+                knn.query_vector.extend(q)
+            f = req.facets.add()
+            f.dim = "tag"
+            reqs.append(req)
+        multi = pb.SearchRequest(indexName="v", topHits=10)
+        rt = multi.multiRetriever.retrievers.add()
+        rt.name = "text"
+        rt.textRetriever.query.matchQuery.field = "body"
+        rt.textRetriever.query.matchQuery.query = "common gamma"
+        rv = multi.multiRetriever.retrievers.add()
+        rv.name = "knn"
+        rv.knnRetriever.knnQuery.field = "vec"
+        rv.knnRetriever.knnQuery.k = 20
+        rv.knnRetriever.knnQuery.query_vector.extend(q)
+        for blender in ("rrf", "SUM", "MAX"):
+            m = pb.SearchRequest()
+            m.CopyFrom(multi)
+            if blender != "rrf":
+                m.multiRetriever.blender.weightedScoreOrder.scoreMode = \
+                    pb.WeightedScoreOrderBlender.ScoreMode.Value(blender)
+            reqs.append(m)
+        for kind in ("query", "script"):
+            req = pb.SearchRequest(indexName="v", topHits=10)
+            req.query.matchQuery.field = "body"
+            req.query.matchQuery.query = "beta delta"
+            r = req.rescorers.add()
+            r.windowSize = 30
+            if kind == "query":
+                r.queryRescorer.rescoreQuery.matchQuery.field = "body"
+                r.queryRescorer.rescoreQuery.matchQuery.query = "needle"
+            else:
+                r.scriptRescorer.script.source = "_score + price / 100"
+            req.highlight.fields.append("body")
+            reqs.append(req)
+        out = []
+        for req in reqs:
+            resp = client.search(req)
+            resp.ClearField("diagnostics")
+            resp.searchState.ClearField("timestamp")
+            out.append(MessageToDict(resp))
+        return out, vecs
+    finally:
+        client.close()
+        srv.stop()
+
+
+def _close_answers(gpu, cpu, tol: float, path: str = "") -> None:
+    if isinstance(cpu, dict):
+        assert set(gpu) == set(cpu), path
+        for k in cpu:
+            if k in ("score", "lastScore") and isinstance(cpu[k], float):
+                assert abs(gpu[k] - cpu[k]) <= tol, (path, k, gpu[k], cpu[k])
+            else:
+                _close_answers(gpu[k], cpu[k], tol, f"{path}.{k}")
+    elif isinstance(cpu, list):
+        assert len(gpu) == len(cpu), path
+        for i, (g, c) in enumerate(zip(gpu, cpu)):
+            _close_answers(g, c, tol, f"{path}[{i}]")
+    else:
+        assert gpu == cpu, (path, gpu, cpu)
+
+
+def test_served_knn_hybrid_rescore_highlight_cuda_equals_cpu(cuda_device, tmp_path):
+    """kNN-only and query + kNN requests with two kNN clauses and a facet,
+    the multi-retriever blends, the query and script rescorers and a
+    highlight, served on the card and on the CPU: equal answers, scores
+    within 4 f32 ulps of 4 (|q| + |v|)^2 (two clauses, weights up to 2)."""
+    gpu, vecs = _vector_served(cuda_device, tmp_path / "gpu")
+    cpu, _ = _vector_served("cpu", tmp_path / "cpu")
+    x = vecs.astype(np.float64) + 0.03
+    tol = KNN_ULPS * 2.0 ** -23 * 4 * 4 * float(np.max(np.sum(x * x, 1)))
+    assert all(a.get("hits") for a in gpu)
+    assert any(h.get("highlights") for h in gpu[-1]["hits"])
+    _close_answers(gpu, cpu, tol)

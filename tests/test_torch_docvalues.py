@@ -219,15 +219,24 @@ def test_latest_commit_picks_the_highest_generation(port_segments, tmp_path):
 
 
 def test_bf16_vectors_raise_naming_item_12(tmp_path):
+    """A reference commit with a bf16 vector column raised item 12 until
+    vectors were ported (item 12); now it opens as a bf16 column holding
+    the reference's rounded values."""
+    import torch
+
     from nrtsearch_tpu.core.directory import commit_segments as ref_commit
     from nrtsearch_tpu.core.writer import IndexWriter as RefWriter
 
     spec = {"type": "VECTOR", "vectorDimensions": 4, "vectorIndexingOptions": "float16"}
     writer = RefWriter({"v": ref_create_field_def("v", spec)})
     writer.add_documents([{"v": [0.1, 0.2, 0.3, 0.4]}])
-    ref_commit(writer.refresh(), tmp_path, gen=1, version=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        port_dir.open_commit(tmp_path, "cpu")
+    ref_segs = writer.refresh()
+    ref_commit(ref_segs, tmp_path, gen=1, version=1)
+    _manifest, segs = port_dir.open_commit(tmp_path, "cpu")
+    vc, ref_vc = segs[0].vectors["v"], ref_segs[0].vectors["v"]
+    assert vc.fmt == "float16" and vc.values.dtype == torch.bfloat16
+    np.testing.assert_array_equal(vc.host_float(), ref_vc.host_float())
+    np.testing.assert_array_equal(vc.host_norms, ref_vc.host_norms)
 
 
 @pytest.mark.parametrize("spec,item", [
@@ -238,7 +247,18 @@ def test_bf16_vectors_raise_naming_item_12(tmp_path):
     ({"type": "TEXT", "search": True, "indexPrefixes": {"minChars": 2, "maxChars": 4}}, 10),
 ])
 def test_unported_field_types_raise(spec, item):
+    """Field types the port does not build raise naming their item; a
+    VECTOR field (item 12, ported) builds the reference's column."""
     writer = IndexWriter({"x": create_field_def("x", spec)}, "cpu")
     value = [1.0, 2.0] if spec["type"] in ("LAT_LON", "VECTOR") else "abc"
+    if item == 12:
+        from nrtsearch_tpu.core.writer import IndexWriter as RefWriter
+
+        ref = RefWriter({"x": ref_create_field_def("x", spec)})
+        for w in (writer, ref):
+            w.add_documents([{"x": value}])
+        vc, ref_vc = writer.refresh()[0].vectors["x"], ref.refresh()[0].vectors["x"]
+        np.testing.assert_array_equal(vc.host_float(), ref_vc.host_float())
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         writer.add_documents([{"x": value}])

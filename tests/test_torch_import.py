@@ -109,15 +109,40 @@ from nrtsearch_tpu_torch.search.query_cache import DEFAULT_QUERY_CACHE
 hits = DEFAULT_QUERY_CACHE.hits
 assert s.search(parse_query({"prefixQuery": {"field": "body", "prefix": "ga"}}), 5).total_hits == 120
 assert DEFAULT_QUERY_CACHE.hits == hits + 1
+# vector search: an int8 column, kNN, a hybrid blend and a rescore
+import numpy as np
+vfds = dict(fds, vec=create_field_def("vec", {"type": "VECTOR", "vectorDimensions": 8,
+                                             "vectorSimilarity": "l2_norm",
+                                             "vectorIndexingOptions": "int8"}))
+vw = IndexWriter(vfds, "cpu")
+vecs = np.random.default_rng(0).normal(size=(50, 8)).astype(np.float32)
+vw.add_documents([{"id": str(i), "body": words[i %% 5], "vec": vecs[i].tolist()}
+                  for i in range(50)])
+vs = Searcher(vw.refresh(), vfds)
+assert vs.knn_search("vec", vecs[7], 3).hits[0].global_ord == 7
+from nrtsearch_tpu_torch.search import retrievers as rtr
+from nrtsearch_tpu_torch.search.rescore import script_rescore
+res = rtr.run_retrievers(vs, [
+    rtr.RetrieverSpec("text", query=parse_query({"matchQuery": {"field": "body",
+                                                                "query": "needle"}})),
+    rtr.RetrieverSpec("knn", knn_field="vec", knn_vector=vecs[9], window_size=5)])
+blended = rtr.blend_rrf(res, {"text": 1.0, "knn": 2.0})
+assert blended[0].global_ord == 9, blended[:3]
+assert len(script_rescore(vs, blended, 5, "_score * 2")) == len(blended)
 loaded = [k for k, v in sys.modules.items() if v is not None]
 assert not any(k == "jax" or k.startswith("jax.") for k in loaded)
 assert not any(k == "nrtsearch_tpu" or k.startswith("nrtsearch_tpu.") for k in loaded)
 print("OK", len(mods))
 """
 
+# the modules of the vector and result-tail slice, each imported above
+VECTOR_SLICE = ("nrtsearch_tpu_torch.ops.knn", "nrtsearch_tpu_torch.search.retrievers",
+                "nrtsearch_tpu_torch.search.rescore", "nrtsearch_tpu_torch.search.highlight")
+
 
 def test_port_imports_and_searches_without_jax():
     mods = [m for m in _port_modules() if not _is_wire(m)]
+    assert set(VECTOR_SLICE) <= set(mods)
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT % {"blocked": BLOCKED, "mods": mods}],
         capture_output=True, text=True, cwd=str(REPO), timeout=300,
@@ -583,13 +608,16 @@ COPY_EXCEPTIONS = {
          '"dense" if _on_tpu() else "merge"'],
         ['on_cuda = getattr(getattr(self.global_state, "device", None), "type", "") == "cuda"',
          '"dense" if on_cuda else "merge"']),
+    # a vector fetch reads the hit's presence bit and copies its row alone
     "search/fetch.py": (
-        ["vc = seg.vectors.get(field_name)", "if vc is not None:",
-         "if not np.asarray(vc.present)[local]:", "return None",
+        ["if not np.asarray(vc.present)[local]:",
          "return [vc.host_float()[local].tolist()]"],
-        ["if field_name in seg.vectors:", "raise NotImplementedError(",
-         'f"vector field {field_name!r}: vectors are not ported yet (ROADMAP item 12)"',
-         ")"]),
+        ["if not bool(vc.present[local]):",
+         "return [vc.host_row(local).tolist()]"]),
+    # the rescore query's tensors come to the host through .cpu()
+    "search/rescore.py": (
+        ["seg_arrays[h.segment_idx] = (np.asarray(scores), np.asarray(match))"],
+        ["seg_arrays[h.segment_idx] = (scores.cpu().numpy(), match.cpu().numpy())"]),
     "state/global_state.py": (
         [],
         ["import torch", "", "*,", "device: str | torch.device,",
@@ -617,11 +645,20 @@ COPY_EXCEPTIONS = {
         ["Usage: python -m nrtsearch_tpu.nrt_utils [--root DIR | --bucket B] <cmd> ..."],
         ["Usage: python -m nrtsearch_tpu_torch.nrt_utils [--root DIR | --bucket B] <cmd> ..."]),
     # a virtual field's scores come from device tensors (None on a
-    # score-free answer, which passes through as in the original)
+    # score-free answer, which passes through as in the original); a kNN
+    # hit's query score and match bit are read through .item() (from a
+    # device tensor or a numpy array), the drill-sideways masks through
+    # .cpu(): np.asarray refuses a CUDA tensor
     "server/handlers.py": (
-        ["score_arr = np.asarray(arrays[idx][0])"],
+        ["score_arr = np.asarray(arrays[idx][0])",
+         "if bool(np.asarray(m_arr[h.local_id])):",
+         "qs = float(np.asarray(s_arr[h.local_id]))",
+         "matches.searcher, [np.asarray(m) for m in masks]"],
         ["score_arr = arrays[idx][0]",
-         "score_arr = np.asarray(score_arr if score_arr is None else score_arr.cpu())"]),
+         "score_arr = np.asarray(score_arr if score_arr is None else score_arr.cpu())",
+         "if bool(m_arr[h.local_id].item()):",
+         "qs = float(s_arr[h.local_id].item())",
+         "matches.searcher, [np.asarray(m.cpu()) for m in masks]"]),
     # entries are keyed by the segment's device as well as its id
     "search/query_cache.py": (
         ["def get(self, seg_id: str, node: qp.QueryNode) -> Optional[Any]:",
@@ -638,7 +675,8 @@ WHOLE_COPIES = [
     "client.py", "query/text_parser.py", "state/__init__.py",
     "state/index_state.py", "state/backend.py", "nrt/__init__.py",
     "nrt/point_state.py", "remote/__init__.py", "remote/backend.py",
-    "search/__init__.py", "server/__init__.py", "server/__main__.py",
+    "search/__init__.py", "search/retrievers.py", "search/highlight.py",
+    "server/__init__.py", "server/__main__.py",
     "server/batcher.py", "server/concurrent.py", "server/warming.py",
     "server/plugins.py", "server/replication.py",
     "server/rest_gateway.py", "remote/s3.py", "remote/s3_client.py",

@@ -411,3 +411,108 @@ def test_port_replica_installs_reference_point_with_deletes_and_updates(tmp_path
         primary.stop()
         ref_replica.stop()
         port_replica.stop()
+
+
+# ---------------------------------------------------------------------------
+# vector columns ride the segment files
+# ---------------------------------------------------------------------------
+
+VDIMS = 8
+VECTOR_SPECS = {
+    f"v_{fmt}": {"type": "VECTOR", "vectorDimensions": VDIMS, "vectorSimilarity": sim,
+                 "vectorIndexingOptions": fmt}
+    for fmt, sim in (("float32", "l2_norm"), ("float16", "cosine"), ("int8", "dot_product"))}
+VECTOR_FIELDS = list(VECTOR_SPECS)
+
+
+def _vector_docs(n: int, seed: int) -> list[dict]:
+    docs = _seeded_docs(n, seed)
+    vecs = np.random.default_rng(seed + 1).normal(size=(n, VDIMS)).astype(np.float32)
+    for d, v in zip(docs, vecs):
+        for name in VECTOR_FIELDS:
+            d[name] = v.tolist()
+    return docs
+
+
+def _knn_answers(searcher) -> list:
+    """(total, [(global ord, doc_id, score)]) of a kNN per vector field,
+    filtered and not."""
+    q = np.random.default_rng(77).normal(size=VDIMS).astype(np.float32)
+    out = []
+    for name in VECTOR_FIELDS:
+        for filt in (None, {"rangeQuery": {"field": "price", "upper": "60"}}):
+            parse = parse_query if "nrtsearch_tpu_torch" in type(searcher).__module__ \
+                else ref_parse_query
+            td = searcher.knn_search(name, q, 10,
+                                     filter_node=parse(filt) if filt else None)
+            out.append((td.total_hits, [
+                (h.global_ord, searcher.segments[h.segment_idx].stored[h.local_id]["doc_id"],
+                 h.score) for h in td.hits]))
+    return out
+
+
+def _close(port: list, ref: list) -> None:
+    """Equal hits and totals; scores within 8 f32 ulps (the two packages'
+    products add in other orders, tests/test_torch_knn.py)."""
+    assert [(t, [h[:2] for h in hits]) for t, hits in port] == \
+        [(t, [h[:2] for h in hits]) for t, hits in ref]
+    for (_t, ph), (_u, rh) in zip(port, ref):
+        np.testing.assert_allclose([h[2] for h in ph], [h[2] for h in rh],
+                                   rtol=8 * 2.0 ** -23, atol=0)
+
+
+def test_replica_syncs_vector_commit_and_answers_knn(tmp_path):
+    """A port primary with f32, bf16 and int8 vector fields publishes two
+    refreshes and a delete; a port replica installs the point and answers
+    kNN bit for bit as the primary does; a reference replica of the same
+    point answers alike (scores to 8 ulps). Then a reference primary's
+    point reaches a port replica, which answers as a reference replica."""
+    primary = IndexRuntime(make_info().with_fields(VECTOR_SPECS), tmp_path / "primary",
+                           mode="PRIMARY", remote=LocalFileBackend(tmp_path / "remote"),
+                           service_name="svc", primary_gen=1, device="cpu")
+    replica = IndexRuntime(make_info().with_fields(VECTOR_SPECS), tmp_path / "replica",
+                           mode="REPLICA", remote=LocalFileBackend(tmp_path / "remote"),
+                           service_name="svc", device="cpu")
+    ref_replica = RefIndexRuntime(make_ref_info().with_fields(VECTOR_SPECS),
+                                  tmp_path / "ref_replica", mode="REPLICA",
+                                  remote=RefLocalFileBackend(tmp_path / "remote"),
+                                  service_name="svc")
+    try:
+        primary.start()
+        docs = _vector_docs(90, seed=12)
+        primary.add_documents(docs[:50])
+        primary.refresh()
+        primary.add_documents(docs[50:])
+        primary.refresh()
+        primary.delete_by_id(["3", "60"])
+        primary.refresh()
+        assert replica.sync_from_remote() is True
+        assert ref_replica.sync_from_remote() is True
+        assert replica.searcher.num_docs == 88
+        seg = replica.searcher.segments[0]
+        assert {seg.vectors[n].fmt for n in VECTOR_FIELDS} == {"float32", "float16", "int8"}
+        port = _knn_answers(replica.searcher)
+        assert port == _knn_answers(primary.searcher)
+        assert all(doc_id not in ("3", "60") for _t, hits in port for _o, doc_id, _s in hits)
+        _close(port, _knn_answers(ref_replica.searcher))
+    finally:
+        primary.stop()
+        replica.stop()
+        ref_replica.stop()
+
+    ref_primary = RefIndexRuntime(make_ref_info().with_fields(VECTOR_SPECS),
+                                  tmp_path / "ref_primary", mode="PRIMARY",
+                                  remote=RefLocalFileBackend(tmp_path / "remote2"),
+                                  service_name="svc", primary_gen=1)
+    port_replica = IndexRuntime(make_info().with_fields(VECTOR_SPECS), tmp_path / "replica2",
+                                mode="REPLICA", remote=LocalFileBackend(tmp_path / "remote2"),
+                                service_name="svc", device="cpu")
+    try:
+        ref_primary.start()
+        ref_primary.add_documents(_vector_docs(70, seed=13))
+        ref_primary.refresh()
+        assert port_replica.sync_from_remote() is True
+        _close(_knn_answers(port_replica.searcher), _knn_answers(ref_primary.searcher))
+    finally:
+        ref_primary.stop()
+        port_replica.stop()

@@ -426,10 +426,32 @@ def _rescored():
     return req
 
 
+def _inner_hits():
+    req = _match("alpha", topHits=5)
+    req.inner_hits["kids"].query_nested_path = "kids"
+    return req
+
+
+def _outcome(client, req):
+    """A search's plain answer, or its status code and the error's type."""
+    try:
+        return _plain(client.search(req))
+    except grpc.RpcError as e:
+        return (e.code(), e.details().split(":")[0])
+
+
 @pytest.mark.parametrize("make, item", [(_phrase, "item 10"), (_knn, "item 12"),
-                                        (_rescored, "item 9")],
-                         ids=["phrase", "knn", "rescorer"])
+                                        (_rescored, "item 9"), (_inner_hits, "item 10")],
+                         ids=["phrase", "knn", "rescorer", "inner_hits"])
 def test_unported_shapes_answer_unimplemented(servers, make, item):
+    """Phrase queries and inner hits answer UNIMPLEMENTED naming item 10.
+    A kNN clause (item 12) and a rescorer (item 9) answered so until their
+    items were ported; now they answer as the reference does (here a kNN
+    clause on a text field: NOT_FOUND on both)."""
+    if item in ("item 12", "item 9"):
+        ref, port = (_outcome(servers[side][1], make()) for side in ("ref", "port"))
+        assert port == ref, (port, ref)
+        return
     details = _unimplemented(servers["port"][1], make())
     assert "ROADMAP" in details and item in details, details
 
@@ -660,3 +682,400 @@ def test_virtual_shards_raise_item_13(head_searcher):
     s.dist_shards = 2
     with pytest.raises(NotImplementedError, match="item 13"):
         s.search(node, 5)
+
+
+# ---------------------------------------------------------------------------
+# vector search and the result tail (ROADMAP items 12 and 9), served
+# ---------------------------------------------------------------------------
+
+VEC_INDEX = "vectors"
+VDIMS = 12
+VEC_DOCS = 180
+VEC_DELETED = ("v3", "v77", "v150")
+# kNN scores come from products that add in other orders in the two
+# packages: tests/test_torch_knn.py holds a score within 4 f32 ulps of its
+# scale S (the dot product's magnitude carried through the similarity).
+# Here S is bounded once for the index: (|q| + |v|)^2 <= 4 max |x|^2 over
+# its rows and queries (l2's S; the dot product's and cosine's are below
+# it), times 2 summed clauses and a weight of at most 2; a score is held
+# within that or 8 ulps relative, whichever is larger.
+KNN_REL = 8 * 2.0 ** -23
+
+
+def _vector_fields():
+    quantized = pb.VectorIndexingOptions(type="hnsw_scalar_quantized")
+    return [
+        pb.Field(name="doc_id", type=pb.FieldType._ID, store=True, storeDocValues=True),
+        pb.Field(name="body", type=pb.FieldType.TEXT, search=True, store=True),
+        pb.Field(name="tag", type=pb.FieldType.ATOM, storeDocValues=True, search=True),
+        pb.Field(name="price", type=pb.FieldType.FLOAT, storeDocValues=True),
+        pb.Field(name="vec", type=pb.FieldType.VECTOR, vectorDimensions=VDIMS,
+                 vectorSimilarity="l2_norm", store=True),
+        pb.Field(name="vec_i8", type=pb.FieldType.VECTOR, vectorDimensions=VDIMS,
+                 vectorSimilarity="dot_product", vectorIndexingOptions=quantized),
+        pb.Field(name="vec_cos", type=pb.FieldType.VECTOR, vectorDimensions=VDIMS,
+                 vectorSimilarity="cosine"),
+    ]
+
+
+def _vecs() -> np.ndarray:
+    return np.random.default_rng(SEED + 7).normal(size=(VEC_DOCS, VDIMS)).astype(np.float32)
+
+
+def _vector_docs() -> list[dict]:
+    rng = np.random.default_rng(SEED + 8)
+    vecs = _vecs()
+    docs = []
+    for i in range(VEC_DOCS):
+        words = rng.choice(WORDS, size=int(rng.integers(3, 12)))
+        doc = {"doc_id": f"v{i}", "body": " ".join(words), "tag": f"t{i % 5}",
+               "price": str(float(np.float32(round(rng.uniform(0, 100), 2))))}
+        if i % 13 != 6:                                 # a few docs hold no vectors
+            for name, scale in (("vec", 1.0), ("vec_i8", 0.2), ("vec_cos", 3.0)):
+                doc[name] = str([float(x) for x in vecs[i] * np.float32(scale)])
+        docs.append(doc)
+    return docs
+
+
+@pytest.fixture(scope="module")
+def vector_servers(servers):
+    """The vector index on both servers: 3 add/refresh rounds of 60 docs,
+    then 3 deletes by id and a refresh."""
+    docs = _vector_docs()
+    for side in ("ref", "port"):
+        client = servers[side][1]
+        client.create_index(VEC_INDEX)
+        client.register_fields(pb.FieldDefRequest(indexName=VEC_INDEX, field=_vector_fields()))
+        ls = pb.LiveSettingsV2Request(indexName=VEC_INDEX)
+        ls.liveSettings.maxRefreshSec.value = 3600.0
+        client.live_settings_v2(ls)
+        client.start_index(pb.StartIndexRequest(indexName=VEC_INDEX, mode=pb.Mode.STANDALONE))
+        for lo in range(0, VEC_DOCS, 60):
+            client.add_documents(_write_requests(VEC_INDEX, docs[lo:lo + 60]))
+            client.refresh(VEC_INDEX)
+        for doc_id in VEC_DELETED:
+            req = pb.AddDocumentRequest(indexName=VEC_INDEX)
+            req.fields["doc_id"].value.append(doc_id)
+            client.delete(req)
+        client.refresh(VEC_INDEX)
+    return servers
+
+
+def _vreq(query: dict | None = None, **kw) -> pb.SearchRequest:
+    from google.protobuf.json_format import ParseDict
+
+    req = pb.SearchRequest(indexName=VEC_INDEX, **kw)
+    if query is not None:
+        ParseDict(query, req.query)
+    return req
+
+
+def _knn_clause(req, field: str, row: int, k: int = 10, filt: dict | None = None,
+                boost: float = 0.0, scale: float = 1.0):
+    from google.protobuf.json_format import ParseDict
+
+    knn = req.knn.add()
+    knn.field = field
+    knn.query_vector.extend(float(x) for x in _vecs()[row] * np.float32(scale) + 0.05)
+    knn.k = k
+    knn.num_candidates = 4 * k
+    if boost:
+        knn.boost = boost
+    if filt is not None:
+        ParseDict(filt, knn.filter)
+    return req
+
+
+def _multi(blender: str | None, text: str = "common alpha", row: int = 11):
+    req = _vreq(topHits=15, retrieveFields=["doc_id"])
+    rt = req.multiRetriever.retrievers.add()
+    rt.name = "text"
+    rt.textRetriever.query.matchQuery.field = "body"
+    rt.textRetriever.query.matchQuery.query = text
+    rt.textRetriever.topHits = 30
+    rv = req.multiRetriever.retrievers.add()
+    rv.name = "vector"
+    rv.boost = 2.0
+    rv.knnRetriever.knnQuery.field = "vec"
+    rv.knnRetriever.knnQuery.query_vector.extend(float(x) for x in _vecs()[row])
+    rv.knnRetriever.knnQuery.k = 20
+    rv.knnRetriever.knnQuery.num_candidates = 30
+    b = req.multiRetriever.blender
+    if blender == "rrf":
+        b.weightedRrf.rankConstant = 30
+    elif blender in ("SUM", "MAX", "AVG"):
+        b.weightedScoreOrder.scoreMode = pb.WeightedScoreOrderBlender.ScoreMode.Value(blender)
+    elif blender == "raw":
+        b.scorelessRawMerge.SetInParent()
+    return req
+
+
+def _rescore(req, kind: str, window: int = 20):
+    r = req.rescorers.add()
+    r.windowSize = window
+    if kind == "query":
+        r.queryRescorer.rescoreQuery.matchQuery.field = "body"
+        r.queryRescorer.rescoreQuery.matchQuery.query = "beta needle"
+        r.queryRescorer.queryWeight = 0.5
+        r.queryRescorer.rescoreQueryWeight = 3.0
+    else:
+        r.scriptRescorer.script.source = "_score * 2 + price / 10"
+    return req
+
+
+def _highlighted(req, phrase: bool = False):
+    req.highlight.fields.append("body")
+    req.highlight.settings.fragment_size.value = 30
+    req.highlight.settings.max_number_of_fragments.value = 3
+    if phrase:
+        fs = req.highlight.field_settings["body"]
+        fs.pre_tags.append("[")
+        fs.post_tags.append("]")
+        fs.highlight_query.matchPhraseQuery.field = "body"
+        fs.highlight_query.matchPhraseQuery.query = "common alpha"
+    return req
+
+
+def _drill_sideways():
+    req = _vreq({"booleanQuery": {"clauses": [
+        {"occur": "MUST", "query": {"matchQuery": {"field": "body", "query": "common"}}},
+        {"occur": "FILTER", "query": {"termQuery": {"field": "tag", "textValue": "t2"}}}]}},
+        topHits=10, retrieveFields=["doc_id", "tag"])
+    f = req.facets.add()
+    f.dim = "tag"
+    f.topN = 10
+    return req
+
+
+def _facet(req):
+    f = req.facets.add()
+    f.dim = "tag"
+    f.topN = 5
+    return req
+
+
+VECTOR_REQUESTS = {
+    "knn_f32": lambda: _knn_clause(_vreq(topHits=10, retrieveFields=[
+        "doc_id", "vec", "vec_cos", "vec_i8"]), "vec", 21),
+    "knn_i8_filtered": lambda: _knn_clause(
+        _vreq(topHits=8, retrieveFields=["doc_id"]), "vec_i8", 40, k=8, scale=0.2,
+        filt={"rangeQuery": {"field": "price", "upper": "60"}}),
+    "knn_cos_term_filter": lambda: _knn_clause(
+        _vreq(topHits=10, retrieveFields=["doc_id"]), "vec_cos", 5, scale=3.0,
+        filt={"termQuery": {"field": "tag", "textValue": "t1"}}),
+    "knn_two_clauses": lambda: _knn_clause(_knn_clause(
+        _vreq(topHits=12), "vec", 60, boost=1.5), "vec_i8", 61, scale=0.2),
+    "knn_faceted": lambda: _facet(_knn_clause(_vreq(topHits=10), "vec", 90)),
+    "query_plus_knn": lambda: _knn_clause(
+        _vreq({"matchQuery": {"field": "body", "query": "alpha needle"}}, topHits=15,
+              retrieveFields=["doc_id"]), "vec", 100, k=10),
+    "query_plus_knn_faceted": lambda: _facet(_knn_clause(
+        _vreq({"matchQuery": {"field": "body", "query": "common"}}, topHits=10), "vec", 7)),
+    "exact_vector_query": lambda: _vreq(
+        {"exactVectorQuery": {"field": "vec", "queryFloatVector":
+                              [float(x) for x in _vecs()[33]]}}, topHits=10),
+    "multi_default_rrf": lambda: _multi(None),
+    "multi_rrf": lambda: _multi("rrf"),
+    "multi_sum": lambda: _multi("SUM"),
+    "multi_max": lambda: _multi("MAX"),
+    "multi_avg": lambda: _multi("AVG"),
+    "multi_raw": lambda: _multi("raw"),
+    "query_rescorer": lambda: _rescore(
+        _vreq({"matchQuery": {"field": "body", "query": "common gamma"}}, topHits=15), "query"),
+    "script_rescorer": lambda: _rescore(
+        _vreq({"matchQuery": {"field": "body", "query": "common delta"}}, topHits=15), "script"),
+    "knn_rescored": lambda: _rescore(_knn_clause(_vreq(topHits=10), "vec", 120, k=15),
+                                     "script", window=10),
+    "highlight": lambda: _highlighted(_vreq(
+        {"matchQuery": {"field": "body", "query": "alpha needle kernel"}}, topHits=10)),
+    "highlight_phrase_override": lambda: _highlighted(_vreq(
+        {"matchQuery": {"field": "body", "query": "common"}}, topHits=10), phrase=True),
+    "drill_sideways": _drill_sideways,
+}
+
+
+def _knn_abs() -> float:
+    x = _vecs().astype(np.float64) + 0.05
+    return 4 * 2.0 ** -23 * 4 * float(np.max(np.sum(x * x, axis=1))) * 2 * 2
+
+
+KNN_ABS = _knn_abs()
+
+
+def _close_scores(ref, port, ctx: str, path: str = "") -> None:
+    """Equal, but scores (and searchState.lastScore) within KNN_ABS or
+    KNN_REL relative."""
+    if isinstance(ref, dict):
+        assert isinstance(port, dict) and set(port) == set(ref), (ctx, path)
+        for k in ref:
+            if k in ("score", "lastScore") and isinstance(ref[k], float):
+                tol = max(KNN_ABS, KNN_REL * abs(ref[k]))
+                assert abs(port[k] - ref[k]) <= tol, (ctx, path, k, port[k], ref[k])
+            else:
+                _close_scores(ref[k], port[k], ctx, f"{path}.{k}")
+    elif isinstance(ref, list):
+        assert isinstance(port, list) and len(port) == len(ref), (ctx, path)
+        for i, (r, p) in enumerate(zip(ref, port)):
+            _close_scores(r, p, ctx, f"{path}[{i}]")
+    else:
+        assert port == ref, (ctx, path, port, ref)
+
+
+@pytest.mark.parametrize("name", list(VECTOR_REQUESTS))
+def test_vector_and_result_tail_match_reference(vector_servers, name):
+    """kNN (three formats, filters, several clauses, facets), query + kNN,
+    the exact vector query, the multi-retriever blends, the query and
+    script rescorers, highlights and a drill-sideways facet, served by both
+    servers: the port answers as the reference does."""
+    ref = _plain(vector_servers["ref"][1].search(VECTOR_REQUESTS[name]()))
+    port = _plain(vector_servers["port"][1].search(VECTOR_REQUESTS[name]()))
+    assert port.get("hits"), name
+    _close_scores(ref, port, name)
+    if name.startswith("highlight"):
+        assert any(h.get("highlights") for h in port["hits"]), name
+    if name == "drill_sideways":
+        counts = {lv["label"]: lv["value"] for lv in port["facetResult"][0]["labelValues"]}
+        assert len(counts) > 1, counts          # the tag filter is left out of its own dim
+    gone = set(VEC_DELETED)
+    for hit in port["hits"]:
+        doc = hit.get("fields", {}).get("doc_id")
+        assert doc is None or doc["fieldValue"][0]["textValue"] not in gone
+
+
+def test_vector_fetch_returns_the_stored_vector(vector_servers):
+    """retrieveFields of vector fields: a stored one answers its stored
+    list (one doubleValue per component, as the reference answers it); an
+    unstored one its column's row as a vectorValue, the f32 row exactly and
+    the int8 row dequantized, within half a quantization step."""
+    resp = vector_servers["port"][1].search(VECTOR_REQUESTS["knn_f32"]())
+    vecs = _vecs()
+    for hit in resp.hits:
+        i = int(hit.fields["doc_id"].fieldValue[0].textValue[1:])
+        stored = [fv.doubleValue for fv in hit.fields["vec"].fieldValue]
+        np.testing.assert_array_equal(np.float32(stored), vecs[i])
+        cos = list(hit.fields["vec_cos"].fieldValue[0].vectorValue.value)
+        np.testing.assert_array_equal(np.float32(cos), vecs[i] * np.float32(3.0))
+        i8 = np.float32(list(hit.fields["vec_i8"].fieldValue[0].vectorValue.value))
+        want = vecs[i] * np.float32(0.2)
+        # a segment's step is its quantile scale, at most max |x| / 127
+        half_step = float(np.abs(vecs * np.float32(0.2)).max()) / 254
+        assert i8.shape == want.shape and np.abs(i8 - want).max() <= half_step * (1 + 1e-6)
+
+
+def test_hybrid_search_over_grpc_matches_reference(servers):
+    """tests/test_knn.py's three-document hybrid case: kNN only, then a
+    text query with a kNN clause, on both servers."""
+    answers = {}
+    for side in ("ref", "port"):
+        client = servers[side][1]
+        client.create_index("hy")
+        client.register_fields(pb.FieldDefRequest(indexName="hy", field=[
+            pb.Field(name="id", type=pb.FieldType._ID, store=True),
+            pb.Field(name="text", type=pb.FieldType.TEXT, search=True),
+            pb.Field(name="v", type=pb.FieldType.VECTOR, vectorDimensions=4,
+                     vectorSimilarity="l2_norm")]))
+        client.start_index(pb.StartIndexRequest(indexName="hy", mode=pb.Mode.STANDALONE))
+        reqs = []
+        for i, t, v in (("0", "alpha tpu", [1, 0, 0, 0]), ("1", "beta tpu", [0, 1, 0, 0]),
+                        ("2", "gamma other", [0.9, 0.1, 0, 0])):
+            r = pb.AddDocumentRequest(indexName="hy")
+            r.fields["id"].value.append(i)
+            r.fields["text"].value.append(t)
+            r.fields["v"].value.append(str(list(map(float, v))))
+            reqs.append(r)
+        client.add_documents(iter(reqs))
+        client.refresh("hy")
+        knn_only = pb.SearchRequest(indexName="hy", topHits=2, retrieveFields=["id"])
+        knn = knn_only.knn.add()
+        knn.field, knn.k = "v", 2
+        knn.query_vector.extend([1.0, 0.0, 0.0, 0.0])
+        hybrid = pb.SearchRequest(indexName="hy", topHits=3, retrieveFields=["id"])
+        hybrid.query.matchQuery.field = "text"
+        hybrid.query.matchQuery.query = "tpu"
+        hybrid.knn.add().CopyFrom(knn)
+        answers[side] = [_plain(client.search(r)) for r in (knn_only, hybrid)]
+        client.stop_index("hy")
+    ids = [[h["fields"]["id"]["fieldValue"][0]["textValue"] for h in a["hits"]]
+           for a in answers["port"]]
+    assert ids[0] == ["0", "2"] and ids[1][0] == "0" and set(ids[1]) == {"0", "1", "2"}
+    for r, p in zip(answers["ref"], answers["port"]):
+        _close_scores(r, p, "hybrid")
+
+
+def _td_of(mod, *ords, scores=None):
+    scores = scores or [1.0] * len(ords)
+    return mod.TopDocs([mod.Hit(0, o, o, s) for o, s in zip(ords, scores)], len(ords))
+
+
+BLENDS = {
+    "rrf_ranks": lambda r, s: r.blend_rrf({"text": _td_of(s, 10, 20, 30)}, {"text": 1.0}, 60),
+    "rrf_duplicate_sum": lambda r, s: r.blend_rrf({"text": _td_of(s, 5), "knn": _td_of(s, 5)},
+                                                  {"text": 1.0, "knn": 1.0}, 60),
+    "rrf_rank_constant": lambda r, s: r.blend_rrf({"text": _td_of(s, 1)}, {"text": 1.0}, 10),
+    "rrf_boost": lambda r, s: r.blend_rrf({"text": _td_of(s, 1)}, {"text": 2.0}, 60),
+    "rrf_empty": lambda r, s: r.blend_rrf({"text": _td_of(s)}, {"text": 1.0}),
+    "weighted_sum": lambda r, s: r.blend_weighted_score(
+        {"a": _td_of(s, 1, 2, 3, scores=[3.0, 2.0, 1.0]),
+         "b": _td_of(s, 3, 4, scores=[5.0, 0.5])}, {"a": 1.0, "b": 0.5}, "SUM"),
+    "weighted_max": lambda r, s: r.blend_weighted_score(
+        {"a": _td_of(s, 1, 2, scores=[3.0, 2.0]), "b": _td_of(s, 2, 1, scores=[9.0, 1.0])},
+        {"a": 2.0, "b": 1.0}, "MAX"),
+    "weighted_avg": lambda r, s: r.blend_weighted_score(
+        {"a": _td_of(s, 7, 8, scores=[1.5, 1.0]), "b": _td_of(s, 8, scores=[4.0])},
+        {"a": 1.0, "b": 1.0}, "AVG"),
+    "raw": lambda r, s: r.blend_raw({"a": _td_of(s, 3, 1), "b": _td_of(s, 1, 9, 3)},
+                                    ["b", "a"]),
+}
+
+
+@pytest.mark.parametrize("name", list(BLENDS))
+def test_blender_goldens_match_reference(name):
+    """tests/test_lucene_goldens.py's weighted-RRF cases
+    (WeightedRrfBlenderOperationTest) and the score and raw blenders on
+    hand-made retriever results: the port's blends equal the reference's."""
+    from nrtsearch_tpu.core import searcher as ref_searcher
+    from nrtsearch_tpu.search import retrievers as ref_rtr
+    from nrtsearch_tpu_torch.core import searcher as port_searcher
+    from nrtsearch_tpu_torch.search import retrievers as port_rtr
+
+    ref = BLENDS[name](ref_rtr, ref_searcher)
+    port = BLENDS[name](port_rtr, port_searcher)
+    assert [(h.global_ord, h.score) for h in port] == [(h.global_ord, h.score) for h in ref]
+
+
+HIGHLIGHT_CASES = {
+    "phrase_whole_span": ("the quick brown fox jumps while a lazy brown dog sleeps quick",
+                          {"matchPhraseQuery": {"field": "body", "query": "quick brown"}}, {}),
+    "phrase_consecutive": ("quick red brown things",
+                           {"matchPhraseQuery": {"field": "body", "query": "quick brown"}}, {}),
+    "distinct_terms": ("alpha alpha alpha alpha " + "filler " * 40 + "alpha beta gamma end",
+                       {"matchQuery": {"field": "body", "query": "alpha beta gamma"}},
+                       {"fragment_size": 40, "max_fragments": 1}),
+    "boost_order": ("left part has rare word here " + "x " * 60 + "right part has common word",
+                    {"booleanQuery": {"clauses": [
+                        {"occur": "SHOULD", "query": {"termQuery": {
+                            "field": "body", "textValue": "common"}}},
+                        {"occur": "SHOULD", "query": {"termQuery": {
+                            "field": "body", "textValue": "rare", "boost": 5.0}}}]}},
+                    {"fragment_size": 30, "max_fragments": 2}),
+    "prefix_settings": ("searching searches searched elsewhere",
+                        {"prefixQuery": {"field": "body", "prefix": "search"}},
+                        {"pre_tag": "[", "post_tag": "]", "fragment_size": 200}),
+}
+
+
+@pytest.mark.parametrize("name", list(HIGHLIGHT_CASES))
+def test_highlight_cases_match_reference(name):
+    """tests/test_highlight_fvh.py's cases through both highlighters."""
+    from nrtsearch_tpu.query.plan import parse_query as ref_parse
+    from nrtsearch_tpu.search import highlight as ref_hl
+    from nrtsearch_tpu_torch.query import parse_query
+    from nrtsearch_tpu_torch.search import highlight as port_hl
+
+    text, query, settings = HIGHLIGHT_CASES[name]
+    ref = ref_hl.highlight_text(text, ref_hl.build_highlight_query(ref_parse(query), "body"),
+                                ref_hl.HighlightSettings(**settings))
+    port = port_hl.highlight_text(text, port_hl.build_highlight_query(parse_query(query), "body"),
+                                  port_hl.HighlightSettings(**settings))
+    assert port == ref
+    assert ref or name == "phrase_consecutive"
