@@ -221,6 +221,34 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    for bit as the primary. Prints the peak device memory and the phase's
    seconds.
 
+15. term positions and the field types that need them. Part A: phase 4's
+   corpus with its token sequence kept (the postings unchanged), each
+   segment's positions CSR (about 51M positions) beside the postings on
+   the card and on a CPU copy; the positions' bytes on the card. At B = 1,
+   PHRASE_REPS times each: 8 exact 2-term and 8 exact 3-term phrases drawn
+   from the tokens at seeded docs and offsets, the two most frequent terms
+   as a phrase (the widest window), 4 sloppy phrases, 4 match-phrases
+   through the standard analyzer, 4 phrase-prefixes, 2 span-near queries,
+   a phrase MUST beside BM25 SHOULD terms and a phrase under config #3's
+   price filter. Exact phrases against a numpy oracle over the flat token
+   sequence (hits and docs equal, scores within 1e-6 relative of its f64
+   BM25 phrase score, docs equal but at near-ties); every other kind equal
+   to the CPU copy (scores within PHRASE_ULPS); ``query.eval.PHRASE_PATHS``
+   must show every phrase and phrase-prefix verified by ops.phrase, none by
+   the host loop. Prints p50 and p99 per kind, candidates per query, the
+   span-near host loop's cost per candidate, a torch.profiler trace of the
+   widest phrase (device busy share, largest items), host waits per query
+   and the peak device memory. Part B: a PRIMARY node on the card and a
+   CPU node; 20,000 parents with 0-4 nested reviews each, a title with a
+   keyword child field and indexPrefixes, a POLYGON area and a
+   CONTEXT_SUGGEST name, ingested over gRPC; nested queries with inner
+   hits, polygon containment, completion (contexts, fuzzy), a prefix on the
+   indexPrefixes field, a child-field term and a highlighted match-phrase,
+   each bit for bit equal to the CPU node's, before and after deleting
+   every tenth parent and a forced merge; served p50 per kind; then a
+   REPLICA on the card answers the phrase and nested requests as the
+   primary does.
+
 Launches per main-path batch: the counters around one fast_search_batch
 of the first B=32 batch (merge path), one B=1 query (fused path) and, for
 the bucket kernels, one bucket batch.
@@ -800,11 +828,15 @@ def phase_index(dev, num_docs: int, vocab: int, draws: int, segments: int):
     from nrtsearch_tpu_torch.models.synthetic import SyntheticCorpus
 
     t0 = time.perf_counter()
-    corpus = SyntheticCorpus(num_docs, vocab, draws, seed=SEED)
+    # the token sequence is kept for phase 15 (term positions); the draws
+    # and postings are the same with and without it, and phases 4-14 take
+    # the segments without positions
+    corpus = SyntheticCorpus(num_docs, vocab, draws, seed=SEED, keep_positions=True)
     columns = corpus.doc_columns(seed=SEED)
     t1 = time.perf_counter()
     segs = [segment_from_numpy(a, dev, doc_values=dv) for a, dv in zip(
-        corpus.segment_arrays(segments), corpus.segment_doc_values(columns, segments))]
+        corpus.segment_arrays(segments, positions=False),
+        corpus.segment_doc_values(columns, segments))]
     t2 = time.perf_counter()
     searcher = Searcher(segs, index_field_defs())
     searcher.warm(["body"])
@@ -3922,8 +3954,8 @@ def phase_vectors(dev, corpus, columns, singles, card: str) -> dict:
         base, queries = clustered_vectors(NUM_DOCS, VEC_DIMS, VEC_QUERIES + 4, seed=SEED)
         vcols = vector_segment_columns(corpus, base, SEGMENTS)
         segs = [segment_from_numpy(a, dev, doc_values=dv, vectors=vv) for a, dv, vv in zip(
-            corpus.segment_arrays(SEGMENTS), corpus.segment_doc_values(columns, SEGMENTS),
-            vcols)]
+            corpus.segment_arrays(SEGMENTS, positions=False),
+            corpus.segment_doc_values(columns, SEGMENTS), vcols)]
         fds = vector_field_defs()
         s_card = Searcher(segs, fds)
         torch.cuda.synchronize()
@@ -4306,6 +4338,482 @@ def phase_vectors(dev, corpus, columns, singles, card: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 15. term positions, nested documents and the field types that need them
+# ---------------------------------------------------------------------------
+
+PHRASE_ULPS = 2            # card against the CPU copy (tests/test_torch_cuda.py)
+PHRASE_ORACLE_REL = 1e-6   # exact phrases against the numpy f64 BM25 phrase score
+PHRASE_REPS = 3
+PHRASE_PRICE = (100.0, 900.0)   # config #3's price range (benchmarks/stress_deep_boolean.py)
+
+
+def phrase_oracle(corpus, terms: list[int], doc_of: np.ndarray, k: int = TOP_K):
+    """An exact phrase over the corpus's flat token sequence, in numpy,
+    independent of the index: per doc the number of starts i with
+    tokens[i + j] == terms[j] for every j inside one doc, scored by Lucene's
+    BM25 phrase formula in f64 (the summed idf of the distinct terms, the
+    phrase frequency as tf, the quantized length). Returns (scores [<=k],
+    docs [<=k], total_hits), ordered by score desc, doc asc."""
+    from nrtsearch_tpu_torch.utils.smallfloat import quantize_length
+
+    tok, n = corpus.tokens, len(terms)
+    m = tok[: len(tok) - n + 1] == terms[0]
+    for j in range(1, n):
+        m &= tok[j : len(tok) - n + 1 + j] == terms[j]
+    starts = np.flatnonzero(m)
+    d0 = doc_of[starts]
+    d0 = d0[doc_of[starts + n - 1] == d0]
+    freq = np.bincount(d0, minlength=corpus.num_docs).astype(np.float64)
+    N = corpus.num_docs
+    qlens = quantize_length(corpus.doc_lens.astype(np.int64)).astype(np.float64)
+    avgdl = qlens.sum() / N
+    idf = sum(np.log(1.0 + (N - int(corpus.term_lengths[t]) + 0.5)
+                     / (int(corpus.term_lengths[t]) + 0.5)) for t in set(terms))
+    docs = np.flatnonzero(freq)
+    f = freq[docs]
+    scores = idf * f / (f + 1.2 * (1.0 - 0.75 + 0.75 * qlens[docs] / avgdl))
+    order = np.lexsort((docs, -scores))[:k]
+    return scores[order], docs[order], len(docs)
+
+
+def phrase_queries(corpus, rng) -> dict:
+    """Phase 15's B = 1 queries by kind, drawn from the token sequence at
+    seeded docs and offsets: (query dict, the exact phrase's term ids or
+    None)."""
+    starts = corpus.doc_starts
+
+    def draw(n: int, gap: int = 1, lo: int = 0, hi: int = None) -> list[int]:
+        while True:
+            doc = int(rng.integers(0, corpus.num_docs))
+            span = int(starts[doc + 1] - starts[doc]) - (n - 1) * gap
+            off = int(rng.integers(0, span))
+            toks = [int(corpus.tokens[starts[doc] + off + j * gap]) for j in range(n)]
+            if all(lo <= t < (hi or corpus.vocab_size) for t in toks):
+                return toks
+
+    def phrase(toks, slop: int = 0) -> dict:
+        return {"phraseQuery": {"field": "body", "terms": [str(t) for t in toks], "slop": slop}}
+
+    out: dict[str, list] = {"exact2": [], "exact3": [], "widest": [], "sloppy": [],
+                            "match_phrase": [], "phrase_prefix": [], "span_near": [],
+                            "phrase_bm25": [], "phrase_filtered": []}
+    for kind, n in (("exact2", 2), ("exact3", 3)):
+        for _ in range(8):
+            toks = draw(n)
+            out[kind].append((phrase(toks), toks))
+    out["widest"].append((phrase([0, 1]), [0, 1]))
+    for n, gap, slop in ((2, 2, 1), (2, 3, 2), (3, 2, 3), (2, 4, 3)):
+        out["sloppy"].append((phrase(draw(n, gap), slop), None))
+    for n in (2, 2, 3, 3):
+        out["match_phrase"].append(({"matchPhraseQuery": {
+            "field": "body", "query": " ".join(str(t) for t in draw(n))}}, None))
+    while len(out["phrase_prefix"]) < 4:
+        # a last term of the vocabulary's longest length less its last
+        # digit: at most 11 expansions, so the source doc's term is one
+        a, b = draw(2, lo=10)
+        if len(str(b)) == len(str(corpus.vocab_size - 1)):
+            out["phrase_prefix"].append(({"matchPhrasePrefixQuery": {
+                "field": "body", "query": f"{a} {str(b)[:-1]}"}}, None))
+    for in_order in (True, False):
+        # a mid-frequency and a rarer term: a host loop over a few hundred
+        # candidates, as the reference runs it
+        a, b = draw(1, lo=20, hi=200)[0], draw(1, lo=200, hi=5000)[0]
+        out["span_near"].append(({"spanQuery": {"spanNearQuery": {"clauses": [
+            {"spanTermQuery": {"field": "body", "textValue": str(a)}},
+            {"spanTermQuery": {"field": "body", "textValue": str(b)}}],
+            "slop": 40, "inOrder": in_order}}}, None))
+    toks = draw(2)
+    out["phrase_bm25"].append(({"booleanQuery": {"clauses": [
+        {"occur": "MUST", "query": phrase(toks)},
+        {"occur": "SHOULD", "query": {"matchQuery": {"field": "body", "query": "3 17 112"}}}]}},
+        None))
+    toks = draw(2, hi=100)   # frequent terms: many docs, most inside the price range
+    out["phrase_filtered"].append(({"booleanQuery": {"clauses": [
+        {"occur": "MUST", "query": phrase(toks)},
+        {"occur": "FILTER", "query": {"rangeQuery": {
+            "field": "price", "lower": str(PHRASE_PRICE[0]), "upper": str(PHRASE_PRICE[1])}}}]}},
+        None))
+    return out
+
+
+def phase_phrases(dev, corpus, columns, card: str) -> dict:
+    """Part A: the 1M-doc positional index on the card; every kind of
+    positional query at B = 1, exact phrases against the numpy oracle, the
+    others against the CPU copy of the same segments."""
+    import dataclasses
+
+    from nrtsearch_tpu_torch.convert import segment_from_numpy
+    from nrtsearch_tpu_torch.core.searcher import Searcher
+    from nrtsearch_tpu_torch.query import eval as qeval
+    from nrtsearch_tpu_torch.query import parse_query
+
+    import gc
+
+    t_phase = time.perf_counter()
+    gc.collect()   # earlier phases' searchers may sit in reference cycles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    t = time.perf_counter()
+    arrays = corpus.segment_arrays(SEGMENTS)
+    dvs = corpus.segment_doc_values(columns, SEGMENTS)
+    card_segs = [segment_from_numpy(a, dev, doc_values=dv) for a, dv in zip(arrays, dvs)]
+    cpu_segs = [segment_from_numpy(a, "cpu", doc_values=dv) for a, dv in zip(arrays, dvs)]
+    del arrays
+    fds = index_field_defs()
+    s_card, s_cpu = Searcher(card_segs, fds), Searcher(cpu_segs, fds)
+    n_pos = sum(len(s.fields["body"].positions) for s in card_segs)
+    doc_of = np.repeat(np.arange(corpus.num_docs, dtype=np.int64), np.diff(corpus.doc_starts))
+    build_s = time.perf_counter() - t
+    queries = phrase_queries(corpus, np.random.default_rng(SEED + 15))
+
+    # the positions go to the card with the first phrase query of a segment
+    widest = parse_query(queries["widest"][0][0])
+    s_card.search(widest, TOP_K)
+    torch.cuda.synchronize()
+    pos_bytes = sum(x.numel() * x.element_size() for s in card_segs
+                    for x in s.fields["body"]._device_pos[:2])
+    log(f"phrases: {n_pos} positions in {SEGMENTS} segments (CSR built in {build_s:.1f} s with "
+        f"the CPU copy); {pos_bytes / 2**30:.3f} GiB of positions and offsets on the card "
+        f"after pow2 padding | {card}")
+
+    cands: list[int] = []
+    orig_candidate_ids = qeval._candidate_ids
+
+    def counted(ctx, mask):
+        ids = orig_candidate_ids(ctx, mask)
+        cands.append(int(ids.shape[0]))
+        return ids
+
+    qeval._candidate_ids = counted
+    paths0 = dict(qeval.PHRASE_PATHS)
+    lat: dict[str, list] = {k: [] for k in queries}
+    per_query_cands: dict[str, list] = {k: [] for k in queries}
+    swaps = 0
+    worst_ulps = 0
+    worst_rel = 0.0
+    span_loop = []   # (seconds, candidates) of the span-near queries
+    try:
+        for kind, items in queries.items():
+            for q, toks in items:
+                node = parse_query(q)
+                n0 = len(cands)
+                times = []
+                for _ in range(PHRASE_REPS):
+                    t = time.perf_counter()
+                    td = s_card.search(node, TOP_K)
+                    times.append(time.perf_counter() - t)
+                lat[kind].extend(times)
+                per_query_cands[kind].append(sum(cands[n0:]) // PHRASE_REPS)
+                if kind == "span_near":
+                    span_loop.append((float(np.median(times)), per_query_cands[kind][-1]))
+                if toks is not None:
+                    ex = phrase_oracle(corpus, toks, doc_of)
+                    if ex[2] == 0:
+                        raise AssertionError(f"phrases {kind} {toks}: the oracle finds no doc")
+                    swaps += _check_topk(td, ex, PHRASE_ORACLE_REL, f"phrases {kind} {toks}")
+                    worst_rel = max(worst_rel, _max_rel(td, ex))
+                    continue
+                cpu = s_cpu.search(node, TOP_K)
+                if ([h.global_ord for h in td.hits] != [h.global_ord for h in cpu.hits]
+                        or (td.total_hits, td.relation) != (cpu.total_hits, cpu.relation)):
+                    raise AssertionError(f"phrases {kind} {q}: differs from the CPU copy")
+                if cpu.total_hits == 0:
+                    raise AssertionError(f"phrases {kind} {q}: no hit")
+                a = np.array([h.score for h in td.hits], np.float32).view(np.int32)
+                b = np.array([h.score for h in cpu.hits], np.float32).view(np.int32)
+                u = int(np.abs(a.astype(np.int64) - b).max(initial=0))
+                if u > PHRASE_ULPS:
+                    raise AssertionError(f"phrases {kind} {q}: {u} ulps from the CPU copy")
+                worst_ulps = max(worst_ulps, u)
+    finally:
+        qeval._candidate_ids = orig_candidate_ids
+    host = qeval.PHRASE_PATHS["host"] - paths0["host"]
+    device = qeval.PHRASE_PATHS["device"] - paths0["device"]
+    if host:
+        raise AssertionError(f"phrases: {host} phrase verifications took the host loop")
+    n_phrase = sum(len(queries[k]) for k in queries if k != "span_near")
+    log(f"phrases: {sum(len(v) for v in queries.values())} queries x {PHRASE_REPS}; exact "
+        f"phrases against the numpy oracle (hits and docs equal, scores within "
+        f"{PHRASE_ORACLE_REL} rel, worst {worst_rel:.3g}, near-tie swaps {swaps}); the other "
+        f"kinds equal to the CPU copy (scores within {worst_ulps} ulps); ops.phrase verified "
+        f"each of the {n_phrase} phrase and phrase-prefix queries ({device} calls over "
+        f"segments and repetitions), the host loop none")
+    for kind, v in lat.items():
+        ms = 1e3 * np.asarray(v)
+        log(f"phrases {kind}: B=1 p50 {np.median(ms):.2f} ms, p99 {np.percentile(ms, 99):.2f} "
+            f"ms (n={len(ms)}); candidates per query {per_query_cands[kind]} | {card}")
+    per_cand = [1e6 * s / max(c, 1) for s, c in span_loop]
+    log(f"phrases span_near: host loop {', '.join(f'{x:.1f}' for x in per_cand)} us per "
+        f"candidate ({[c for _, c in span_loop]} candidates) | {card}")
+    p50_w = 1e3 * float(np.median(lat["widest"]))
+    prof = profile_call(lambda: s_card.search(widest, TOP_K))
+    if prof["device_busy_ms"] <= 0:
+        raise AssertionError("phrases: the profiled phrase ran nothing on the device")
+    log(f"profile: widest phrase (terms 0 1, {per_query_cands['widest'][0]} candidates), "
+        f"device busy {prof['device_busy_ms']:.3f} ms in {prof['device_items']} device items "
+        f"({100 * prof['device_busy_ms'] / p50_w:.1f}% of its p50 {p50_w:.2f} ms); top device "
+        f"items {json.dumps(prof['top'][:6])} | {card}")
+    waits = {}
+    for kind in ("exact2", "widest", "sloppy", "phrase_prefix", "span_near", "phrase_filtered"):
+        node = parse_query(queries[kind][0][0])
+        with SyncCount() as sc:
+            s_card.search(node, TOP_K)
+            torch.cuda.synchronize()
+        waits[kind] = sc.n
+    peak = torch.cuda.max_memory_allocated(dev)
+    seconds = time.perf_counter() - t_phase
+    log(f"phrases: host waits per query {waits}; peak device memory {peak / 2**30:.3f} GiB "
+        f"(phase start {mem0 / 2**30:.3f} GiB); part A {seconds:.1f} s | {card}")
+    del s_card, s_cpu, card_segs, cpu_segs
+    torch.cuda.empty_cache()
+    return {"seconds": seconds, "peak": peak, "positions_bytes": pos_bytes}
+
+
+NESTED_INDEX = "nested"
+NESTED_PARENTS = 20_000
+NESTED_CHUNKS = 4
+NESTED_REPS = 5
+NESTED_WORDS = ["good", "great", "bad", "slow", "fast", "tasty", "cold", "warm", "friendly",
+                "rude", "clean", "noisy", "cheap", "pricey", "fresh"]
+NESTED_TITLES = ["golden", "dragon", "good", "eats", "gourmet", "grill", "green", "garden",
+                 "grand", "cafe", "blue", "moon", "diner", "burger", "barn", "noodle", "house"]
+NESTED_CITIES = ["sf", "nyc", "la", "sea"]
+
+
+def _nested_wire_fields() -> list:
+    """A business with nested reviews (the reference's tests/test_nested.py
+    shape), a title with a keyword child field and indexPrefixes, a POLYGON
+    service area and a CONTEXT_SUGGEST name."""
+    return [
+        {"name": "biz_id", "type": "_ID", "store": True, "storeDocValues": True},
+        {"name": "title", "type": "TEXT", "search": True, "store": True,
+         "indexPrefixes": {"minChars": 2, "maxChars": 4},
+         "childFields": [{"name": "kw", "type": "TEXT", "search": True, "analyzer": {
+             "custom": {"tokenizer": {"name": "keyword"},
+                        "tokenFilters": [{"name": "lowercase"}]}}}]},
+        {"name": "area", "type": "POLYGON", "storeDocValues": True, "store": True},
+        {"name": "sugg", "type": "CONTEXT_SUGGEST", "store": True},
+        {"name": "reviews", "type": "OBJECT", "nestedDoc": True, "childFields": [
+            {"name": "text", "type": "TEXT", "search": True, "store": True},
+            {"name": "stars", "type": "INT", "storeDocValues": True, "store": True}]},
+    ]
+
+
+def _nested_docs(n: int) -> list[dict]:
+    rng = np.random.default_rng(SEED + 16)
+    docs = []
+    for i in range(n):
+        title = " ".join(NESTED_TITLES[int(j)] for j in rng.integers(0, len(NESTED_TITLES), 2))
+        lat, lon, size = (float(rng.uniform(0, 50)), float(rng.uniform(0, 50)),
+                          float(rng.uniform(1, 8)))
+        rings = [[(lat, lon), (lat, lon + size), (lat + size, lon + size), (lat + size, lon),
+                  (lat, lon)]]
+        if i % 3 == 0:
+            q = size / 4
+            rings.append([(lat + q, lon + q), (lat + q, lon + 3 * q),
+                          (lat + 3 * q, lon + 3 * q), (lat + 3 * q, lon + q), (lat + q, lon + q)])
+        docs.append({
+            "biz_id": f"b{i}", "title": title,
+            "area": json.dumps({"type": "Polygon",
+                                "coordinates": [[[x, y] for y, x in r] for r in rings]}),
+            "sugg": json.dumps({"value": title, "weight": int(rng.integers(1, 100)),
+                                "contexts": [NESTED_CITIES[int(rng.integers(0, 4))]]}),
+            "reviews": [json.dumps({
+                "text": " ".join(NESTED_WORDS[int(j)]
+                                 for j in rng.integers(0, len(NESTED_WORDS), 5)),
+                "stars": str(int(rng.integers(1, 6)))}) for _ in range(int(rng.integers(0, 5)))],
+        })
+    return docs
+
+
+def _nested_requests(title: str) -> dict:
+    """Part B's served request kinds, as functions making a SearchRequest;
+    ``title`` (an ingested doc's) is the child-field term and the
+    highlighted match-phrase."""
+    from google.protobuf.json_format import ParseDict
+
+    from nrtsearch_tpu_torch.gen import pb
+
+    def req(query, k=20, fields=("biz_id",)):
+        r = pb.SearchRequest(indexName=NESTED_INDEX, topHits=k, retrieveFields=list(fields))
+        ParseDict(query, r.query)
+        return r
+
+    def nested(mode, text="good great"):
+        return {"nestedQuery": {"path": "reviews", "scoreMode": mode, "query": {
+            "matchQuery": {"field": "reviews.text", "query": text}}}}
+
+    def inner_hits():
+        r = req(nested("SUM", "friendly fresh"))
+        ih = r.inner_hits["matched"]
+        ih.query_nested_path = "reviews"
+        ParseDict({"matchQuery": {"field": "reviews.text", "query": "friendly fresh"}},
+                  ih.inner_query)
+        ih.start_hit = 1
+        ih.top_hits = 2
+        ih.retrieve_fields.extend(["reviews.text", "reviews.stars"])
+        return r
+
+    def highlight():
+        r = req({"matchPhraseQuery": {"field": "title", "query": title}},
+                fields=("biz_id", "title"))
+        ParseDict({"fields": ["title"]}, r.highlight)
+        return r
+
+    return {
+        "nested_inner_hits": inner_hits,
+        "nested_max": lambda: req(nested("MAX")),
+        "nested_avg_range": lambda: req({"nestedQuery": {"path": "reviews", "scoreMode": "AVG",
+                                                         "query": {"rangeQuery": {
+                                                             "field": "reviews.stars",
+                                                             "lower": "5"}}}}),
+        "polygon": lambda: req({"geoPointQuery": {"field": "area", "point": {
+            "latitude": 25.5, "longitude": 25.5}}}, fields=("biz_id", "area")),
+        "completion": lambda: req({"completionQuery": {"field": "sugg", "text": "gre",
+                                                       "contexts": ["sf", "la"]}},
+                                  fields=("biz_id", "sugg")),
+        "completion_fuzzy": lambda: req({"completionQuery": {"field": "sugg", "text": "grabd",
+                                                             "queryType": "FUZZY_QUERY"}}),
+        "prefix": lambda: req({"prefixQuery": {"field": "title", "prefix": "gou"}}),
+        "child_field": lambda: req({"termQuery": {"field": "title.kw", "textValue": title}}),
+        "phrase_highlight": highlight,
+    }
+
+
+def phase_nested(dev, card: str) -> dict:
+    """Part B: nested documents and the new field types, served by a
+    PRIMARY node on the card and held to a CPU node; a REPLICA synced from
+    the primary."""
+    import shutil
+    import tempfile
+
+    from google.protobuf.json_format import ParseDict
+
+    from nrtsearch_tpu_torch.gen import pb
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="nrt_nested_")
+    nodes = []
+    try:
+        state = f"{root}/state"
+        primary, pc = _node(root, "primary", dev=dev, state=state)
+        nodes.append((primary, pc))
+        cpu_node, cc = _node(root, "cpu", dev=torch.device("cpu"), state=f"{root}/cpu_state")
+        nodes.append((cpu_node, cc))
+        for client in (pc, cc):
+            client.create_index(NESTED_INDEX)
+            client.register_fields(ParseDict({"indexName": NESTED_INDEX,
+                                              "field": _nested_wire_fields()},
+                                             pb.FieldDefRequest()))
+            ls = pb.LiveSettingsV2Request(indexName=NESTED_INDEX)
+            ls.liveSettings.maxRefreshSec.value = 3600.0
+            client.live_settings_v2(ls)
+        pc.start_index(pb.StartIndexRequest(indexName=NESTED_INDEX, mode=pb.Mode.PRIMARY,
+                                            primaryGen=1))
+        cc.start_index(pb.StartIndexRequest(indexName=NESTED_INDEX, mode=pb.Mode.STANDALONE))
+        docs = _nested_docs(NESTED_PARENTS)
+        n_children = sum(len(d["reviews"]) for d in docs)
+
+        def add(docs_part):
+            for d in docs_part:
+                r = pb.AddDocumentRequest(indexName=NESTED_INDEX)
+                for name, value in d.items():
+                    r.fields[name].value.extend(value if isinstance(value, list) else [value])
+                yield r
+
+        t = time.perf_counter()
+        bounds = np.linspace(0, NESTED_PARENTS, NESTED_CHUNKS + 1).astype(int)
+        for client in (pc, cc):
+            for lo, hi in zip(bounds[:-1], bounds[1:]):
+                client.add_documents(add(docs[lo:hi]))
+                client.refresh(NESTED_INDEX)
+        ingest_s = time.perf_counter() - t
+        requests = _nested_requests(docs[0]["title"])
+
+        def compare(label: str) -> dict:
+            lat = {}
+            for name, make in requests.items():
+                got, want = pc.search(make()), cc.search(make())
+                if _strip(got) != _strip(want):
+                    raise AssertionError(f"nested {label}: {name} differs from the CPU node")
+                if got.totalHits.value == 0:
+                    raise AssertionError(f"nested {label}: {name} found nothing")
+                times = []
+                for _ in range(NESTED_REPS):
+                    t = time.perf_counter()
+                    pc.search(make())
+                    times.append(time.perf_counter() - t)
+                lat[name] = 1e3 * float(np.median(times))
+            return lat
+
+        lat = compare("served")
+        inner = pc.search(requests["nested_inner_hits"]())
+        if not any(h.innerHits["matched"].hits for h in inner.hits):
+            raise AssertionError("nested: no inner hit answered")
+        log(f"nested: {NESTED_PARENTS} parents with {n_children} nested children ingested "
+            f"over gRPC on both nodes in {ingest_s:.1f} s; {len(requests)} request kinds equal "
+            f"to the CPU node bit for bit; served p50 "
+            + ", ".join(f"{n} {ms:.2f} ms" for n, ms in lat.items()) + f" | {card}")
+
+        # a delete of parents (their blocks), then a forced merge
+        gone = [f"b{i}" for i in range(0, NESTED_PARENTS, 10)]
+        t = time.perf_counter()
+        for client in (pc, cc):
+            client.delete(_id_request(pb, gone))
+            client.refresh(NESTED_INDEX)
+            client.force_merge(NESTED_INDEX, 1)
+            client.refresh(NESTED_INDEX)
+        merge_s = time.perf_counter() - t
+        lat2 = compare("after the delete and merge")
+        ids = {h.fields["biz_id"].fieldValue[0].textValue
+               for n in ("nested_max", "prefix", "polygon")
+               for h in pc.search(requests[n]()).hits}
+        if ids & set(gone):
+            raise AssertionError("nested: a deleted parent answers")
+        log(f"nested: {len(gone)} parents (and their children) deleted and the index "
+            f"force-merged on both nodes in {merge_s:.1f} s; answers equal to the CPU node; "
+            f"served p50 " + ", ".join(f"{n} {ms:.2f} ms" for n, ms in lat2.items())
+            + f" | {card}")
+
+        # a REPLICA on the card syncs from the primary
+        cc.close()
+        cpu_node.stop()
+        nodes.remove((cpu_node, cc))
+        pc.commit(NESTED_INDEX)
+        discovery = f"{root}/primary.json"
+        with open(discovery, "w") as f:
+            json.dump({"host": "localhost", "port": primary.replication_port}, f)
+        replica, rc = _node(root, "replica", dev=dev, state=state)
+        nodes.append((replica, rc))
+        t = time.perf_counter()
+        rc.start_index(pb.StartIndexRequest(indexName=NESTED_INDEX, mode=pb.Mode.REPLICA,
+                                            primaryDiscoveryFile=discovery))
+        sync_s = time.perf_counter() - t
+        for name in ("phrase_highlight", "nested_inner_hits", "nested_max"):
+            if _strip(rc.search(requests[name]())) != _strip(pc.search(requests[name]())):
+                raise AssertionError(f"nested replica: {name} differs from the primary")
+        seconds = time.perf_counter() - t_phase
+        log(f"nested replica: synced in {sync_s:.2f} s; the phrase and nested requests answer "
+            f"bit for bit as the primary; part B {seconds:.1f} s | {card}")
+        return {"seconds": seconds, "lat": lat}
+    finally:
+        for node, client in nodes:
+            client.close()
+            node.stop()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _id_request(pb, ids: list[str]):
+    """One delete request naming ``ids`` (the reference's delete takes a
+    single AddDocumentRequest with the _ID field's values)."""
+    r = pb.AddDocumentRequest(indexName=NESTED_INDEX)
+    r.fields["biz_id"].value.extend(ids)
+    return r
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -4428,6 +4936,12 @@ def main() -> int:
     # 14. vector search and the result tail: three vector fields beside the
     # same corpus, kNN, the served hybrid and result tail, writes, a replica
     vectors = phase_vectors(dev, corpus, columns, singles, card)
+
+    # 15. term positions: positional queries on the 1M-doc index, then
+    # nested documents and the field types that need positions, served
+    phrases = phase_phrases(dev, corpus, columns, card)
+    nested = phase_nested(dev, card)
+    log(f"phase 15: {phrases['seconds'] + nested['seconds']:.1f} s | {card}")
 
     table = []
     for name, (src, replaces) in KERNEL_SOURCES.items():

@@ -10,6 +10,9 @@ plain numpy (a reference segment's arrays through ``np.asarray``, or
 - ``doc_lens`` f32 [capacity] (quantized), ``sum_doc_lens``, ``doc_count``
 - ``live`` bool [capacity], ``host_live`` bool [num_docs]
 - ``num_docs``, ``capacity``, ``stored`` (list of row dicts)
+- optionally ``positions`` int32 (flat) and ``position_offsets`` int64
+  [postings_len + 1]: the term positions, a CSR over postings entries (kept
+  on the host, as the builder keeps them)
 
 ``doc_values`` (optional) maps a field name to its column's host arrays:
 ``kind`` (a ``DocValueKind`` or its value), ``values`` [capacity] (int64 for
@@ -57,6 +60,10 @@ def segment_from_numpy(arrays: dict, device: str | torch.device,
         sum_doc_lens=int(arrays["sum_doc_lens"]),
         doc_count=int(arrays["doc_count"]),
         postings_len=int(arrays["postings_len"]),
+        positions=(np.asarray(arrays["positions"], np.int32)
+                   if arrays.get("positions") is not None else None),
+        position_offsets=(np.asarray(arrays["position_offsets"], np.int64)
+                          if arrays.get("positions") is not None else None),
     )
     columns = {
         name: doc_value_column(

@@ -7,13 +7,16 @@ A committed index directory contains:
 - ``segments_<gen>.json``: the commit manifest (segment ids with their
   delete generations, version, primary generation);
 - ``<seg_id>.arrays.npz``: all packed numeric arrays of one segment
-  (postings, doc values, vectors);
+  (postings with their positions, doc values including POLYGON columns,
+  vectors);
 - ``<seg_id>.meta.msgpack``: host dictionaries (term tables, ordinal
   dictionaries, stored rows);
 - ``<seg_id>.live.<del_gen>.npy``: the live mask of one delete generation.
 
-The port keeps no term positions: it writes ``has_positions`` false and no
-``positions`` arrays, and ignores them on load. msgpack is imported inside
+Term positions go as ``positions`` / ``position_offsets`` arrays with
+``has_positions`` in the field's meta, as the reference writes them, so a
+commit keeps its phrase data whichever package wrote or opens it; they stay
+on the host after a load. msgpack is imported inside
 the functions that read or write the meta file, so no search path needs it.
 Loading an index moves its arrays to the device the caller names. A
 float16 (bf16) vector column is written as f32 and rounded back to bf16 on
@@ -111,6 +114,9 @@ def save_segment(seg: Segment, directory: str | Path) -> list[str]:
         arrays[f"{key}.doc_lens"] = _host(tfi.doc_lens)
         arrays[f"{key}.offsets"] = tfi.offsets
         arrays[f"{key}.lengths"] = tfi.lengths
+        if tfi.positions is not None:
+            arrays[f"{key}.positions"] = tfi.positions
+            arrays[f"{key}.position_offsets"] = tfi.position_offsets
         inv = [None] * len(tfi.terms)
         for t, tid in tfi.terms.items():
             inv[tid] = t
@@ -119,7 +125,7 @@ def save_segment(seg: Segment, directory: str | Path) -> list[str]:
             "sum_doc_lens": tfi.sum_doc_lens,
             "doc_count": tfi.doc_count,
             "postings_len": tfi.postings_len,
-            "has_positions": False,
+            "has_positions": tfi.positions is not None,
         }
     for name, dv in seg.doc_values.items():
         key = f"dv.{name}"
@@ -177,6 +183,9 @@ def load_segment(seg_id: str, directory: str | Path, device: str | torch.device,
             sum_doc_lens=fm["sum_doc_lens"],
             doc_count=fm["doc_count"],
             postings_len=fm["postings_len"],
+            positions=arrays[f"{key}.positions"] if fm.get("has_positions") else None,
+            position_offsets=(arrays[f"{key}.position_offsets"]
+                              if fm.get("has_positions") else None),
         )
     doc_values = {}
     for name, dm in meta["doc_values"].items():

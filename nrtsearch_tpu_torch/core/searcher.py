@@ -357,6 +357,11 @@ class Searcher:
             return None
         if not terms or len(terms) > 32:
             return None
+        # nested children need the root-filtered general path
+        for seg in self.segments:
+            parents = seg.parent_positions()
+            if parents is not None and len(parents) != seg.num_docs:
+                return None
         return QuerySpec(
             field=node.field, terms=tuple(terms), require_all=require_all,
             boost=float(node.boost),

@@ -22,16 +22,22 @@ A VECTOR field is one ``VectorColumn`` per segment: f32, bf16 or int8
 [capacity, dims] on the device, with its squared norms computed once when
 the column is made.
 
-The builder takes TEXT, _ID, ATOM, LAT_LON, VECTOR and the numeric field
-types. POLYGON, suggest, nested (OBJECT), child and prefix fields raise
-``NotImplementedError`` (ROADMAP item 10). Term positions are not kept:
-phrase and span queries need them (item 10).
+Term positions are a CSR over postings entries, held on the host as in the
+reference (``positions`` / ``position_offsets``); ``ops.phrase`` uploads a
+field's positions to the device on its first phrase query. The builder
+takes every field type the reference's does: POLYGON columns (one GeoJSON
+polygon per doc as NaN-separated rings, f32 [capacity, V, 2]),
+CONTEXT_SUGGEST entries (host lists), OBJECT ``nestedDoc`` values (child
+documents placed before their parent, with the ``_nested_path`` ORDINAL
+doc value), child fields fanned out from their parent, and the hidden
+``<field>._index_prefix`` companion of an ``indexPrefixes`` field.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
 import uuid
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Optional
@@ -39,11 +45,14 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from nrtsearch_tpu_torch.schema.fields import DocValueKind, FieldDef, FieldType
+from nrtsearch_tpu_torch.schema.fields import (
+    DocValueKind, FieldDef, FieldType, parse_geojson_polygon,
+)
 from nrtsearch_tpu_torch.utils.smallfloat import quantize_length
 
-# the reference's nested-document doc value (SegmentBuilder.NESTED_PATH_FIELD
-# / ROOT_PATH): the port's builder writes none, a reference commit may
+# the nested-document doc value (the reference's
+# SegmentBuilder.NESTED_PATH_FIELD / ROOT_PATH); Lucene block-join order:
+# children BEFORE their parent
 NESTED_PATH_FIELD = "_nested_path"
 ROOT_PATH = "_root"
 
@@ -70,7 +79,9 @@ class TextFieldIndex:
 
     ``terms`` maps term -> term id; ``offsets[tid]``/``lengths[tid]`` (host)
     locate the term's postings run inside ``doc_ids``/``freqs`` (device).
-    ``doc_lens`` is the quantized field length per doc (f32 on device)."""
+    ``doc_lens`` is the quantized field length per doc (f32 on device).
+    ``positions`` / ``position_offsets`` are the term positions, a CSR over
+    postings entries on the host (None where the field kept none)."""
 
     terms: dict[str, int]
     offsets: np.ndarray      # host int64 [T]
@@ -81,6 +92,35 @@ class TextFieldIndex:
     sum_doc_lens: int        # sum of quantized lengths (for avgdl)
     doc_count: int           # docs that have this field
     postings_len: int        # valid prefix of doc_ids/freqs
+    positions: Optional[np.ndarray] = None           # host int32, flat
+    position_offsets: Optional[np.ndarray] = None    # host int64 [postings_len + 1]
+
+    def host_doc_ids(self) -> np.ndarray:
+        """The postings' doc ids on the host (int32 [postings_len]), read
+        once from the device and cached (the reference keeps this copy)."""
+        cached = getattr(self, "_host_doc_ids", None)
+        if cached is None:
+            cached = self.doc_ids[: self.postings_len].cpu().numpy()
+            object.__setattr__(self, "_host_doc_ids", cached)
+        return cached
+
+    def entry_index(self, term: str, doc: int) -> int:
+        """Postings entry index of (term, doc), -1 if absent (host lookup)."""
+        tid = self.terms.get(term)
+        if tid is None:
+            return -1
+        off, ln = int(self.offsets[tid]), int(self.lengths[tid])
+        run = self.host_doc_ids()[off : off + ln]
+        i = int(np.searchsorted(run, doc))
+        if i < ln and run[i] == doc:
+            return off + i
+        return -1
+
+    def positions_of(self, term: str, doc: int) -> np.ndarray:
+        e = self.entry_index(term, doc)
+        if e < 0 or self.positions is None:
+            return np.empty(0, np.int32)
+        return self.positions[self.position_offsets[e] : self.position_offsets[e + 1]]
 
     def lookup(self, term: str) -> tuple[int, int]:
         """(offset, length) of a term's postings, (0, 0) if absent."""
@@ -232,14 +272,16 @@ class Segment:
 
     def parent_positions(self) -> Optional[np.ndarray]:
         """Sorted local ids of parent (root) docs, None if no nesting info
-        (the port's builder writes none; a reference commit may carry it)."""
+        (a segment made from arrays may carry none); cached, as the
+        segment is immutable."""
+        if "_parents" in self.__dict__:
+            return self.__dict__["_parents"]
         dv = self.doc_values.get(NESTED_PATH_FIELD)
-        if dv is None or not dv.ord_index:
-            return None
-        root_ord = dv.ord_index.get(ROOT_PATH)
-        if root_ord is None:
-            return None
-        return np.nonzero(dv.host_values[: self.num_docs] == root_ord)[0]
+        root_ord = dv.ord_index.get(ROOT_PATH) if dv is not None and dv.ord_index else None
+        parents = (None if root_ord is None
+                   else np.nonzero(dv.host_values[: self.num_docs] == root_ord)[0])
+        object.__setattr__(self, "_parents", parents)
+        return parents
 
     def with_doc_value_updates(self, updates: dict[str, dict[int, Any]]) -> "Segment":
         """Copy-on-write doc-value updates (the reference's
@@ -319,12 +361,10 @@ def doc_value_column(
         values = numeric_device_array(host_values, device)
     elif kind == DocValueKind.ORDINAL:
         values = torch.as_tensor(host_values, device=device)
-    elif kind == DocValueKind.LAT_LON:
+    elif kind in (DocValueKind.LAT_LON, DocValueKind.POLYGON):
         values = torch.as_tensor(host_values.astype(np.float32), device=device)
     else:
-        raise NotImplementedError(
-            f"{kind.value} doc values are not ported yet (ROADMAP item 10)"
-        )
+        raise ValueError(f"no doc-value column of kind {kind.value}")
     return DocValueColumn(
         kind=kind,
         values=values,
@@ -362,44 +402,78 @@ def vector_column(mat: np.ndarray, present: np.ndarray, fmt: str,
     )
 
 
-_BUILT_TYPES = (
-    FieldType.TEXT, FieldType.ID, FieldType.ATOM, FieldType.BOOLEAN,
-    FieldType.LONG, FieldType.INT, FieldType.DATE_TIME, FieldType.DOUBLE,
-    FieldType.FLOAT, FieldType.LAT_LON, FieldType.VECTOR,
-)
-
-
 class SegmentBuilder:
     """Accumulates analyzed documents in host memory; ``flush()`` packs them
     into a Segment on ``device``. The pure-Python layout of the reference's
-    builder: term ids in first-seen order, postings doc-ascending."""
+    builder: term ids in first-seen order, postings doc-ascending, each
+    entry's positions in the order the analyzer gave them."""
 
     NESTED_PATH_FIELD = NESTED_PATH_FIELD
     ROOT_PATH = ROOT_PATH
+    # position gap between the values of a multi-valued field (reference:
+    # PosIncGapAnalyzerWrapper; Lucene's default gap semantics)
+    POSITION_GAP = 100
 
     def __init__(self, field_defs: dict[str, FieldDef], device: torch.device):
-        for name, fd in field_defs.items():
-            if fd.raw.get("childFields"):
-                raise NotImplementedError(
-                    f"field {name!r}: child fields are not ported yet (ROADMAP item 10)"
-                )
+        if NESTED_PATH_FIELD not in field_defs:
+            field_defs = {
+                **field_defs,
+                NESTED_PATH_FIELD: FieldDef(
+                    name=NESTED_PATH_FIELD, type=FieldType.ATOM, store_doc_values=True,
+                ),
+            }
         self.field_defs = field_defs
         self.device = device
+        # non-OBJECT parents fan their values out to each child field, which
+        # indexes them under its own analyzer; sorted so a parent's fan-out
+        # lands before its children's own (prefix order = ancestor order)
+        self._copy_children: list[tuple[str, list[str]]] = sorted(
+            (name, [f"{name}.{c['name']}" for c in fd.raw["childFields"]])
+            for name, fd in field_defs.items()
+            if fd.type != FieldType.OBJECT and fd.raw.get("childFields")
+        )
         self.num_docs = 0
-        # field -> term -> [(doc, freq)]
+        # field -> term -> [(doc, freq, positions)]
         self._postings: dict[str, dict[str, list]] = {}
+        # field -> packed postings from a merge (``set_text_arrays``)
+        self._text_arrays: dict[str, tuple] = {}
         self._doc_lens: dict[str, list[int]] = {}
         self._dv: dict[str, list] = {}          # field -> [(doc, value)]
         # field -> [(doc, f32 vector)] or, from a merge, [(docs, rows)]
         self._vectors: dict[str, list] = {}
+        self._suggest: dict[str, list] = {}     # field -> [(doc, text, weight, contexts)]
         self._stored: list[dict] = []
 
     def add_document(self, doc: dict[str, Any]) -> int:
         """Add one parsed document (field name -> raw value or list of
-        values); returns its local doc id."""
-        return self._add_flat(doc)
+        values); returns its local doc id.
+
+        OBJECT fields with ``nestedDoc`` expand into child documents indexed
+        immediately before the parent (Lucene block order), each with dotted
+        field names (``path.subfield``) and a ``_nested_path`` doc value of
+        its path; the parent gets ``_nested_path = _root``."""
+        nested_children: list[tuple[str, dict]] = []
+        flat_doc: dict[str, Any] = {}
+        for name, value in doc.items():
+            fd = self.field_defs.get(name)
+            if fd is not None and fd.type == FieldType.OBJECT and fd.raw.get("nestedDoc"):
+                for v in (value if isinstance(value, (list, tuple)) else [value]):
+                    nested_children.append((name, json.loads(v) if isinstance(v, str)
+                                            else dict(v)))
+            else:
+                flat_doc[name] = value
+        for path, child in nested_children:
+            child_doc = {f"{path}.{k}": v for k, v in child.items()}
+            child_doc[NESTED_PATH_FIELD] = path
+            self._add_flat(child_doc)
+        flat_doc[NESTED_PATH_FIELD] = ROOT_PATH
+        return self._add_flat(flat_doc)
 
     def _add_flat(self, doc: dict[str, Any]) -> int:
+        for parent, children in self._copy_children:
+            if parent in doc:
+                for c in children:
+                    doc.setdefault(c, doc[parent])
         doc_id = self.num_docs
         stored_row: dict[str, Any] = {}
         parsed_fields = []
@@ -407,26 +481,30 @@ class SegmentBuilder:
             fd = self.field_defs.get(name)
             if fd is None:
                 raise KeyError(f"unregistered field: {name!r}")
-            if fd.type not in _BUILT_TYPES or fd.index_prefixes is not None:
-                raise NotImplementedError(
-                    f"field {name!r} of type {fd.type.value}: not ported yet "
-                    f"(ROADMAP item 10)"
-                )
             values = value if isinstance(value, (list, tuple)) else [value]
+            if (len(values) > 1 and not fd.multi_valued
+                    and fd.type not in (FieldType.LAT_LON, FieldType.VECTOR)):
+                raise ValueError(f"field {name!r} is not multiValued")
             if fd.type == FieldType.VECTOR:
                 # a raw number list (one vector) or a single json string
-                parsed_fields.append((fd, fd.parse_vector(
+                parsed = fd.parse_vector(
                     values if len(values) > 1 and not isinstance(values[0], str)
-                    else values[0])))
-                continue
-            if fd.type == FieldType.LAT_LON:
-                parsed_fields.append((fd, [(float(values[0]), float(values[1]))]))
-                continue
-            if len(values) > 1 and not fd.multi_valued:
-                raise ValueError(f"field {name!r} is not multiValued")
-            parsed_fields.append((fd, [fd.parse_doc_value(v) for v in values]))
+                    else values[0])
+            elif fd.type == FieldType.LAT_LON:
+                parsed = [(float(values[0]), float(values[1]))]
+            elif fd.type == FieldType.CONTEXT_SUGGEST:
+                parsed = [_suggest_entry(v) for v in values]
+            elif fd.type == FieldType.POLYGON:
+                # one GeoJSON polygon per doc (reference: PolygonfieldDef
+                # .parseDocumentField rejects more than one value)
+                if len(values) > 1:
+                    raise ValueError("polygon length cannot be more than 1.")
+                parsed = parse_geojson_polygon(values[0])[0]
+            else:
+                parsed = [fd.parse_doc_value(v) for v in values]
+            parsed_fields.append((fd, parsed, values))
         self.num_docs += 1
-        for fd, parsed in parsed_fields:
+        for fd, parsed, values in parsed_fields:
             if fd.type == FieldType.VECTOR:
                 self._vectors.setdefault(fd.name, []).append((doc_id, parsed))
                 if fd.store:
@@ -436,6 +514,17 @@ class SegmentBuilder:
                 self._dv.setdefault(fd.name, []).append((doc_id, parsed[0]))
                 if fd.store:
                     stored_row[fd.name] = list(parsed[0])
+                continue
+            if fd.type == FieldType.CONTEXT_SUGGEST:
+                self._suggest.setdefault(fd.name, []).extend(
+                    (doc_id, *entry) for entry in parsed)
+                if fd.store:
+                    stored_row[fd.name] = list(values)
+                continue
+            if fd.type == FieldType.POLYGON:
+                self._dv.setdefault(fd.name, []).append((doc_id, parsed))
+                if fd.store:
+                    stored_row[fd.name] = json.loads(parsed)
                 continue
             if fd.search and fd.is_text:
                 self._index_text(fd, doc_id, [str(v) for v in parsed])
@@ -447,28 +536,61 @@ class SegmentBuilder:
         return doc_id
 
     def _index_text(self, fd: FieldDef, doc_id: int, values: list[str]) -> None:
-        lens = self._doc_lens.setdefault(fd.name, [])
+        """Postings with positions: each value's tokens at their analyzer
+        positions, ``POSITION_GAP`` past the previous value's last one. An
+        ``indexPrefixes`` field also indexes each token's [min, max]-char
+        prefixes into the hidden ``<field>._index_prefix`` field at the
+        same positions (reference: PrefixFieldDef)."""
+        positions: dict[str, list[int]] = {}
+        prefixes: dict[str, list[int]] = {}
+        total = 0
+        base = 0
+        for v in values:
+            max_pos = 0
+            for tok in fd.index_tokens(v):
+                pos = base + tok.position
+                positions.setdefault(tok.text, []).append(pos)
+                if fd.index_prefixes is not None:
+                    lo, hi = fd.index_prefixes
+                    for plen in range(lo, min(hi, len(tok.text)) + 1):
+                        prefixes.setdefault(tok.text[:plen], []).append(pos)
+                max_pos = max(max_pos, tok.position + 1)
+                total += 1
+            base += max_pos + self.POSITION_GAP
+        self._add_postings(fd.name, doc_id, positions, total)
+        if prefixes:
+            self._add_postings(f"{fd.name}._index_prefix", doc_id, prefixes,
+                               sum(len(p) for p in prefixes.values()))
+
+    def _add_postings(self, name: str, doc_id: int, positions: dict, length: int) -> None:
+        lens = self._doc_lens.setdefault(name, [])
         while len(lens) < doc_id:
             lens.append(0)
-        post = self._postings.setdefault(fd.name, {})
-        freqs: dict[str, int] = {}
-        total = 0
-        for v in values:
-            for tok in fd.index_tokens(v):
-                freqs[tok.text] = freqs.get(tok.text, 0) + 1
-                total += 1
-        for term, tf in freqs.items():
-            post.setdefault(term, []).append((doc_id, tf))
-        lens.append(total)
+        lens.append(length)
+        post = self._postings.setdefault(name, {})
+        for term, plist in positions.items():
+            post.setdefault(term, []).append((doc_id, len(plist), plist))
+
+    def set_text_arrays(self, name: str, terms: list[str], lengths: np.ndarray,
+                        doc_ids: np.ndarray, freqs: np.ndarray,
+                        positions: np.ndarray, position_offsets: np.ndarray,
+                        doc_lens: list[int]) -> None:
+        """Packed postings for one field (a merge's): per term in id order
+        its run length, then per entry its doc, freq and positions (CSR)."""
+        self._text_arrays[name] = (terms, lengths, doc_ids, freqs, positions,
+                                   position_offsets)
+        self._doc_lens[name] = doc_lens
 
     def flush(self, seg_id: Optional[str] = None) -> Optional[Segment]:
         if self.num_docs == 0:
             return None
         capacity = pad_to_bucket(self.num_docs)
         fields = {
-            name: self._pack_text_field(name, post, capacity)
+            name: self._pack_text_arrays(name, capacity, *_postings_arrays(post))
             for name, post in self._postings.items()
         }
+        for name, arrays in self._text_arrays.items():
+            fields[name] = self._pack_text_arrays(name, capacity, *arrays)
         doc_values = {
             name: self._pack_doc_values(self.field_defs[name], vals, capacity)
             for name, vals in self._dv.items()
@@ -489,6 +611,7 @@ class SegmentBuilder:
             host_live=np.ones(self.num_docs, dtype=bool),
             doc_values=doc_values,
             vectors=vectors,
+            suggest={k: list(v) for k, v in self._suggest.items()},
         )
 
     def _pack_vectors(self, fd: FieldDef, vals: list, capacity: int) -> VectorColumn:
@@ -518,6 +641,8 @@ class SegmentBuilder:
                 host[doc] = (lat, lon)
                 present[doc] = True
             return doc_value_column(kind, host, present, self.device)
+        if kind == DocValueKind.POLYGON:
+            return self._pack_polygons(vals, capacity, present)
         if kind == DocValueKind.ORDINAL:
             # ordinals are sort-consistent (Lucene SortedDocValues)
             ord_terms = sorted({str(v) for _, v in vals})
@@ -548,38 +673,88 @@ class SegmentBuilder:
         return doc_value_column(kind, host, present, self.device, ord_terms,
                                 mv_offsets, np.asarray(mv_vals, dtype=host.dtype))
 
-    def _pack_text_field(
-        self, field_name: str, post: dict[str, list], capacity: int
-    ) -> TextFieldIndex:
-        terms = {}
-        offsets = np.zeros(len(post), dtype=np.int64)
-        lengths = np.zeros(len(post), dtype=np.int32)
-        total = sum(len(p) for p in post.values())
+    def _pack_text_arrays(self, field_name: str, capacity: int, terms: list[str],
+                          lengths: np.ndarray, docs: np.ndarray, freqs: np.ndarray,
+                          positions: np.ndarray, position_offsets: np.ndarray
+                          ) -> TextFieldIndex:
+        total = len(docs)
+        offsets = np.zeros(len(terms), dtype=np.int64)
+        if len(terms) > 1:
+            np.cumsum(lengths[:-1], out=offsets[1:])
         # slack so a run gather starting near the end never clamps
         p_pad = pad_to_bucket(total + 16384)
         doc_ids = np.zeros(p_pad, dtype=np.int32)
-        freqs = np.zeros(p_pad, dtype=np.float32)
-        cursor = 0
-        for tid, (term, plist) in enumerate(post.items()):
-            terms[term] = tid
-            offsets[tid] = cursor
-            lengths[tid] = len(plist)
-            arr = np.asarray(plist, dtype=np.int64).reshape(-1, 2)
-            doc_ids[cursor : cursor + len(plist)] = arr[:, 0]
-            freqs[cursor : cursor + len(plist)] = arr[:, 1]
-            cursor += len(plist)
+        doc_ids[:total] = docs
+        pfreqs = np.zeros(p_pad, dtype=np.float32)
+        pfreqs[:total] = freqs
         lens_list = self._doc_lens.get(field_name, [])
         lens = np.zeros(capacity, dtype=np.int64)
         lens[: len(lens_list)] = lens_list
         qlens = quantize_length(lens).astype(np.float32)
         return TextFieldIndex(
-            terms=terms,
+            terms={t: i for i, t in enumerate(terms)},
             offsets=offsets,
-            lengths=lengths,
+            lengths=np.asarray(lengths, dtype=np.int32),
             doc_ids=torch.as_tensor(doc_ids, device=self.device),
-            freqs=torch.as_tensor(freqs, device=self.device),
+            freqs=torch.as_tensor(pfreqs, device=self.device),
             doc_lens=torch.as_tensor(qlens, device=self.device),
             sum_doc_lens=int(quantize_length(lens[: self.num_docs]).sum()),
             doc_count=int(np.count_nonzero(lens[: self.num_docs])),
             postings_len=total,
+            positions=np.asarray(positions, dtype=np.int32),
+            position_offsets=np.asarray(position_offsets, dtype=np.int64),
         )
+
+    def _pack_polygons(self, vals: list, capacity: int, present: np.ndarray) -> DocValueColumn:
+        """POLYGON column (the reference's ``_pack_polygons``): f32
+        [capacity, V_pad, 2] of ring-closed, NaN-separated vertices (outer
+        ring, then holes), so point containment is one parity count over
+        the whole column (``ops.masks.doc_polygons_contain_point``). The
+        GeoJSON strings ride doc-indexed in ``ord_terms`` for fetch."""
+        per_doc = {doc: (geojson, parse_geojson_polygon(geojson)[1]) for doc, geojson in vals}
+
+        def _flat(rings):
+            pts: list[tuple[float, float]] = []
+            for ring in rings:
+                pts.extend(ring)
+                if ring[0] != ring[-1]:
+                    pts.append(ring[0])  # close the ring
+                pts.append((np.nan, np.nan))  # separator: no cross-ring edge
+            return pts
+
+        flats = {d: _flat(rings) for d, (_, rings) in per_doc.items()}
+        v_pad = pad_to_bucket(max((len(p) for p in flats.values()), default=1), minimum=8)
+        arr = np.full((capacity, v_pad, 2), np.nan, dtype=np.float32)
+        geojsons = [""] * self.num_docs
+        for d, pts in flats.items():
+            arr[d, : len(pts)] = np.asarray(pts, dtype=np.float32)
+            present[d] = True
+            geojsons[d] = per_doc[d][0]
+        return doc_value_column(DocValueKind.POLYGON, arr, present, self.device, geojsons)
+
+
+def _suggest_entry(v) -> tuple[str, float, list]:
+    """(text, weight, contexts) of one CONTEXT_SUGGEST value: a JSON object
+    with ``value``, ``weight`` and ``contexts``, or plain text (weight 1)."""
+    if isinstance(v, str) and v.lstrip().startswith("{"):
+        d = json.loads(v)
+        return (str(d.get("value", "")), float(d.get("weight", 1.0)),
+                list(d.get("contexts", [])))
+    return (str(v), 1.0, [])
+
+
+def _postings_arrays(post: dict[str, list]) -> tuple:
+    """A builder's term -> [(doc, freq, positions)] lists as packed arrays:
+    terms in first-seen order, run lengths, docs, freqs and the positions
+    CSR over the entries."""
+    terms = list(post)
+    lengths = np.fromiter((len(post[t]) for t in terms), np.int32, len(terms))
+    entries = [e for t in terms for e in post[t]]
+    n = len(entries)
+    docs = np.fromiter((e[0] for e in entries), np.int32, n)
+    freqs = np.fromiter((e[1] for e in entries), np.float32, n)
+    pos_offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(np.fromiter((len(e[2]) for e in entries), np.int64, n), out=pos_offsets[1:])
+    positions = np.fromiter(itertools.chain.from_iterable(e[2] for e in entries),
+                            np.int32, int(pos_offsets[-1]))
+    return terms, lengths, docs, freqs, positions, pos_offsets

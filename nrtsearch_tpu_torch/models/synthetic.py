@@ -165,7 +165,13 @@ def clustered_vectors(n: int, dims: int, n_queries: int,
 
 class SyntheticCorpus:
     """Packed postings generated directly (no analysis loop): term draws
-    follow a Zipf law, doc lengths are lognormal."""
+    follow a Zipf law, doc lengths are lognormal.
+
+    With ``keep_positions`` the corpus also keeps the drawn token sequence
+    (``tokens``, doc after doc, and each doc's first token ``doc_starts``):
+    a token's position is its index within its doc, and ``segment_arrays``
+    adds each segment's positions CSR. The draws and the postings are the
+    same with and without it."""
 
     def __init__(
         self,
@@ -173,6 +179,7 @@ class SyntheticCorpus:
         vocab_size: int = 50_000,
         avg_doc_len: int = 64,
         seed: int = 0,
+        keep_positions: bool = False,
     ):
         rng = np.random.default_rng(seed)
         self.num_docs = num_docs
@@ -187,6 +194,8 @@ class SyntheticCorpus:
         probs /= probs.sum()
         terms = rng.choice(vocab_size, size=total, p=probs).astype(np.int32)
         docs = np.repeat(np.arange(num_docs, dtype=np.int32), doc_lens)
+        self.tokens = terms if keep_positions else None
+        self.doc_starts = np.concatenate([[0], np.cumsum(doc_lens)]) if keep_positions else None
         # collapse duplicates within a doc -> (doc, term) with freq
         key = docs.astype(np.int64) * vocab_size + terms
         uniq, counts = np.unique(key, return_counts=True)
@@ -375,14 +384,37 @@ class SyntheticCorpus:
             out.append(seg)
         return out
 
-    def segment_arrays(self, num_segments: int) -> list[dict]:
+    def segment_positions(self, lo: int, hi: int) -> tuple[np.ndarray, np.ndarray]:
+        """(positions int32, position_offsets int64) of docs [lo, hi): the
+        CSR over that doc range's postings entries, in postings order (term,
+        then doc), each entry's positions ascending."""
+        a, b = int(self.doc_starts[lo]), int(self.doc_starts[hi])
+        toks = self.tokens[a:b]
+        local_doc = np.repeat(np.arange(hi - lo, dtype=np.int64),
+                              np.diff(self.doc_starts[lo : hi + 1]))
+        pos = (np.arange(a, b, dtype=np.int64) - self.doc_starts[lo:hi][local_doc]).astype(np.int32)
+        # the tokens are in (doc, position) order: a stable sort by term
+        # gives (term, doc, position) order
+        order = np.argsort(toks, kind="stable")
+        key = toks[order].astype(np.int64) * (hi - lo) + local_doc[order]
+        starts = np.flatnonzero(np.concatenate([[True], key[1:] != key[:-1]]))
+        offsets = np.append(starts, len(key)).astype(np.int64)
+        return pos[order], offsets
+
+    def segment_bounds(self, num_segments: int) -> np.ndarray:
+        """The doc-range bounds of ``segment_arrays``' segments."""
+        return np.linspace(0, self.num_docs, num_segments + 1).astype(np.int64)
+
+    def segment_arrays(self, num_segments: int, positions: bool = True) -> list[dict]:
         """Cut the corpus into ``num_segments`` doc-range segments. Term t
         is the string ``str(t)``; field lengths are byte-quantized as the
         reference's segment builder does. Each dict feeds
-        ``convert.segment_from_numpy``."""
+        ``convert.segment_from_numpy``; with ``keep_positions`` (and
+        ``positions``) it holds the segment's ``positions`` and
+        ``position_offsets``."""
         V = self.vocab_size
         post_terms = np.repeat(np.arange(V, dtype=np.int64), self.term_lengths)
-        bounds = np.linspace(0, self.num_docs, num_segments + 1).astype(np.int64)
+        bounds = self.segment_bounds(num_segments)
         out = []
         for lo, hi in zip(bounds[:-1], bounds[1:]):
             sel = (self.post_docs >= lo) & (self.post_docs < hi)
@@ -420,4 +452,7 @@ class SyntheticCorpus:
                 "capacity": capacity,
                 "stored": [{} for _ in range(n)],
             })
+            if positions and self.tokens is not None:
+                out[-1]["positions"], out[-1]["position_offsets"] = \
+                    self.segment_positions(int(lo), int(hi))
         return out

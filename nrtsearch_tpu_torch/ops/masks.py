@@ -1,6 +1,6 @@
 """Filter masks over columnar doc values (counterpart:
 nrtsearch_tpu/ops/masks.py ``range_mask``, ``eq_mask``, ``in_set_mask``,
-``exists_mask`` and the geo masks).
+``exists_mask``, the geo masks and ``doc_polygons_contain_point``).
 
 Elementwise compares over a segment's [capacity] column give bool masks that
 AND/OR/NOT together. Columns are f32, f64 or int32 ordinals; bounds and
@@ -15,8 +15,8 @@ constant (pi/180, the earth's radius, a query point) rounded as JAX rounds
 it. The transcendental functions (sin, cos, arcsin, sqrt) are torch's, not
 XLA's: a distance may differ from the reference's in its last bits, so a
 doc within a few ulp of a radius may land on the other side of it.
-``doc_polygons_contain_point`` reads POLYGON columns, which come with ROADMAP
-item 10.
+``doc_polygons_contain_point`` reads a POLYGON column, f32 [capacity, V, 2]
+of NaN-separated closed rings per doc.
 """
 
 from __future__ import annotations
@@ -96,6 +96,17 @@ def point_in_rings_mask(latlon: torch.Tensor, present: torch.Tensor,
     y1, x1 = rings[:-1, 0][None, :], rings[:-1, 1][None, :]
     y2, x2 = rings[1:, 0][None, :], rings[1:, 1][None, :]
     return _parity(lat, lon, y1, x1, y2, x2) & present
+
+
+def doc_polygons_contain_point(verts: torch.Tensor, present: torch.Tensor, lat,
+                               lon) -> torch.Tensor:
+    """Docs whose indexed POLYGON contains the query point (the reference's
+    GeoPointQuery against PolygonfieldDef): one even-odd parity count over
+    every doc's edges, the query point's coordinates rounded to f32."""
+    dev = verts.device
+    y1, x1 = verts[:, :-1, 0], verts[:, :-1, 1]          # [D, V-1]
+    y2, x2 = verts[:, 1:, 0], verts[:, 1:, 1]
+    return _parity(scalar_f32(lat, dev), scalar_f32(lon, dev), y1, x1, y2, x2) & present
 
 
 _DEG2RAD = float(np.float32(np.pi / 180))   # jnp.deg2rad's f32 constant

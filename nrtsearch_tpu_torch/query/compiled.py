@@ -16,9 +16,10 @@ segment has fewer than k matches or a tie plateau at its threshold
 
 Node kinds with host-side work keep the eager evaluator (query/eval.py)
 and enter as precomputed (scores, match) pairs (``_host_fallback``): f64
-and multi-valued doc-value columns, resolved joins, and the node kinds the
-port does not serve yet (phrase, span, nested, completion: ROADMAP item
-10), which raise there.
+and multi-valued doc-value columns, resolved joins, and the positional,
+nested and completion queries (phrase, match-phrase, phrase-prefix and
+PHRASE_PREFIX multi-match, span-near, nested, completion), as in the
+reference.
 """
 
 from __future__ import annotations
@@ -345,14 +346,19 @@ def prepare(node: qp.QueryNode, prep: _Prep) -> CNode:
         return CNode("geo_rings", slots=(
             prep.slot(dv.values), prep.slot(dv.present), prep.f32(node.boost),
         ) + ring_slots)
+    if isinstance(node, qp.PolygonContainsNode):
+        dv = qeval.polygon_column(ctx, node.field)
+        return CNode("poly_contains", slots=(
+            prep.slot(dv.values), prep.slot(dv.present), prep.f32(node.lat),
+            prep.f32(node.lon), prep.f32(node.boost),
+        ))
     if isinstance(node, qp.ExactVectorQueryNode):
         q, vc, similarity = qeval.exact_vector_inputs(node, prep.ctx)
         return CNode("exact_vector", static=(similarity,), slots=(
             prep.slot(q), prep.slot(vc.device_float()), prep.slot(vc.sq_norms),
             prep.slot(vc.present), prep.slot(seg.live), prep.f32t(node.boost),
         ))
-    # host-verified / host-resident node kinds keep the eager path (and
-    # raise there when not ported)
+    # host-verified / host-resident node kinds keep the eager path
     return _host_fallback(node, prep)
 
 
@@ -560,6 +566,10 @@ def _run(c: CNode, inp: list, D: int, dev: torch.device):
         for ring_slot in c.slots[3:]:
             m = mask_ops.point_in_rings_mask(latlon, present, inp[ring_slot])
             match = m if match is None else (match | m)
+        return _const(match, boost), match
+    if c.kind == "poly_contains":
+        verts, present, lat, lon, boost = (inp[i] for i in c.slots)
+        match = mask_ops.doc_polygons_contain_point(verts, present, lat, lon)
         return _const(match, boost), match
     if c.kind == "exact_vector":
         from nrtsearch_tpu_torch.ops.knn import _scores as knn_scores

@@ -11,10 +11,15 @@ device, node) in ``search.query_cache``. Every op runs in the reference's
 order and precision, so scores are bit-equal to it but where a
 transcendental function is involved (scripts, geo distance).
 
-Not ported: phrase, match-phrase, phrase-prefix and span-near queries need
-term positions, and completion, nested and polygon-contains queries need
-suggest, nested and POLYGON fields (ROADMAP item 10). Each raises
-``NotImplementedError`` naming its item.
+Positional queries (phrase, match-phrase, phrase-prefix, span-near) find
+their candidates on the device (docs holding every term), then verify
+positions: phrases and phrase-prefixes on the device (``ops.phrase``)
+wherever the reference's default path does, span-near in a host loop over
+the candidates, as in the reference. Nested queries aggregate child scores
+per parent block, and completion queries scan the segment's suggest
+entries, on the host as in the reference; every device tensor they read
+comes back with ``.cpu()``. ``PHRASE_PATHS`` counts which verification
+served each phrase and phrase-prefix query that had candidates.
 """
 
 from __future__ import annotations
@@ -42,10 +47,9 @@ BM25_K1 = 1.2
 BM25_B = 0.75
 
 
-def not_ported(what: str, item: int = 10, needs: str = "term positions") -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs {needs}, which are not ported yet (ROADMAP item {item})"
-    )
+# phrase and phrase-prefix queries (per segment with candidates) served per
+# verification path: "device" (ops.phrase) and "host" (``_phrase_freq``)
+PHRASE_PATHS = {"device": 0, "host": 0}
 
 
 class CollectionStats:
@@ -152,9 +156,13 @@ def _eval_node_impl(node: qp.QueryNode, ctx: EvalContext):
         return _eval_geo_bbox(node, ctx)
     if isinstance(node, qp.GeoRadiusNode):
         return _eval_geo_radius(node, ctx)
-    if isinstance(node, (qp.PhraseQueryNode, qp.MatchPhraseQueryNode,
-                         qp.MatchPhrasePrefixQueryNode)):
-        raise not_ported(f"a {type(node).__name__}")
+    if isinstance(node, (qp.PhraseQueryNode, qp.MatchPhraseQueryNode)):
+        return _eval_phrase(node, ctx)
+    if isinstance(node, qp.MatchPhrasePrefixQueryNode):
+        return _eval_phrase_prefix_impl(
+            ctx, node.field, node.query, node.slop, node.analyzer,
+            node.max_expansions, node.boost,
+        )
     if isinstance(node, qp.FunctionScoreNode):
         return _eval_function_score(node, ctx)
     if isinstance(node, qp.MultiFunctionScoreNode):
@@ -181,7 +189,7 @@ def _eval_node_impl(node: qp.QueryNode, ctx: EvalContext):
     if isinstance(node, qp.ExactVectorQueryNode):
         return _eval_exact_vector(node, ctx)
     if isinstance(node, qp.SpanNearNode):
-        raise not_ported("a span-near query")
+        return _eval_span_near(node, ctx)
     if isinstance(node, qp.ResolvedJoinNode):
         return _eval_resolved_join(node, ctx)
     if isinstance(node, qp.CrossIndexQueryNode):
@@ -193,13 +201,15 @@ def _eval_node_impl(node: qp.QueryNode, ctx: EvalContext):
     if isinstance(node, qp.WildcardQueryNode):
         return _eval_wildcard(node, ctx)
     if isinstance(node, qp.NestedQueryNode):
-        raise not_ported("a nested query", 10, "nested documents")
+        return _eval_nested(node, ctx)
     if isinstance(node, qp.CompletionQueryNode):
-        raise not_ported("a completion query", 10, "suggest fields")
+        return _eval_completion(node, ctx)
     if isinstance(node, qp.GeoPolygonNode):
         return _eval_geo_polygon(node, ctx)
     if isinstance(node, qp.PolygonContainsNode):
-        raise not_ported("a geo point-in-polygon-field query", 10, "POLYGON fields")
+        dv = polygon_column(ctx, node.field)
+        match = mask_ops.doc_polygons_contain_point(dv.values, dv.present, node.lat, node.lon)
+        return _const_score(match, node.boost), match
     raise NotImplementedError(f"query node not yet supported: {type(node).__name__}")
 
 
@@ -325,9 +335,9 @@ def _eval_term_in_set(node: qp.TermInSetNode, ctx: EvalContext):
 def _eval_multi_match(node: qp.MultiMatchQueryNode, ctx: EvalContext):
     """Multi-field match (reference: query/QueryNodeMapper getMultiMatchQuery).
 
-    BEST_FIELDS: dis-max over per-field match queries. CROSS_FIELDS:
-    every term scored against its best field, then summed. PHRASE_PREFIX
-    needs term positions (ROADMAP item 10)."""
+    BEST_FIELDS: dis-max over per-field match queries. PHRASE_PREFIX:
+    dis-max over per-field match-phrase-prefix queries. CROSS_FIELDS:
+    every term scored against its best field, then summed."""
     dev = ctx.segment.device
     boosts = node.field_boosts or (1.0,) * len(node.fields)
     if node.match_type == "CROSS_FIELDS":
@@ -354,11 +364,13 @@ def _eval_multi_match(node: qp.MultiMatchQueryNode, ctx: EvalContext):
         )
         match = matched_n >= need
         return torch.where(match, term_score * scalar_f32(node.boost, dev), _zero(ctx)), match
-    if node.match_type == "PHRASE_PREFIX":
-        raise not_ported("a PHRASE_PREFIX multi-match query")
     per_field = []
-    for f, fb in zip(node.fields, boosts):   # BEST_FIELDS
-        fd = _field(ctx, f)
+    for f, fb in zip(node.fields, boosts):
+        if node.match_type == "PHRASE_PREFIX":
+            per_field.append(_eval_phrase_prefix_impl(
+                ctx, f, node.query, node.slop, None, node.max_expansions, fb))
+            continue
+        fd = _field(ctx, f)   # BEST_FIELDS
         terms = fd.query_terms(node.query)
         per_field.append(
             _text_clause(
@@ -573,8 +585,7 @@ def _eval_prefix(node: qp.PrefixQueryNode, ctx: EvalContext):
 
 def prefix_companion(ctx: EvalContext, node: qp.PrefixQueryNode):
     """The hidden ``<field>._index_prefix`` field that holds this prefix as
-    one term, or None (an index the reference committed may carry one; the
-    port's builder refuses indexPrefixes fields, ROADMAP item 10)."""
+    one term (an ``indexPrefixes`` field's companion), or None."""
     fd = ctx.field_defs.get(node.field)
     if fd is None or fd.index_prefixes is None:
         return None
@@ -665,6 +676,436 @@ def _levenshtein_at_most(a: str, b: str, k: int) -> bool:
             return False
         prev = cur
     return prev[lb] <= k
+
+
+def _host_pair(ctx: EvalContext, scores_host: np.ndarray, match_host: np.ndarray):
+    dev = ctx.segment.device
+    return torch.as_tensor(scores_host, device=dev), torch.as_tensor(match_host, device=dev)
+
+
+def _candidates(ctx: EvalContext, field: str, terms: list[str], operator: str) -> torch.Tensor:
+    """Docs holding every term (MUST) or any term (SHOULD), as a match mask
+    (the scoreless ``_text_clause`` the reference runs for its candidates:
+    the same counts, no scores)."""
+    tfi = ctx.segment.fields[field]
+    offs, lens = zip(*(tfi.lookup(t) for t in terms))
+    _, counts = bm25_ops.score_text_clause(
+        tfi.doc_ids, tfi.freqs, tfi.doc_lens, offs, lens, np.zeros(len(terms), np.float32),
+        ctx.k1, ctx.b, 1.0, num_docs=ctx.segment.capacity, want_scores=False,
+    )
+    return counts == len(terms) if operator == "MUST" else counts >= 1
+
+
+def _candidate_ids(ctx: EvalContext, cand_mask: torch.Tensor) -> torch.Tensor:
+    """The candidate doc ids, int64 on the segment's device (one wait)."""
+    return torch.nonzero(cand_mask[: ctx.segment.num_docs]).flatten()
+
+
+def _eval_completion(node: qp.CompletionQueryNode, ctx: EvalContext):
+    """Context-suggest completion: prefix (optionally fuzzy) match over the
+    segment's suggest entries, scored by the entry's weight (reference:
+    ContextSuggestFieldDef + CompletionQuery with MyContextQuery), on the
+    host as in the reference."""
+    seg = ctx.segment
+    entries = seg.suggest.get(node.field)
+    if not entries or not node.text:
+        return _none(ctx)
+    want = node.text.lower()
+    ctx_set = set(node.contexts)
+    scores_host = np.zeros(seg.capacity, np.float32)
+    match_host = np.zeros(seg.capacity, bool)
+    for doc, text, weight, contexts in entries:
+        lt = text.lower()
+        if node.fuzzy:
+            ok = _levenshtein_at_most(want, lt[: len(want)], 1)
+        else:
+            ok = lt.startswith(want)
+        if not ok:
+            continue
+        if ctx_set and not (ctx_set & set(contexts)):
+            continue
+        if weight * node.boost > scores_host[doc]:
+            scores_host[doc] = weight * node.boost
+        match_host[doc] = True
+    return _host_pair(ctx, scores_host, match_host)
+
+
+def _eval_nested(node: qp.NestedQueryNode, ctx: EvalContext):
+    """Block join: the child query, aggregated per parent block (reference:
+    NestedQuery -> Lucene ToParentBlockJoinQuery). Children precede their
+    parent, so each block is a ``reduceat`` span over the parent
+    boundaries; the child answer is read to the host (``.cpu()``)."""
+    from nrtsearch_tpu_torch.core.segment import NESTED_PATH_FIELD
+
+    seg = ctx.segment
+    dv = seg.doc_values.get(NESTED_PATH_FIELD)
+    parents = seg.parent_positions()
+    if dv is None or parents is None or len(parents) == 0:
+        return _none(ctx)
+    path_ord = (dv.ord_index or {}).get(node.path)
+    if path_ord is None:
+        return _none(ctx)
+    child_scores, child_match = eval_node(node.query or qp.MatchAllNode(), ctx)
+    cs = child_scores.cpu().numpy()[: seg.num_docs]
+    cm = child_match.cpu().numpy()[: seg.num_docs]
+    on_path = dv.host_values[: seg.num_docs] == path_ord
+    cm = cm & on_path & seg.host_live
+    cs = np.where(cm, cs, 0.0)
+
+    # per-parent block aggregation: block of parents[i] = (parents[i-1], parents[i])
+    starts = np.concatenate([[0], parents[:-1] + 1])
+    sums = np.add.reduceat(cs, starts) * (starts < seg.num_docs)
+    counts = np.add.reduceat(cm.astype(np.int64), starts)
+    # reduceat repeats a value for an empty block (start == parent): zero
+    # the blocks with no matching child
+    empty = counts == 0
+    sums = np.where(empty, 0.0, sums)
+    if node.score_mode == "MAX" or node.score_mode == "MIN":
+        op = np.maximum if node.score_mode == "MAX" else np.minimum
+        agg = op.reduceat(np.where(cm, cs, -np.inf if node.score_mode == "MAX" else np.inf),
+                          starts)
+        agg = np.where(empty, 0.0, agg)
+    elif node.score_mode == "AVG":
+        agg = np.where(empty, 0.0, sums / np.maximum(counts, 1))
+    elif node.score_mode == "NONE":
+        agg = (~empty).astype(np.float32)
+    else:  # SUM
+        agg = sums
+
+    scores_host = np.zeros(seg.capacity, np.float32)
+    match_host = np.zeros(seg.capacity, bool)
+    scores_host[parents] = (agg * node.boost).astype(np.float32)
+    match_host[parents] = ~empty
+    scores_host = np.where(match_host[: seg.capacity], scores_host, 0.0)
+    return _host_pair(ctx, scores_host, match_host)
+
+
+def _phrase_score_host(ctx: EvalContext, tfi, cand_ids: np.ndarray, freq_of, sum_idf: float,
+                       avgdl: float, boost: float):
+    """The host loop's phrase-frequency BM25 over the candidates (the
+    reference's, in its numpy arithmetic): ``freq_of(doc)`` gives a doc's
+    phrase (or span) frequency."""
+    seg = ctx.segment
+    doc_lens = tfi.doc_lens.cpu().numpy()
+    scores_host = np.zeros(seg.capacity, np.float32)
+    match_host = np.zeros(seg.capacity, bool)
+    for doc in cand_ids:
+        freq = freq_of(int(doc))
+        if freq > 0:
+            dl = doc_lens[doc]
+            tf_norm = freq / (freq + ctx.k1 * (1 - ctx.b + ctx.b * dl / avgdl))
+            scores_host[doc] = boost * sum_idf * tf_norm
+            match_host[doc] = True
+    return _host_pair(ctx, scores_host, match_host)
+
+
+def _eval_phrase(node, ctx: EvalContext):
+    """Phrase matching: the docs holding every term (device), then their
+    positions (``ops.phrase`` on the device; the host loop where it returns
+    None), scored by BM25 on the phrase frequency with the summed idf of the
+    distinct terms (Lucene PhraseQuery)."""
+    seg = ctx.segment
+    if isinstance(node, qp.MatchPhraseQueryNode):
+        fd = _field(ctx, node.field)
+        analyzer = fd.search_analyzer or fd.index_analyzer or get_analyzer("standard")
+        tokens = analyzer.analyze(node.query)
+        if not tokens:
+            return _none(ctx)
+        base_pos = tokens[0].position
+        terms = [t.text for t in tokens]
+        req_offsets = [t.position - base_pos for t in tokens]
+    else:
+        terms = list(node.terms)
+        req_offsets = list(range(len(terms)))
+    slop = node.slop
+    if not terms:
+        return _none(ctx)
+    tfi = seg.fields.get(node.field)
+    if tfi is None or tfi.positions is None:
+        return _none(ctx)
+
+    cand_ids = _candidate_ids(ctx, _candidates(ctx, node.field, terms, "MUST"))
+    dc = ctx.stats.doc_count(node.field)
+    sum_idf = sum(
+        bm25_ops.lucene_idf(dc, ctx.stats.doc_freq(node.field, t)) for t in set(terms)
+    )
+    avgdl = ctx.stats.avgdl(node.field)
+    if len(cand_ids):
+        from nrtsearch_tpu_torch.ops import phrase as phrase_ops
+
+        res = phrase_ops.run_phrase(tfi, cand_ids, terms, req_offsets, slop)
+        if res is not None:
+            PHRASE_PATHS["device"] += 1
+            return phrase_ops.phrase_scatter(*res, tfi.doc_lens, sum_idf, node.boost,
+                                             ctx.k1, ctx.b, avgdl)
+        PHRASE_PATHS["host"] += 1
+    return _phrase_score_host(
+        ctx, tfi, cand_ids.cpu().numpy(),
+        lambda doc: _phrase_freq([tfi.positions_of(t, doc) for t in terms], req_offsets, slop),
+        sum_idf, avgdl, node.boost)
+
+
+def _eval_phrase_prefix_impl(
+    ctx: EvalContext, field: str, query: str, slop: int,
+    analyzer_name, max_expansions: int, boost: float,
+):
+    """A phrase whose last term expands to up to ``max_expansions`` index
+    terms with its prefix (reference: query/MatchPhrasePrefixQuery.java ->
+    Lucene MultiPhrasePrefixQuery); it matches where any expansion
+    completes it, scored as a phrase with the expansion set as one term
+    (df = the sum of the expansions' dfs, capped at the doc count)."""
+    seg = ctx.segment
+    fd = _field(ctx, field)
+    analyzer = (
+        get_analyzer(analyzer_name)
+        if analyzer_name
+        else (fd.search_analyzer or fd.index_analyzer or get_analyzer("standard"))
+    )
+    tokens = analyzer.analyze(query)
+    if not tokens:
+        return _none(ctx)
+    base_pos = tokens[0].position
+    terms = [t.text for t in tokens]
+    req_offsets = [t.position - base_pos for t in tokens]
+    tfi = seg.fields.get(field)
+    if tfi is None or tfi.positions is None:
+        return _none(ctx)
+    expansions = tfi.terms_with_prefix(terms[-1], max(max_expansions, 1))
+    if not expansions:
+        return _none(ctx)
+    fixed = terms[:-1]
+
+    # candidates: docs with all fixed terms AND any expansion
+    cand_mask = _candidates(ctx, field, expansions, "SHOULD")
+    if fixed:
+        cand_mask = _candidates(ctx, field, fixed, "MUST") & cand_mask
+    cand_ids = _candidate_ids(ctx, cand_mask)
+
+    dc = ctx.stats.doc_count(field)
+    df_exp = min(sum(ctx.stats.doc_freq(field, t) for t in expansions), max(dc, 1))
+    sum_idf = sum(
+        bm25_ops.lucene_idf(dc, ctx.stats.doc_freq(field, t)) for t in set(fixed)
+    ) + bm25_ops.lucene_idf(dc, df_exp)
+    avgdl = ctx.stats.avgdl(field)
+    if len(cand_ids) and fixed:
+        from nrtsearch_tpu_torch.ops import phrase as phrase_ops
+
+        res = phrase_ops.run_phrase(tfi, cand_ids, fixed, req_offsets[:-1], slop,
+                                    expansions=expansions, exp_req=req_offsets[-1])
+        if res is not None:
+            PHRASE_PATHS["device"] += 1
+            return phrase_ops.phrase_scatter(*res, tfi.doc_lens, sum_idf, boost,
+                                             ctx.k1, ctx.b, avgdl)
+    if len(cand_ids):
+        PHRASE_PATHS["host"] += 1
+
+    def freq_of(doc: int) -> int:
+        plists = [tfi.positions_of(t, doc) for t in fixed]
+        exp_lists = [tfi.positions_of(t, doc) for t in expansions]
+        exp_pos = np.unique(np.concatenate(exp_lists) if exp_lists else np.empty(0, np.int32))
+        return _phrase_freq(plists + [exp_pos], req_offsets, slop)
+
+    return _phrase_score_host(ctx, tfi, cand_ids.cpu().numpy(), freq_of, sum_idf, avgdl,
+                              boost)
+
+
+def _span_clause_terms(clause: qp.SpanClause, tfi) -> list[str]:
+    """Expand one span clause against the segment's term dictionary."""
+    if clause.kind == "term":
+        return [clause.text] if clause.text in tfi.terms else []
+    if clause.kind == "prefix":
+        out = tfi.terms_with_prefix(clause.text, len(tfi.terms))
+    elif clause.kind == "wildcard":
+        lit = re.split(r"[*?\[]", clause.text, 1)[0]
+        cands = tfi.terms_with_prefix(lit, len(tfi.terms)) if lit else tfi.terms
+        out = [t for t in cands if fnmatch.fnmatchcase(t, clause.text)]
+    elif clause.kind == "fuzzy":
+        out = _fuzzy_expand(
+            tfi, clause.text, clause.max_edits, clause.prefix_length, clause.max_expansions,
+        )
+    elif clause.kind == "regexp":
+        # Lucene RegexpQuery anchors the whole term (search.proto:605); the
+        # Python-re-compatible subset of Lucene regexp syntax is supported
+        try:
+            pat = re.compile(clause.text)
+        except re.error as e:
+            raise ValueError(f"invalid regexp {clause.text!r}: {e}")
+        out = [t for t in tfi.terms if pat.fullmatch(t)]
+    elif clause.kind == "term_range":
+        lo, hi = clause.text, clause.upper
+
+        def in_range(t: str) -> bool:
+            if lo and (t < lo or (t == lo and not clause.include_lower)):
+                return False
+            if hi and (t > hi or (t == hi and not clause.include_upper)):
+                return False
+            return True
+
+        out = [t for t in tfi.terms if in_range(t)]
+    else:
+        raise ValueError(f"unknown span clause kind: {clause.kind!r}")
+    return out[: clause.max_expansions]
+
+
+def _span_leaves(clause: qp.SpanClause):
+    """All term-bearing leaf clauses under ``clause`` (depth-first)."""
+    if clause.kind == "near":
+        for c in clause.near.clauses:
+            yield from _span_leaves(c)
+    else:
+        yield clause
+
+
+_EMPTY_SPANS = np.empty((0, 2), np.int64)
+
+
+def _near_match_spans(lists: list[np.ndarray], slop: int, in_order: bool) -> np.ndarray:
+    """Greedy span-near matching over per-clause span lists ([n, 2] arrays
+    of (start, end), sorted by start). A match picks one span per clause
+    with (max_end - min_start) - sum(span widths) <= slop, non-overlapping
+    in clause order when ``in_order`` (Lucene NearSpansOrdered), the
+    nearest by start otherwise (NearSpansUnordered's minimal interval,
+    greedy per first-clause span). Returns the matched (min_start,
+    max_end) spans, so near groups nest as clauses of an enclosing near."""
+    n = len(lists)
+    if any(len(sp) == 0 for sp in lists):
+        return _EMPTY_SPANS
+    if n == 1:
+        return lists[0]
+    starts = [sp[:, 0] for sp in lists]
+    out = []
+    for s0, e0 in lists[0]:
+        min_start, max_end = int(s0), int(e0)
+        total_len = int(e0) - int(s0)
+        prev_start, prev_end = int(s0), int(e0)
+        ok = True
+        for sp, st in zip(lists[1:], starts[1:]):
+            if in_order:
+                i = int(np.searchsorted(st, prev_end))
+                if i >= len(sp):
+                    ok = False
+                    break
+                s, e = int(sp[i, 0]), int(sp[i, 1])
+            else:
+                i = int(np.searchsorted(st, prev_start))
+                cands = []
+                if i < len(sp):
+                    cands.append((int(sp[i, 0]), int(sp[i, 1])))
+                if i > 0:
+                    cands.append((int(sp[i - 1, 0]), int(sp[i - 1, 1])))
+                s, e = min(cands, key=lambda se: abs(se[0] - prev_start))
+            min_start = min(min_start, s)
+            max_end = max(max_end, e)
+            total_len += e - s
+            prev_start, prev_end = s, e
+            if (max_end - min_start) - total_len > slop:
+                ok = False
+                break
+        if ok and (max_end - min_start) - total_len <= slop:
+            out.append((min_start, max_end))
+    if not out:
+        return _EMPTY_SPANS
+    spans = np.array(out, np.int64)
+    return spans[np.argsort(spans[:, 0], kind="stable")]
+
+
+def _span_clause_matches(clause: qp.SpanClause, tfi, doc: int, leaf_terms: dict) -> np.ndarray:
+    """Spans of one clause in one doc: unit-width spans at term positions
+    for leaves, recursive near-match spans for nested near groups."""
+    if clause.kind == "near":
+        child = [_span_clause_matches(c, tfi, doc, leaf_terms) for c in clause.near.clauses]
+        return _near_match_spans(child, clause.near.slop, clause.near.in_order)
+    pls = [tfi.positions_of(t, doc) for t in leaf_terms[id(clause)]]
+    pos = np.unique(np.concatenate(pls)) if pls else np.empty(0, np.int64)
+    if len(pos) == 0:
+        return _EMPTY_SPANS
+    return np.stack([pos, pos + 1], axis=1).astype(np.int64)
+
+
+def _eval_span_near(node: qp.SpanNearNode, ctx: EvalContext):
+    """SpanNearQuery: the docs matching some term of every leaf clause
+    (device), then a host loop over their positions, as in the reference
+    (QueryNodeMapper span handling -> Lucene SpanNearQuery); scored like a
+    phrase, summed clause idfs with a BM25 tf norm on the span frequency."""
+    seg = ctx.segment
+    field = node.clauses[0].field
+    tfi = seg.fields.get(field)
+    if tfi is None or tfi.positions is None:
+        return _none(ctx)
+    # expand every term-bearing leaf (incl. leaves of nested near groups)
+    leaves = [lf for c in node.clauses for lf in _span_leaves(c)]
+    leaf_terms = {id(lf): _span_clause_terms(lf, tfi) for lf in leaves}
+    if any(not terms for terms in leaf_terms.values()):
+        return _none(ctx)
+
+    # a near match needs all of its clauses, recursively: AND over the
+    # leaves is exact recall
+    cand_mask = None
+    for lf in leaves:
+        m = _candidates(ctx, field, leaf_terms[id(lf)], "SHOULD")
+        cand_mask = m if cand_mask is None else (cand_mask & m)
+    cand_ids = _candidate_ids(ctx, cand_mask).cpu().numpy()
+
+    dc = ctx.stats.doc_count(field)
+    sum_idf = 0.0
+    for lf in leaves:
+        terms = leaf_terms[id(lf)]
+        df = min(sum(ctx.stats.doc_freq(field, t) for t in terms), max(dc, 1))
+        sum_idf += bm25_ops.lucene_idf(dc, df)
+
+    def freq_of(doc: int) -> int:
+        clause_spans = [_span_clause_matches(c, tfi, doc, leaf_terms) for c in node.clauses]
+        return len(_near_match_spans(clause_spans, node.slop, node.in_order))
+
+    return _phrase_score_host(ctx, tfi, cand_ids, freq_of, sum_idf, ctx.stats.avgdl(field),
+                              node.boost)
+
+
+def _phrase_freq(plists: list[np.ndarray], offsets: list[int], slop: int) -> int:
+    """Count phrase occurrences (the host loop; ``ops.phrase`` is its
+    device form).
+
+    Exact (slop=0): base positions p where every term i appears at p+offset_i.
+    Sloppy: alignments where the total displacement from the exact layout is
+    <= slop (greedy nearest-position approximation of Lucene's sloppy freq).
+    """
+    if any(len(p) == 0 for p in plists):
+        return 0
+    base = plists[0] - offsets[0]
+    if slop == 0:
+        count = 0
+        sets = [set(p.tolist()) for p in plists]
+        for p in base:
+            if all((p + off) in s for off, s in zip(offsets[1:], sets[1:])):
+                count += 1
+        return count
+    count = 0
+    for p in base:
+        total_move = 0
+        ok = True
+        for off, plist in zip(offsets[1:], plists[1:]):
+            want = p + off
+            i = np.searchsorted(plist, want)
+            best = np.inf
+            if i < len(plist):
+                best = abs(int(plist[i]) - want)
+            if i > 0:
+                best = min(best, abs(int(plist[i - 1]) - want))
+            total_move += best
+            if total_move > slop:
+                ok = False
+                break
+        if ok:
+            count += 1
+    return count
+
+
+def polygon_column(ctx: EvalContext, field: str):
+    """A POLYGON field's column; ValueError for any other field."""
+    dv = ctx.segment.doc_values.get(field)
+    if dv is None or dv.kind != DocValueKind.POLYGON:
+        raise ValueError(f"{field} should be a POLYGON field for geoPointQuery")
+    return dv
 
 
 def _latlon(ctx: EvalContext, field: str):

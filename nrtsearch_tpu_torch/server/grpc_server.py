@@ -13,10 +13,8 @@ the caller asks (tests do). Asking for CUDA without a card fails at startup
 The reference's XLA compile cache and its JAX platform pin have no
 counterpart: the port's kernels build once per process (``kernels``).
 
-What the port does not serve yet answers ``UNIMPLEMENTED`` and names the
-ROADMAP item that brings it, never ``INTERNAL``: a ``NotImplementedError``
-from the engine, and the search request fields whose code is not ported
-(``_UNPORTED_SEARCH``, checked before the handler runs).
+A ``NotImplementedError`` from the engine answers ``UNIMPLEMENTED``, never
+``INTERNAL``.
 """
 
 from __future__ import annotations
@@ -49,28 +47,12 @@ _STATUS_MAP = {
     NotImplementedError: grpc.StatusCode.UNIMPLEMENTED,
 }
 
-# SearchRequest fields whose serving code is not ported, with the item
-_UNPORTED_SEARCH = {
-    "inner_hits": "10 (nested documents)",
-}
-
-
 def _status_of(e: Exception) -> tuple[grpc.StatusCode, str]:
     """The status and details a failed RPC answers with."""
     code = _STATUS_MAP.get(type(e))
     if code is not None:
         return code, f"{type(e).__name__}: {e}"
     return grpc.StatusCode.INTERNAL, f"{type(e).__name__}: {e}"
-
-
-def check_search_shape(req) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item when a search
-    request uses a field this slice does not serve."""
-    for fname, item in _UNPORTED_SEARCH.items():
-        if getattr(req, fname):
-            raise NotImplementedError(
-                f"SearchRequest.{fname} is not ported yet (ROADMAP item {item})"
-            )
 
 
 def _check_deadline(context) -> None:
@@ -158,18 +140,8 @@ def _named(fn: Callable, name: str) -> Callable:
 
 
 def make_lucene_service(handlers: Handlers, metrics=None) -> grpc.GenericRpcHandler:
-    """The LuceneServer service over ``handlers``; search requests pass
-    ``check_search_shape`` first."""
+    """The LuceneServer service over ``handlers``."""
     fns = {name: getattr(handlers, name, None) for name in _LUCENE_RPCS}
-
-    def shaped(handler):
-        def run(req):
-            check_search_shape(req)
-            return handler(req)
-        return run
-
-    for name in ("search", "searchV2"):
-        fns[name] = _named(shaped(fns[name]), name)
     # `delete` takes a single AddDocumentRequest in the reference
     fns["delete"] = _named(lambda req: handlers.delete([req]), "delete")
     method_handlers = {}

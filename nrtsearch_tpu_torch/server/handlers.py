@@ -1116,7 +1116,7 @@ class Handlers:
             )
             ctx = qeval.EvalContext(seg, field_defs, searcher.stats)
             scores, match = qeval.eval_node(inner_node, ctx)
-            inner_cache[cache_key] = (np.asarray(scores), np.asarray(match))
+            inner_cache[cache_key] = (np.asarray(scores.cpu()), np.asarray(match.cpu()))
         scores, match = inner_cache[cache_key]
 
         on_path = dv.host_values[start:end] == path_ord

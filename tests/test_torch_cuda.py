@@ -1309,3 +1309,148 @@ def test_served_knn_hybrid_rescore_highlight_cuda_equals_cpu(cuda_device, tmp_pa
     assert all(a.get("hits") for a in gpu)
     assert any(h.get("highlights") for h in gpu[-1]["hits"])
     _close_answers(gpu, cpu, tol)
+
+
+# ---------------------------------------------------------------------------
+# term positions, nested documents and the new field types on the card
+# ---------------------------------------------------------------------------
+
+PHRASE_ULPS = 2
+
+
+def _positional_writers(device, specs_or_defs, docs, waves):
+    from nrtsearch_tpu_torch.core.writer import IndexWriter
+    from torch_positional_data import build
+
+    w = IndexWriter(specs_or_defs, device, merge_factor=100)
+    build(w, docs, waves)
+    return w.segments
+
+
+def _phrase_fields():
+    from nrtsearch_tpu_torch.schema import create_field_def
+    from torch_positional_data import SPECS
+
+    return {n: create_field_def(n, s) for n, s in SPECS.items()}
+
+
+def _assert_close(want, got, ctx, max_ulps=PHRASE_ULPS):
+    from torch_positional_data import ulps
+
+    assert [h.global_ord for h in got.hits] == [h.global_ord for h in want.hits], ctx
+    assert (got.total_hits, got.relation) == (want.total_hits, want.relation), ctx
+    diff = ulps([h.score for h in got.hits], [h.score for h in want.hits])
+    assert diff.max(initial=0) <= max_ulps, (ctx, diff)
+
+
+def test_phrase_ops_cuda_equal_cpu(cuda_device):
+    """ops.phrase on the card against the same calls on the CPU: freqs,
+    padded candidates and matches equal, scores within 2 f32 ulps."""
+    from nrtsearch_tpu_torch.ops import phrase as phrase_ops
+    from torch_positional_data import OPS_CASES, candidates, phrase_docs, ulps
+
+    docs = phrase_docs()
+    cpu = _positional_writers("cpu", _phrase_fields(), docs, 3)
+    gpu = _positional_writers(cuda_device, _phrase_fields(), docs, 3)
+    for case, (terms, req, slop, exp, exp_req) in OPS_CASES.items():
+        for kind in ("all", "doc0_and_pads"):
+            for cs, gs in zip(cpu, gpu):
+                cand_ids = candidates(cs, kind)
+                want = phrase_ops.run_phrase(cs.fields["t"], cand_ids, terms, req, slop,
+                                             expansions=list(exp), exp_req=exp_req)
+                got = phrase_ops.run_phrase(gs.fields["t"], cand_ids, terms, req, slop,
+                                            expansions=list(exp), exp_req=exp_req)
+                assert torch.equal(got[0].cpu(), want[0]), (case, kind)
+                assert torch.equal(got[1].cpu(), want[1]), (case, kind)
+                args = (1.7, 1.25, 1.2, 0.75, 13.37)
+                ws, wm = phrase_ops.phrase_scatter(*want, cs.fields["t"].doc_lens, *args)
+                gsc, gm = phrase_ops.phrase_scatter(*got, gs.fields["t"].doc_lens, *args)
+                assert torch.equal(gm.cpu(), wm), (case, kind)
+                assert ulps(gsc.cpu().numpy(), ws.numpy()).max() <= PHRASE_ULPS, (case, kind)
+
+
+def test_positional_queries_cuda_equal_cpu(cuda_device):
+    """Every positional query of tests/test_torch_phrase.py through
+    ``Searcher.search`` on the card against the CPU; the phrase and
+    phrase-prefix queries with a fixed term are verified by ops.phrase on
+    the card (the host loop's counter does not move), the span-near ones
+    by the host loop over candidates read with .cpu()."""
+    from nrtsearch_tpu_torch.core.searcher import Searcher
+    from nrtsearch_tpu_torch.query import eval as qeval
+    from nrtsearch_tpu_torch.query import parse_query
+    from torch_positional_data import PHRASE_QUERIES, phrase_docs
+
+    docs = phrase_docs()
+    fds = _phrase_fields()
+    cpu = Searcher(_positional_writers("cpu", fds, docs, 3), fds)
+    gpu = Searcher(_positional_writers(cuda_device, fds, docs, 3), fds)
+    for name, q in sorted(PHRASE_QUERIES.items()):
+        before = dict(qeval.PHRASE_PATHS)
+        got = gpu.search(parse_query(q), 50)
+        if name.startswith(("phrase", "match_phrase")) and name != "phrase_prefix_one":
+            assert qeval.PHRASE_PATHS["host"] == before["host"], name
+        _assert_close(cpu.search(parse_query(q), 50), got, name)
+
+
+def test_nested_and_field_types_cuda_equal_cpu(cuda_device):
+    """Nested queries in the five score modes (their child answers come to
+    the host with .cpu()), child and prefix fields, polygon containment and
+    completion on a CUDA index against the CPU."""
+    from nrtsearch_tpu_torch.core.searcher import Searcher
+    from nrtsearch_tpu_torch.query import parse_query
+    from nrtsearch_tpu_torch.schema import create_field_def
+    from torch_positional_data import NESTED_QUERIES, nested, nested_docs, nested_field_defs
+
+    docs = nested_docs()
+    fds = nested_field_defs(create_field_def)
+    cpu = Searcher(_positional_writers("cpu", fds, docs, 2), fds)
+    gpu = Searcher(_positional_writers(cuda_device, fds, docs, 2), fds)
+    queries = dict(NESTED_QUERIES, **{f"nested_{m}": nested(m)
+                                      for m in ("SUM", "AVG", "MAX", "MIN", "NONE")})
+    for name, q in sorted(queries.items()):
+        want = cpu.search(parse_query(q), 100)
+        assert want.total_hits > 0, name
+        _assert_close(want, gpu.search(parse_query(q), 100), name)
+
+
+def _nested_served(device, root):
+    """The port's server on ``device`` over tests/test_torch_nested.py's
+    schema and documents; the SERVED requests' answers."""
+    from google.protobuf.json_format import ParseDict
+
+    from nrtsearch_tpu_torch.client import NrtsearchClient
+    from nrtsearch_tpu_torch.config import NrtsearchConfig
+    from nrtsearch_tpu_torch.gen import pb
+    from nrtsearch_tpu_torch.server.grpc_server import NrtsearchServer
+    from torch_positional_data import (
+        FIELDS, INDEX, PARENTS, SERVED, add_requests, nested_docs, plain,
+    )
+
+    srv = NrtsearchServer(NrtsearchConfig.from_dict(
+        {"stateDir": str(root / "state"), "indexDir": str(root / "index")}), device=device)
+    client = NrtsearchClient(f"localhost:{srv.start(0)}")
+    try:
+        client.create_index(INDEX)
+        client.register_fields(ParseDict({"indexName": INDEX, "field": FIELDS},
+                                         pb.FieldDefRequest()))
+        client.start_index(pb.StartIndexRequest(indexName=INDEX, mode=pb.Mode.STANDALONE))
+        docs = nested_docs()
+        for lo, hi in ((0, 50), (50, PARENTS)):
+            client.add_documents(add_requests(docs[lo:hi]))
+            client.refresh(INDEX)
+        return {name: plain(client.search(make())) for name, make in SERVED.items()}
+    finally:
+        client.close()
+        srv.stop()
+
+
+def test_inner_hits_cuda_equals_cpu(cuda_device, tmp_path):
+    """Served inner hits, nested, polygon, completion, prefix, child-field
+    and highlighted match-phrase requests on a node whose index lives on
+    the card: the inner hits' child answer is read with .cpu() (the
+    reference's np.asarray of it answered INTERNAL on the card), and every
+    answer equals the CPU node's."""
+    gpu = _nested_served(cuda_device, tmp_path / "gpu")
+    cpu = _nested_served("cpu", tmp_path / "cpu")
+    assert any(h["innerHits"]["good_reviews"].get("hits") for h in gpu["inner_hits"]["hits"])
+    assert gpu == cpu

@@ -159,6 +159,10 @@ def _assert_segments_equal(port_seg, ref_seg):
         np.testing.assert_array_equal(pt.lengths, rt.lengths)
         assert (pt.sum_doc_lens, pt.doc_count, pt.postings_len) == (
             rt.sum_doc_lens, rt.doc_count, rt.postings_len), (ctx, name)
+        assert (pt.positions is None) == (rt.positions is None), (ctx, name)
+        if rt.positions is not None:
+            np.testing.assert_array_equal(pt.positions, np.asarray(rt.positions))
+            np.testing.assert_array_equal(pt.position_offsets, np.asarray(rt.position_offsets))
     assert port_seg.doc_values.keys() == ref_seg.doc_values.keys(), ctx
     for name in ref_seg.doc_values:
         assert_columns_equal(port_seg.doc_values[name], ref_seg.doc_values[name], f"{ctx}/{name}")
@@ -185,7 +189,7 @@ def test_port_commit_opens_in_reference(port_segments, tmp_path):
     assert manifest.gen == 1 and len(segs) == len(port_segments)
     for ps, rs in zip(port_segments, segs):
         _assert_segments_equal(ps, rs)
-        assert all(rs.fields[n].positions is None for n in rs.fields)
+        assert all(rs.fields[n].positions is not None for n in rs.fields)
     # and back: the port reads its own files unchanged
     _m, again = port_dir.open_commit(tmp_path, "cpu")
     for a, b in zip(again, port_segments):
@@ -195,15 +199,19 @@ def test_port_commit_opens_in_reference(port_segments, tmp_path):
 
 
 def test_port_writes_no_positions(port_segments, tmp_path):
+    """The port wrote no positions until term positions were ported; now
+    each text field's meta says ``has_positions`` and its CSR arrays are in
+    the npz, as the reference writes them."""
     import msgpack
 
     names = port_dir.save_segment(port_segments[0], tmp_path)
     seg_id = port_segments[0].seg_id
     assert names == port_dir.segment_file_names(seg_id, 0)
     meta = msgpack.unpackb((tmp_path / f"{seg_id}.meta.msgpack").read_bytes(), raw=False)
-    assert all(not fm["has_positions"] for fm in meta["fields"].values())
+    assert meta["fields"] and all(fm["has_positions"] for fm in meta["fields"].values())
     keys = np.load(tmp_path / f"{seg_id}.arrays.npz").files
-    assert not any("position" in k for k in keys)
+    for name in meta["fields"]:
+        assert {f"f.{name}.positions", f"f.{name}.position_offsets"} <= set(keys)
     # base files are immutable: a second save skips them
     before = port_dir.file_metadata(tmp_path, names[0])
     port_dir.save_segment(port_segments[0], tmp_path)
@@ -247,18 +255,35 @@ def test_bf16_vectors_raise_naming_item_12(tmp_path):
     ({"type": "TEXT", "search": True, "indexPrefixes": {"minChars": 2, "maxChars": 4}}, 10),
 ])
 def test_unported_field_types_raise(spec, item):
-    """Field types the port does not build raise naming their item; a
-    VECTOR field (item 12, ported) builds the reference's column."""
-    writer = IndexWriter({"x": create_field_def("x", spec)}, "cpu")
-    value = [1.0, 2.0] if spec["type"] in ("LAT_LON", "VECTOR") else "abc"
-    if item == 12:
-        from nrtsearch_tpu.core.writer import IndexWriter as RefWriter
+    """Field types the port once refused, naming their item, answer as the
+    reference's builder since their items were ported: a VECTOR field
+    (item 12) builds the reference's column; the nested OBJECT and POLYGON
+    fields refuse a malformed value with the reference's error; a
+    CONTEXT_SUGGEST field keeps the reference's entries; an indexPrefixes
+    field builds the reference's ``._index_prefix`` companion."""
+    from nrtsearch_tpu.core.writer import IndexWriter as RefWriter
 
-        ref = RefWriter({"x": ref_create_field_def("x", spec)})
-        for w in (writer, ref):
+    writer = IndexWriter({"x": create_field_def("x", spec)}, "cpu")
+    ref = RefWriter({"x": ref_create_field_def("x", spec)})
+    value = [1.0, 2.0] if spec["type"] in ("LAT_LON", "VECTOR") else "abc"
+    errors = []
+    for w in (writer, ref):
+        try:
             w.add_documents([{"x": value}])
-        vc, ref_vc = writer.refresh()[0].vectors["x"], ref.refresh()[0].vectors["x"]
+            errors.append(None)
+        except Exception as e:  # the two builders must fail alike
+            errors.append(type(e))
+    assert errors[0] == errors[1], errors
+    if spec["type"] in ("OBJECT", "POLYGON"):
+        assert errors[0] is not None and issubclass(errors[0], ValueError)
+        return
+    seg, ref_seg = writer.refresh()[0], ref.refresh()[0]
+    if item == 12:
+        vc, ref_vc = seg.vectors["x"], ref_seg.vectors["x"]
         np.testing.assert_array_equal(vc.host_float(), ref_vc.host_float())
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        writer.add_documents([{"x": value}])
+    assert seg.suggest == ref_seg.suggest
+    assert seg.fields.keys() == ref_seg.fields.keys()
+    for name, rt in ref_seg.fields.items():
+        assert seg.fields[name].terms.keys() == rt.terms.keys()
+        np.testing.assert_array_equal(seg.fields[name].positions, rt.positions)

@@ -14,8 +14,7 @@ Contract: the same hit ids in the same order, the same ``total_hits`` and
 relation, and bit-equal scores and sort keys. That holds for every query
 here, also where a transcendental function is in the score (the function
 score's ``log``, the geo radius's haversine: their f32 results agree on
-these inputs). A phrase query raises ``NotImplementedError`` naming item 10
-(term positions). The sort-and-filter, return-arrays, count-and-masks and
+these inputs), the phrase query's included. The sort-and-filter, return-arrays, count-and-masks and
 after-delete cases of tests/test_compiled_eval.py:151-207 are mirrored; for
 the delete the port opens a commit the reference wrote with deletes.
 """
@@ -36,7 +35,6 @@ from tests.test_compiled_eval import DOCS, FIELDS as REF_FIELDS, QUERIES
 
 SPECS = {name: fd.raw for name, fd in REF_FIELDS.items()}
 PORT_FIELDS = {name: create_field_def(name, spec) for name, spec in SPECS.items()}
-POSITIONAL = ("phraseQuery",)
 
 
 def _name(q: dict) -> str:
@@ -89,10 +87,6 @@ def test_query_matches_reference(searchers, monkeypatch, qi, compiled, pinned):
     ref, port = searchers
     qjson = QUERIES[qi]
     _pin(monkeypatch, compiled, pinned)
-    if _name(qjson) in POSITIONAL:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            port.search(parse_query(qjson), top_hits=10)
-        return
     want = ref.search(ref_parse_query(qjson), top_hits=10)
     got = port.search(parse_query(qjson), top_hits=10)
     assert_same(want, got, _name(qjson))
@@ -169,7 +163,8 @@ def test_after_delete(tmp_path, monkeypatch):
 
 def test_port_writer_builds_the_same_answers():
     """The port's own IndexWriter (LAT_LON included) over the same
-    documents: the same answers as the committed copy."""
+    documents: the same answers as the committed copy, the phrase query's
+    included."""
     w = IndexWriter(PORT_FIELDS, "cpu", merge_factor=100)
     w.add_documents([dict(d) for d in DOCS[:3]])
     w.refresh()
@@ -181,8 +176,6 @@ def test_port_writer_builds_the_same_answers():
     ref_w.add_documents(DOCS[3:])
     ref = RefSearcher(ref_w.refresh(), REF_FIELDS)
     for qjson in QUERIES:
-        if _name(qjson) in POSITIONAL:
-            continue
         assert_same(ref.search(ref_parse_query(qjson), top_hits=10),
                     own.search(parse_query(qjson), top_hits=10), _name(qjson))
 

@@ -4,9 +4,8 @@ suites) through the port, on the CPU.
 Each suite declares a schema, documents and cases of {query -> expected hit
 ids (+ total)}, as tests/test_golden_queries.py runs them through the
 reference. Here the port's own IndexWriter builds each suite's index and
-its ``Searcher.search`` answers every case. The cases that need term
-positions (phrase, match-phrase, phrase-prefix and span queries) raise
-``NotImplementedError`` naming ROADMAP item 10.
+its ``Searcher.search`` answers every case, the positional ones (phrase,
+match-phrase, phrase-prefix and span queries) included.
 """
 
 import json
@@ -21,7 +20,6 @@ from nrtsearch_tpu_torch.schema import create_field_def
 
 GOLDEN_DIR = Path(__file__).parent / "resources" / "golden"
 SUITES = sorted(GOLDEN_DIR.glob("*.json"))
-POSITIONAL = ("phraseQuery", "matchPhraseQuery", "matchPhrasePrefixQuery", "spanQuery")
 
 _CACHE: dict = {}
 
@@ -57,10 +55,6 @@ def test_golden(path, case_idx):
     sort = None
     if "sort" in case:
         sort = SortSpec(case["sort"]["field"], case["sort"].get("reverse", False))
-    if next(iter(case["query"])) in POSITIONAL:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            searcher.search(q, top_hits=case.get("topHits", 10), sort=sort)
-        return
     td = searcher.search(q, top_hits=case.get("topHits", 10), sort=sort)
     got_ids = [ids[h.global_ord] for h in td.hits]
     if case.get("ordered", True):

@@ -647,18 +647,21 @@ COPY_EXCEPTIONS = {
     # a virtual field's scores come from device tensors (None on a
     # score-free answer, which passes through as in the original); a kNN
     # hit's query score and match bit are read through .item() (from a
-    # device tensor or a numpy array), the drill-sideways masks through
-    # .cpu(): np.asarray refuses a CUDA tensor
+    # device tensor or a numpy array), the drill-sideways masks and the
+    # inner hits' child answer through .cpu(): np.asarray refuses a CUDA
+    # tensor
     "server/handlers.py": (
         ["score_arr = np.asarray(arrays[idx][0])",
          "if bool(np.asarray(m_arr[h.local_id])):",
          "qs = float(np.asarray(s_arr[h.local_id]))",
-         "matches.searcher, [np.asarray(m) for m in masks]"],
+         "matches.searcher, [np.asarray(m) for m in masks]",
+         "inner_cache[cache_key] = (np.asarray(scores), np.asarray(match))"],
         ["score_arr = arrays[idx][0]",
          "score_arr = np.asarray(score_arr if score_arr is None else score_arr.cpu())",
          "if bool(m_arr[h.local_id].item()):",
          "qs = float(s_arr[h.local_id].item())",
-         "matches.searcher, [np.asarray(m.cpu()) for m in masks]"]),
+         "matches.searcher, [np.asarray(m.cpu()) for m in masks]",
+         "inner_cache[cache_key] = (np.asarray(scores.cpu()), np.asarray(match.cpu()))"]),
     # entries are keyed by the segment's device as well as its id
     "search/query_cache.py": (
         ["def get(self, seg_id: str, node: qp.QueryNode) -> Optional[Any]:",

@@ -18,8 +18,8 @@ scores are bit-equal; a collector's f32 price sum adds in another order and
 agrees within ``SUM_REL``. Searches sent by 16 client threads at once must
 equal their sequential answers to ``CONCURRENT_REL`` relative (other group
 sizes plan other merge widths, which may reorder the adds of one doc).
-Shapes this slice does not serve answer UNIMPLEMENTED and name their
-ROADMAP item. The write RPCs (delete, an upsert, deleteByQuery,
+Shapes that once answered UNIMPLEMENTED (phrase, inner hits, kNN,
+rescorers) answer as the reference's. The write RPCs (delete, an upsert, deleteByQuery,
 UPDATE_DOC_VALUES, forceMergeDeletes) run on an index of their own on
 both servers and answer alike.
 """
@@ -394,13 +394,6 @@ def test_empty_spec_pads_change_nothing(head_searcher, path, monkeypatch):
     assert all(td.total_hits == 0 and not td.hits for td in padded[len(specs):])
 
 
-def _unimplemented(client, req) -> str:
-    with pytest.raises(grpc.RpcError) as err:
-        client.search(req)
-    assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED, err.value.details()
-    return err.value.details()
-
-
 def _phrase():
     req = pb.SearchRequest(indexName=INDEX, topHits=5)
     req.query.phraseQuery.field = "body"
@@ -440,20 +433,17 @@ def _outcome(client, req):
         return (e.code(), e.details().split(":")[0])
 
 
-@pytest.mark.parametrize("make, item", [(_phrase, "item 10"), (_knn, "item 12"),
-                                        (_rescored, "item 9"), (_inner_hits, "item 10")],
+@pytest.mark.parametrize("make", [_phrase, _knn, _rescored, _inner_hits],
                          ids=["phrase", "knn", "rescorer", "inner_hits"])
-def test_unported_shapes_answer_unimplemented(servers, make, item):
-    """Phrase queries and inner hits answer UNIMPLEMENTED naming item 10.
-    A kNN clause (item 12) and a rescorer (item 9) answered so until their
-    items were ported; now they answer as the reference does (here a kNN
-    clause on a text field: NOT_FOUND on both)."""
-    if item in ("item 12", "item 9"):
-        ref, port = (_outcome(servers[side][1], make()) for side in ("ref", "port"))
-        assert port == ref, (port, ref)
-        return
-    details = _unimplemented(servers["port"][1], make())
-    assert "ROADMAP" in details and item in details, details
+def test_unported_shapes_answer_unimplemented(servers, make):
+    """Shapes that answered UNIMPLEMENTED naming their ROADMAP item until
+    the item was ported: a phrase query and inner hits (item 10), a kNN
+    clause (item 12) and a rescorer (item 9). Each now answers as the
+    reference does (a kNN clause on a text field: NOT_FOUND on both)."""
+    ref, port = (_outcome(servers[side][1], make()) for side in ("ref", "port"))
+    assert port == ref, (port, ref)
+    if make is _phrase:
+        assert int(ref["totalHits"]["value"]) > 0
 
 
 def test_unported_imports_answer_unimplemented(servers):

@@ -63,7 +63,8 @@ def _field_defs(create=create_field_def):
 
 
 def _arrays(seg, field="body"):
-    """A reference segment's arrays as plain numpy."""
+    """A reference segment's arrays as plain numpy, its positions CSR
+    included."""
     tfi = seg.fields[field]
     return {
         "terms": dict(tfi.terms),
@@ -80,6 +81,8 @@ def _arrays(seg, field="body"):
         "num_docs": seg.num_docs,
         "capacity": seg.capacity,
         "stored": seg.stored,
+        "positions": tfi.positions,
+        "position_offsets": tfi.position_offsets,
     }
 
 
@@ -161,17 +164,18 @@ def test_fused_refusal_goes_to_merge(searchers, monkeypatch):
 
 
 def test_unported_shapes_raise(searchers):
-    """A shape the fast paths refuse (a boolean of one scored clause) is
-    served by the general evaluator since it was ported: bit-equal to the
-    reference's answer. A phrase query still raises, naming item 10."""
+    """Shapes the port once refused, served since their items were ported:
+    a boolean of one scored clause (the general evaluator) and a phrase
+    query (term positions), each equal to the reference's answer."""
     ref, port = searchers
     spec = {"booleanQuery": {"clauses": [{"occur": "MUST", "query": QUERIES["or_head"]}]}}
     ref_td = ref.search(ref_parse_query(spec), 10)
     assert ref_td.total_hits > 0
     _assert_same(ref_td, port.search(parse_query(spec), 10), "merge", "boolean")
     phrase = {"phraseQuery": {"field": "body", "terms": ["common", "alpha"]}}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        port.search(parse_query(phrase), 10)
+    ref_td = ref.search(ref_parse_query(phrase), 10)
+    assert ref_td.total_hits > 0
+    _assert_same(ref_td, port.search(parse_query(phrase), 10), "merge", "phrase")
 
 
 def test_port_ingest_matches_reference_segments(waves, searchers):
@@ -205,8 +209,8 @@ def test_port_ingest_matches_reference_segments(waves, searchers):
 
 def test_port_writer_refuses_unported_operations():
     """An upsert and a delete by id answer as the reference's writer does
-    (the write path is ported); a POLYGON field still raises, naming item
-    10."""
+    (the write path is ported); a POLYGON field's malformed value is
+    refused as the reference's builder refuses it."""
     from nrtsearch_tpu.core.searcher import Searcher as RefSearcher
     from nrtsearch_tpu.core.writer import IndexWriter as RefWriter
 
@@ -227,8 +231,14 @@ def test_port_writer_refuses_unported_operations():
     assert port.num_docs == ref.num_docs == 1
     fds = {**_field_defs(), "shape": create_field_def("shape", {"type": "POLYGON",
                                                                  "storeDocValues": True})}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        PortWriter(fds, "cpu").add_documents([{"shape": "abc"}])
+    ref_fds = {**ref_fds, "shape": ref_create_field_def("shape", {"type": "POLYGON",
+                                                                  "storeDocValues": True})}
+    errors = []
+    for w in (PortWriter(fds, "cpu"), RefWriter(ref_fds)):
+        with pytest.raises(Exception) as err:
+            w.add_documents([{"shape": "abc"}])
+        errors.append(type(err.value))
+    assert errors[0] is errors[1], errors
 
 
 def test_cuda_device_without_card_raises():
