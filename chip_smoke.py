@@ -249,6 +249,35 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    REPLICA on the card answers the phrase and nested requests as the
    primary does.
 
+16. virtual shards: ``Searcher.dist_shards`` 2 and 4 with
+   ``device.search_devices`` answering the card S times (a mesh of one
+   card, data = 1): the repartition (``DistributedBM25.from_searcher``) and
+   the dense rows timed, the card bytes per shard; phase 5's 8 singles and
+   its first B=32 batch on the merge mesh (NRT_FAST_PATH=merge) with the
+   same docs and hits as the local merge path, scores within MESH_REL
+   (docs may swap only at such near-ties: the mesh's host impacts may
+   differ from the device's in the last bit), and on the fused mesh under
+   phase 5's fused contract; p50 at B=1 and B=32 for S = 1 (the local
+   path), 2 and 4, and the launches of #1-#6 per request at S=4;
+   ``search_general`` at S=4 with config #3's price filter (and a tag
+   filter), a ts sort and tag facets, equal to Searcher.search and
+   fast_search_reduce; DistributedKNN over phase 14's 1M x 128 f32 vectors
+   against knn_search; a served node (phase 10's commit) at virtualShards
+   4 on the card x 4 answering phase 5's 32 batch queries as singles like
+   the node at virtualShards 1, and with the seam left alone (one card) on
+   the local path; the mesh on distinct cards when there are two or more.
+17. MaxScore: the merge path's PrunedIndex at the serving thresholds,
+   prune=True against prune=False on phase 5's 8 singles and first B=32
+   batch: the same docs, scores within PRUNE_ULPS, hits lower bounds only
+   where pruned; the shares certified / escalated / full, the shape_log,
+   p50 of both, the launches of #2-#6; phase 16's node with NRT_MAXSCORE=1
+   answers GREATER_THAN_OR_EQUAL_TO exactly where a direct search at the
+   batcher's k (pow2(topHits, 8)) prunes, with the unpruned docs.
+18. the standalone bucket API: BucketIndex.build and plan_bucket_batch
+   over the merge path's packed postings and phase 5's singles (a term's
+   runs as slots), bucket_search_topk on the card (kernel #7/#8) equal bit
+   for bit to reference_bucket_search on a host copy.
+
 Launches per main-path batch: the counters around one fast_search_batch
 of the first B=32 batch (merge path), one B=1 query (fused path) and, for
 the bucket kernels, one bucket batch.
@@ -260,7 +289,9 @@ head_scores one fused config-#3 single; ``launches_served`` from phase 10's
 served searches, ``launches_replica`` from phase 11's searches sent to the
 replica alone, ``launches_general`` from phase 12's timeout and arrays
 searches, ``launches_write`` from phase 13's searches on the deleted index,
-``launches_vectors`` from phase 14's hybrid request),
+``launches_vectors`` from phase 14's hybrid request, ``launches_mesh`` from
+phase 16's S = 2 and S = 4 runs, ``launches_pruned`` from phase 17's pruned
+searches, ``launches_bucket_standalone`` from phase 18's search),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
@@ -1060,17 +1091,23 @@ def _ingest_docs(n: int) -> list[dict]:
     return docs
 
 
-def _with_path(path: str, fn):
-    """Run ``fn()`` with NRT_FAST_PATH set to ``path``, then restore it."""
-    saved = os.environ.get("NRT_FAST_PATH")
-    os.environ["NRT_FAST_PATH"] = path
+def _with_env(name: str, value: str, fn):
+    """Run ``fn()`` with the environment variable ``name`` set to
+    ``value``, then restore it."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
     try:
         return fn()
     finally:
         if saved is None:
-            os.environ.pop("NRT_FAST_PATH", None)
+            os.environ.pop(name, None)
         else:
-            os.environ["NRT_FAST_PATH"] = saved
+            os.environ[name] = saved
+
+
+def _with_path(path: str, fn):
+    """Run ``fn()`` with NRT_FAST_PATH set to ``path``, then restore it."""
+    return _with_env("NRT_FAST_PATH", path, fn)
 
 
 def phase_ingest(dev, n_docs: int = 2000) -> dict:
@@ -4814,6 +4851,503 @@ def _id_request(pb, ids: list[str]):
     return r
 
 
+# ---------------------------------------------------------------------------
+# phase 16: virtual shards, phase 17: MaxScore, phase 18: the standalone
+# bucket API
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = (2, 4)
+MESH_REL = 2e-5            # mesh against local (tests/test_virtual_shards_server.py:115)
+MESH_REPS = 3
+MESH_KERNELS = ("head_scores", "near_stages", "far_stage", "far_pair_stage", "gather_runs",
+                "finish_mask")
+MESH_KNN_REL = 1e-5        # kNN scores, mesh against the unsharded column
+PRUNE_ULPS = 4             # pruned against full: the probe adds in run order
+PRUNE_KERNELS = MESH_KERNELS[1:]
+PRUNE_REPS = 3
+
+
+def _mesh_row(out, qi: int) -> tuple:
+    """Row ``qi`` of a mesh answer as (scores, docs, hits) of its filled
+    slots."""
+    s, d, h = out
+    ok = s[qi] > -np.inf
+    return s[qi][ok], d[qi][ok].astype(np.int64), int(h[qi])
+
+
+def _check_same_docs(td, s, d, total, rel: float, ctx: str) -> int:
+    """``td`` against (scores, docs, hits): hits equal, scores rank by rank
+    within ``rel``, docs equal but where the two scores at that rank are
+    within ``rel`` (an order swap of f32 near-ties: the mesh's host impacts
+    and the local path's device impacts may differ in the last bit).
+    Returns the number of such swaps."""
+    docs = np.array([h.global_ord for h in td.hits], np.int64)
+    scores = np.array([h.score for h in td.hits], np.float32)
+    if td.total_hits != total or td.relation != "EQUAL_TO" or len(docs) != len(d):
+        raise AssertionError(f"{ctx}: hits {td.total_hits} ({td.relation}, {len(docs)} "
+                             f"returned) vs {total} ({len(d)})")
+    err = np.abs(scores - s) / np.maximum(np.abs(s), 1e-9)
+    if len(err) and err.max() > rel:
+        raise AssertionError(f"{ctx}: score rel err {err.max():.3g} > {rel}")
+    if len(set(docs.tolist())) != len(docs):
+        raise AssertionError(f"{ctx}: duplicate docs in the top-k")
+    swaps = np.nonzero(docs != d)[0]
+    for i in swaps:
+        if abs(float(s[i]) - float(scores[i])) > rel * abs(float(s[i])):
+            raise AssertionError(f"{ctx}: doc {docs[i]} != {d[i]} at rank {i}")
+    return len(swaps)
+
+
+def _with_search_devices(devices, fn):
+    """``fn()`` with ``device.search_devices`` answering ``devices`` (the
+    seam the engine counts its mesh devices by)."""
+    from nrtsearch_tpu_torch import device as port_device
+
+    real = port_device.search_devices
+    port_device.search_devices = lambda: list(devices)
+    try:
+        return fn()
+    finally:
+        port_device.search_devices = real
+
+
+def _timed(fn, reps: int) -> tuple[float, object]:
+    """(p50 ms over ``reps`` calls, the last answer), synchronized."""
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return 1e3 * float(np.median(times)), out
+
+
+def phase_mesh(dev, corpus, columns, searcher, singles, batch, node, card: str) -> dict:
+    """Phase 16 (see the module docstring). Returns the mesh runs' launches
+    and the phase's measurements."""
+    from nrtsearch_tpu_torch import kernels
+    from nrtsearch_tpu_torch.core.searcher import SortSpec
+    from nrtsearch_tpu_torch.gen import pb
+    from nrtsearch_tpu_torch.models.synthetic import clustered_vectors
+    from nrtsearch_tpu_torch.ops import knn
+    from nrtsearch_tpu_torch.parallel import DistributedKNN, make_search_mesh
+    from nrtsearch_tpu_torch.query import parse_query
+
+    t_phase = time.perf_counter()
+    single_specs = [searcher.fast_query_spec(_match(q)) for q in singles]
+    batch_specs = [searcher.fast_query_spec(_match(q)) for q in batch]
+    paths = ("merge", "fused")
+
+    def run(path: str, reps: int):
+        """B=1 singles and the B=32 batch on ``path``: p50s and answers."""
+        def go():
+            lat1, ans1 = [], []
+            for sp in single_specs:
+                ms_, out = _timed(lambda: searcher.fast_search_batch([sp], TOP_K), reps)
+                lat1.append(ms_)
+                ans1.append(out[0])
+            p32, ans32 = _timed(lambda: searcher.fast_search_batch(batch_specs, TOP_K), reps)
+            return float(np.median(lat1)), p32, ans1, ans32
+        return _with_path(path, go)
+
+    # S = 1: the local path, the answers every mesh is held to
+    searcher.dist_shards = 1
+    local = {p: run(p, MESH_REPS) for p in paths}
+    stats = {1: {p: local[p][:2] for p in paths}}
+    log(f"mesh: S=1 (local path) p50 merge B=1 {local['merge'][0]:.2f} ms, B=32 "
+        f"{local['merge'][1]:.2f} ms; fused B=1 {local['fused'][0]:.2f} ms, B=32 "
+        f"{local['fused'][1]:.2f} ms | {card}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    swaps = 0
+    per_request = {}
+    for S in MESH_SHARDS:
+        def on_mesh():
+            searcher.dist_shards = S
+            t = time.perf_counter()
+            dist = searcher._distributed_state("body")
+            torch.cuda.synchronize()
+            rep_s = time.perf_counter() - t
+            t = time.perf_counter()
+            n_head = dist.attach_dense()
+            torch.cuda.synchronize()
+            dense_s = time.perf_counter() - t
+            out = {p: run(p, MESH_REPS) for p in paths}
+            return dist, rep_s, n_head, dense_s, out
+
+        dist, rep_s, n_head, dense_s, out = _with_search_devices([dev] * S, on_mesh)
+        if dist.mesh.shape != {"shard": S, "data": 1}:
+            raise AssertionError(f"mesh {dist.mesh.shape} for S={S}")
+        for qi in range(len(singles)):
+            # merge mesh: the same docs, order and hits as the local merge path
+            td = local["merge"][2][qi]
+            got = out["merge"][2][qi]
+            swaps += _check_same_docs(
+                td, np.array([h.score for h in got.hits], np.float32),
+                np.array([h.global_ord for h in got.hits], np.int64), got.total_hits,
+                MESH_REL, f"mesh S={S} merge single {qi}")
+            # fused mesh: exact hits, the fused contract against the local fused path
+            gf = out["fused"][2][qi]
+            swaps += _check_topk(local["fused"][2][qi], (
+                np.array([h.score for h in gf.hits], np.float32),
+                np.array([h.global_ord for h in gf.hits], np.int64), gf.total_hits),
+                FUSED_REL, f"mesh S={S} fused single {qi}")
+        for qi in range(len(batch)):
+            got = out["merge"][3][qi]
+            swaps += _check_same_docs(
+                local["merge"][3][qi], np.array([h.score for h in got.hits], np.float32),
+                np.array([h.global_ord for h in got.hits], np.int64), got.total_hits,
+                MESH_REL, f"mesh S={S} merge batch {qi}")
+            gf = out["fused"][3][qi]
+            swaps += _check_topk(local["fused"][3][qi], (
+                np.array([h.score for h in gf.hits], np.float32),
+                np.array([h.global_ord for h in gf.hits], np.int64), gf.total_hits),
+                FUSED_REL, f"mesh S={S} fused batch {qi}")
+        stats[S] = {p: out[p][:2] for p in paths}
+        stats[S]["repartition_s"] = rep_s
+        stats[S]["bytes_per_shard"] = dist.device_bytes()
+        log(f"mesh: S={S} on {dev} x {S}: repartition {rep_s:.2f} s, dense rows "
+            f"({n_head} heads, residual {dist.dense_rows_lo is not None}) {dense_s:.2f} s, "
+            f"{dist.device_bytes() / 2**20:.1f} MiB on the card per shard; p50 merge B=1 "
+            f"{out['merge'][0]:.2f} ms, B=32 {out['merge'][1]:.2f} ms; fused B=1 "
+            f"{out['fused'][0]:.2f} ms, B=32 {out['fused'][1]:.2f} ms | {card}")
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in MESH_KERNELS}
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"the mesh runs did not launch {missing}: {launches}")
+    log(f"mesh: launches over the S=2 and S=4 runs {launches}; answers equal to the local "
+        f"path (merge: docs and hits, scores within {MESH_REL}; fused: within {FUSED_REL}); "
+        f"near-tie order swaps {swaps}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+
+    # launches per request on the S=4 mesh
+    def per_req():
+        searcher.dist_shards = 4
+        for path in paths:
+            for label, specs in (("B=1", single_specs[:1]), ("B=32", batch_specs)):
+                kernels.reset_launch_counts()
+                _with_path(path,
+                          lambda: searcher.fast_search_batch(specs, TOP_K))
+                torch.cuda.synchronize()
+                per_request[f"{path} {label}"] = {k: kernels.LAUNCHES[k] for k in MESH_KERNELS}
+    _with_search_devices([dev] * 4, per_req)
+    log(f"mesh: launches per request at S=4 {json.dumps(per_request)}")
+
+    # filters, sorts and facets over the S=4 mesh (phase 9's columns)
+    def general():
+        searcher.dist_shards = 4
+        return searcher._distributed_state("body")
+
+    dist = _with_search_devices([dev] * 4, general)
+    t = time.perf_counter()
+    dist.attach_columns(searcher, ["price", "ts", "tag"])
+    cols_s = time.perf_counter() - t
+    names = columns["tag"][2]
+    c3 = config3_singles(corpus, searcher)
+    qs = [terms for _p, terms in c3]
+    offs, lens, w, n_terms, run_len = dist.compile_text_queries(qs)
+    price = {"rangeQuery": {"field": "price", "lower": "100", "upper": "900"}}
+    tag = {"termQuery": {"field": "tag", "textValue": names[3]}}
+    forms = {
+        "price_filter_ts_desc_tag_facet": (
+            dict(filters=[("price", ">=", 100.0), ("price", "<=", 900.0)],
+                 sort=("ts", False, True), facet_fields=["tag"]),
+            [price], SortSpec("ts", reverse=True)),
+        "price_tag_filter_scored_tag_facet": (
+            dict(filters=[("price", ">=", 100.0), ("price", "<=", 900.0),
+                          ("tag", "ord==", names[3])], facet_fields=["tag"]),
+            [price, tag], None),
+    }
+    general_ms = {}
+    for name, (kw, filters, sort) in forms.items():
+        general_ms[name], (sc, ids, hits, facets) = _timed(
+            lambda: dist.search_general(offs, lens, w, n_terms, run_len=run_len, k=TOP_K, **kw),
+            MESH_REPS)
+        sc, ids, hits = (x.cpu().numpy() for x in (sc, ids, hits))
+        labels = dist.facet_labels("tag")
+        for qi, terms in enumerate(qs):
+            node_q = parse_query({"booleanQuery": {"clauses": [
+                {"occur": "MUST", "query": _match_dict(terms)},
+                *({"occur": "FILTER", "query": f} for f in filters)]}})
+            td = _with_path("merge",
+                           lambda: searcher.search(node_q, TOP_K, sort=sort))
+            s_q, d_q, h_q = _mesh_row((sc, ids, hits), qi)
+            ctx = f"mesh general {name} query {qi}"
+            if sort is not None:
+                keys = np.array([h.sort_key for h in td.hits], np.float32)
+                docs = np.array([h.global_ord for h in td.hits], np.int64)
+                if td.total_hits != h_q or not np.array_equal(docs, d_q) or \
+                        not np.array_equal(keys.view(np.int32), s_q.view(np.int32)):
+                    raise AssertionError(f"{ctx}: sorted answer differs from Searcher.search")
+            else:
+                swaps += _check_same_docs(td, s_q, d_q, h_q, MESH_REL, ctx)
+            _td, (want,) = _with_path("merge", lambda: searcher.fast_search_reduce(
+                searcher.compile_batchable(node_q), TOP_K, [{"kind": "ordinal", "field": "tag"}]))
+            got = {labels[o]: int(c) for o, c in enumerate(facets["tag"][qi]) if c}
+            if got != {k: v for k, v in want.items() if v}:
+                raise AssertionError(f"{ctx}: facet counts differ from fast_search_reduce")
+    log(f"mesh: search_general at S=4 over price, ts, tag ({cols_s:.2f} s to lay the columns "
+        f"out): {len(qs)} queries x {len(forms)} forms, hits, sort keys, docs and tag facet "
+        f"counts equal to Searcher.search / fast_search_reduce; p50 "
+        + ", ".join(f"{n} {v:.2f} ms" for n, v in general_ms.items()) + f" | {card}")
+    searcher.dist_shards = 1
+
+    # kNN over phase 14's 1M x 128 f32 vectors (l2_norm)
+    t = time.perf_counter()
+    base, vq = clustered_vectors(NUM_DOCS, VEC_DIMS, VEC_QUERIES + 4, seed=SEED)
+    vq = vq[:VEC_QUERIES]
+    dk = DistributedKNN.from_vectors(base, make_search_mesh(4, 1, [dev] * 4),
+                                     similarity="l2_norm")
+    knn_build_s = time.perf_counter() - t
+    vecs = torch.from_numpy(base).to(dev)
+    sq = torch.from_numpy((base * base).sum(-1)).to(dev)
+    mask = torch.ones(NUM_DOCS, dtype=torch.bool, device=dev)
+    qt = torch.from_numpy(vq).to(dev)
+    knn_mesh_ms, (ms_, mi) = _timed(lambda: dk.search(vq, k=TOP_K), MESH_REPS)
+    knn_local_ms, (ls, li) = _timed(lambda: knn.knn_search(vecs, sq, mask, qt,
+                                                           similarity="l2_norm", k=TOP_K),
+                                    MESH_REPS)
+    ms_, mi, ls, li = (x.cpu().numpy() for x in (ms_, mi, ls, li))
+    err = float(np.max(np.abs(ms_ - ls) / np.maximum(np.abs(ls), 1e-30)))
+    if err > MESH_KNN_REL:
+        raise AssertionError(f"mesh kNN scores rel err {err:.3g} > {MESH_KNN_REL}")
+    tie = np.isclose(ms_, ls, rtol=MESH_KNN_REL, atol=0)
+    if not ((mi == li) | tie).all():
+        raise AssertionError("mesh kNN ids differ from knn_search away from ties")
+    knn_swaps = int((mi != li).sum())
+    del dk, vecs, sq, base
+    log(f"mesh: DistributedKNN over {NUM_DOCS} x {VEC_DIMS} f32 (l2_norm) at S=4, built in "
+        f"{knn_build_s:.1f} s: {VEC_QUERIES} queries, top {TOP_K} equal to knn_search "
+        f"(scores within {err:.3g} relative, {knn_swaps} id swaps at ties); p50 B={VEC_QUERIES} "
+        f"mesh {knn_mesh_ms:.2f} ms, unsharded {knn_local_ms:.2f} ms | {card}")
+
+    # the served node: virtualShards 4 on [card] * 4, then 1, then 4 on one device
+    server, client, rt = node
+
+    def served_answers():
+        return [_served_td(client.search(_request(_match_dict(q)))) for q in batch]
+
+    def set_shards(n: int):
+        client.live_settings(pb.LiveSettingsRequest(indexName=SERVED_INDEX, virtualShards=n))
+
+    def sharded():
+        set_shards(4)
+        out = served_answers()
+        if ("body", 4) not in rt.searcher._dist_cache:
+            raise AssertionError("the served virtualShards=4 node built no mesh")
+        return out
+
+    served4 = _with_path("merge", lambda: _with_search_devices([dev] * 4, sharded))
+    set_shards(1)
+    served1 = _with_path("merge", served_answers)
+    set_shards(4)
+    served_local = _with_path("merge", served_answers)
+    if rt.searcher._dist_cache:
+        raise AssertionError("a one-device virtualShards=4 node built a mesh")
+    set_shards(1)
+    for qi, (a, b, c) in enumerate(zip(served4, served1, served_local)):
+        swaps += _check_same_docs(b, np.array([h.score for h in a.hits], np.float32),
+                                  np.array([h.global_ord for h in a.hits], np.int64),
+                                  a.total_hits, MESH_REL, f"served virtualShards=4 single {qi}")
+        if [(h.global_ord, h.score) for h in c.hits] != [(h.global_ord, h.score) for h in b.hits] \
+                or c.total_hits != b.total_hits:
+            raise AssertionError(f"served one-device virtualShards=4 single {qi} differs")
+    log(f"mesh: served node, {len(batch)} singles at virtualShards 4 on {dev} x 4 equal to "
+        f"virtualShards 1 (merge path; hits and docs, scores within {MESH_REL}); with one "
+        f"search device virtualShards 4 serves on the local path, bit for bit | {card}")
+
+    if torch.cuda.device_count() >= 2:
+        n = min(4, torch.cuda.device_count())
+        devs = [torch.device("cuda", i) for i in range(n)]
+
+        def distinct():
+            searcher.dist_shards = n
+            return [searcher.fast_search_batch(batch_specs, TOP_K)
+                    for _ in range(2)][-1]
+
+        got = _with_path("merge", lambda: _with_search_devices(devs, distinct))
+        for qi, td in enumerate(got):
+            swaps += _check_same_docs(local["merge"][3][qi],
+                                      np.array([h.score for h in td.hits], np.float32),
+                                      np.array([h.global_ord for h in td.hits], np.int64),
+                                      td.total_hits, MESH_REL, f"distinct cards batch {qi}")
+        searcher.dist_shards = 1
+        log(f"mesh: S={n} on {n} distinct cards: the B=32 batch equals the local path")
+    else:
+        log("mesh: distinct cards not run: torch.cuda.device_count() is "
+            f"{torch.cuda.device_count()}")
+    searcher.dist_shards = 1
+    del dist
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"mesh: phase {seconds:.1f} s | {card}")
+    return {"launches": launches, "per_request": per_request, "stats": stats,
+            "seconds": seconds}
+
+
+def _prune_queries(view, terms_list) -> list[dict]:
+    """PrunedIndex query dicts of OR match queries (as
+    PackedFieldView.search_batch builds them)."""
+    out = []
+    for terms in terms_list:
+        entries = view.term_entries(list(terms))
+        out.append({"entries": [(w, runs) for _, w, runs in entries if w and runs],
+                    "require_all": False, "n_terms": 1})
+    return out
+
+
+def phase_maxscore(dev, searcher, singles, batch, node, card: str) -> dict:
+    """Phase 17 (see the module docstring). Returns the pruned runs'
+    launches and the phase's measurements."""
+    from nrtsearch_tpu_torch import kernels
+    from nrtsearch_tpu_torch.ops.merge_scoring import _pow2
+
+    t_phase = time.perf_counter()
+    view = searcher.packed_view("body")
+    index = view.index
+    sets = {"singles": [_prune_queries(view, [q]) for q in singles],
+            "batch": [_prune_queries(view, batch)]}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    pruned_out, logs = {}, {}
+    for name, groups in sets.items():
+        logs[name] = {}
+        pruned_out[name] = [r for qs in groups
+                            for r in index.search(qs, TOP_K, shape_log=logs[name], prune=True)]
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in PRUNE_KERNELS}
+    counts = {"certified": 0, "escalated": 0, "full": 0}
+    near_ties = 0
+    for name, groups in sets.items():
+        qs = [q for g in groups for q in g]
+        full = [r for g in groups for r in index.search(g, TOP_K, prune=False)]
+        for qi, (q, p, f) in enumerate(zip(qs, pruned_out[name], full)):
+            ctx = f"maxscore {name} query {qi}"
+            # scores rank by rank within PRUNE_ULPS; a doc may differ only
+            # where the two scores at that rank are that close (the probe
+            # adds a doc's terms in another order than the full merge)
+            bits = np.abs(p[0].view(np.int32).astype(np.int64) - f[0].view(np.int32))
+            if bits.max(initial=0) > PRUNE_ULPS:
+                raise AssertionError(f"{ctx}: scores {bits.max()} ulps from the full dispatch")
+            swapped = np.nonzero(p[1] != f[1])[0]
+            if len(set(p[1][p[0] > -np.inf].tolist())) != int((p[0] > -np.inf).sum()):
+                raise AssertionError(f"{ctx}: duplicate docs in the pruned top-k")
+            near_ties += len(swapped)
+            if not f[3] or (p[3] and p[2] != f[2]) or p[2] > f[2]:
+                raise AssertionError(f"{ctx}: hits {p[2]} (exact {p[3]}) vs full {f[2]}")
+            eligible = index._plan_theta(q, TOP_K) is not None
+            counts["certified" if not p[3] else "escalated" if eligible else "full"] += 1
+    n = sum(counts.values())
+    if counts["certified"] == 0:
+        raise AssertionError(f"no query took the pruned path: {counts}")
+    p50 = {}
+    for name, groups in sets.items():
+        for prune in (True, False):
+            p50[(name, prune)], _ = _timed(
+                lambda: [index.search(g, TOP_K, prune=prune) for g in groups], PRUNE_REPS)
+    log(f"maxscore: NRT_FAST_PATH=merge, {n} queries ({len(singles)} singles, a B={len(batch)} "
+        f"batch): certified {counts['certified'] / n:.3f}, escalated "
+        f"{counts['escalated'] / n:.3f}, full {counts['full'] / n:.3f}; docs equal to "
+        f"prune=False but {near_ties} near-tie order swaps, scores within {PRUNE_ULPS} ulps "
+        f"rank by rank, hits lower bounds where pruned")
+    log(f"maxscore: shape_log (run_len, R) singles {logs['singles']}, batch {logs['batch']}; "
+        f"launches in the pruned runs {launches}")
+    per = len(singles)
+    log(f"maxscore: p50 per B=1 single ({per} in turn): pruned "
+        f"{p50[('singles', True)] / per:.2f} ms, full {p50[('singles', False)] / per:.2f} ms; "
+        f"B={len(batch)}: "
+        f"pruned {p50[('batch', True)]:.2f} ms, full {p50[('batch', False)]:.2f} ms | {card}")
+
+    # served: NRT_MAXSCORE=1 on phase 16's node
+    server, client, rt = node
+
+    def answers():
+        return [_served_td(client.search(_request(_match_dict(q)))) for q in singles]
+
+    served_p = _with_path("merge",
+                         lambda: _with_env("NRT_MAXSCORE", "1", answers))
+    served_f = _with_path("merge", answers)
+    # the batcher searches at k = pow2(topHits, 8): the pruning decision
+    # (theta is the k-th score) is the direct run's at that k
+    k_served = _pow2(TOP_K, 8)
+    directs = [index.search(g, k_served, prune=True)[0] for g in sets["singles"]]
+    gte = 0
+    for qi, (a, b, direct) in enumerate(zip(served_p, served_f, directs)):
+        sa = np.array([h.score for h in a.hits], np.float32)
+        sb = np.array([h.score for h in b.hits], np.float32)
+        if len(sa) != len(sb) or np.abs(sa.view(np.int32).astype(np.int64)
+                                        - sb.view(np.int32)).max(initial=0) > PRUNE_ULPS:
+            # docs then differ only at near-ties, as in the direct runs
+            raise AssertionError(f"served NRT_MAXSCORE=1 single {qi}: scores differ")
+        want = "EQUAL_TO" if direct[3] else "GREATER_THAN_OR_EQUAL_TO"
+        if a.relation != want or b.relation != "EQUAL_TO" or a.total_hits > b.total_hits:
+            raise AssertionError(f"served NRT_MAXSCORE=1 single {qi}: {a.relation} "
+                                 f"{a.total_hits} vs {want} (unpruned {b.total_hits})")
+        gte += a.relation == "GREATER_THAN_OR_EQUAL_TO"
+    seconds = time.perf_counter() - t_phase
+    log(f"maxscore: served NRT_MAXSCORE=1: {gte} of {len(singles)} singles answered "
+        f"GREATER_THAN_OR_EQUAL_TO (exactly those a direct search at k = {k_served} "
+        f"prunes), scores within {PRUNE_ULPS} ulps "
+        f"of the unpruned answers rank by rank, with their docs; phase {seconds:.1f} s | {card}")
+    return {"launches": launches, "counts": counts, "p50": p50, "seconds": seconds}
+
+
+def phase_bucket_standalone(dev, searcher, singles, card: str) -> dict:
+    """Phase 18 (see the module docstring). Returns the kernel's launches."""
+    from nrtsearch_tpu_torch import kernels
+    from nrtsearch_tpu_torch.ops import bucket_retrieval as br
+    from nrtsearch_tpu_torch.ops.merge_scoring import _pow2
+
+    t_phase = time.perf_counter()
+    view = searcher.packed_view("body")
+    index = view.index
+    docs_h = index.doc_ids.cpu().numpy()
+    imps_h = index.impacts.cpu().numpy()
+    t = time.perf_counter()
+    idx = br.BucketIndex.build(docs_h, imps_h, index.run_offsets, index.run_lengths,
+                               capacity=_pow2(NUM_DOCS), bucket_docs=16384)
+    build_s = time.perf_counter() - t
+    queries = [[(r, w) for _t, w, runs in view.term_entries(list(q)) for r in runs]
+               for q in singles]
+    t = time.perf_counter()
+    plan = br.plan_bucket_batch(idx, queries, index.run_offsets, max_terms=16)
+    plan_s = time.perf_counter() - t
+    tabs = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (plan.term_offs, plan.bounds, plan.weights, plan.n_terms)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    keys, top_docs, hits = br.bucket_search_topk(
+        index.doc_ids, index.impacts, *tabs, tile=plan.tile, bucket_bits=idx.bucket_bits,
+        k=TOP_K)
+    torch.cuda.synchronize()
+    launches = {"bucket_rank": kernels.LAUNCHES["bucket_rank"]}
+    if launches["bucket_rank"] != 1:
+        raise AssertionError(f"bucket_search_topk launched {launches}")
+    scores, d = br.decode_topk(keys.cpu().numpy(), top_docs.cpu().numpy(), plan.scales)
+    t = time.perf_counter()
+    ws, wd, wh = br.reference_bucket_search(docs_h, imps_h, idx, plan, TOP_K)
+    oracle_s = time.perf_counter() - t
+    if not (np.array_equal(scores.view(np.int32), ws.view(np.int32))
+            and np.array_equal(d, wd) and np.array_equal(hits.cpu().numpy(), wh)):
+        raise AssertionError("standalone bucket search differs from reference_bucket_search")
+    ms_ = cuda_ms(lambda: br.bucket_search_topk(
+        index.doc_ids, index.impacts, *tabs, tile=plan.tile, bucket_bits=idx.bucket_bits,
+        k=TOP_K), reps=10)
+    seconds = time.perf_counter() - t_phase
+    log(f"bucket standalone: BucketIndex.build over the view's {index.doc_ids.shape[0]} "
+        f"packed postings ({len(index.run_offsets)} runs, {idx.n_buckets} buckets of 16384 "
+        f"docs) {build_s:.2f} s, plan_bucket_batch of {len(singles)} singles (T=16, "
+        f"tile {plan.tile}) {plan_s:.3f} s; bucket_search_topk on the card equal to "
+        f"reference_bucket_search on the host bit for bit (scores, docs, hits; oracle "
+        f"{oracle_s:.1f} s); {ms_:.3f} ms per B={len(singles)} call, launches {launches}; "
+        f"phase {seconds:.1f} s | {card}")
+    return {"launches": launches, "ms": ms_, "seconds": seconds}
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -4943,6 +5477,29 @@ def main() -> int:
     nested = phase_nested(dev, card)
     log(f"phase 15: {phrases['seconds'] + nested['seconds']:.1f} s | {card}")
 
+    # 16. virtual shards on meshes of one card, and 17. MaxScore pruning,
+    # both also through a served node over the same index; 18. the
+    # standalone bucket API
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="mesh_")
+    server = client = None
+    try:
+        server, client, rt, _index_dir = start_served(dev, searcher, root, singles, card)
+        node = (server, client, rt)
+        mesh = phase_mesh(dev, corpus, columns, searcher, singles, batches[0], node, card)
+        pruned = phase_maxscore(dev, searcher, singles, batches[0], node, card)
+    finally:
+        if client is not None:
+            client.close()
+        if server is not None:
+            server.stop()
+        server = client = rt = node = None
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    standalone = phase_bucket_standalone(dev, searcher, singles, card)
+
     table = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         st = stats[name]
@@ -4961,6 +5518,9 @@ def main() -> int:
             "launches_general": general_launches.get(name, 0),
             "launches_write": write["launches"].get(name, 0),
             "launches_vectors": vectors["launches"].get(name, 0),
+            "launches_mesh": mesh["launches"].get(name, 0),
+            "launches_pruned": pruned["launches"].get(name, 0),
+            "launches_bucket_standalone": standalone["launches"].get(name, 0),
         })
         if name == "head_scores":
             table[-1].update({k: st[k] for k in ("parent_ms", "index_select_ms", "max_rel_err",
@@ -4977,7 +5537,10 @@ def main() -> int:
             f"{replication['launches'].get(name, 0)} served by the replica, "
             f"{general_launches.get(name, 0)} in the general phase, "
             f"{write['launches'].get(name, 0)} on the deleted index, "
-            f"{vectors['launches'].get(name, 0)} in the hybrid request | {card}")
+            f"{vectors['launches'].get(name, 0)} in the hybrid request, "
+            f"{mesh['launches'].get(name, 0)} on the meshes, "
+            f"{pruned['launches'].get(name, 0)} in the pruned runs, "
+            f"{standalone['launches'].get(name, 0)} in the standalone bucket search | {card}")
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

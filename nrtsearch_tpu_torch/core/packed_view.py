@@ -619,7 +619,8 @@ class PackedFieldView:
         the reference; what it refuses goes to the merge path. With
         ``reduce_kinds`` the batch takes the merge path and returns
         (results, per-spec reductions). ``prune=None`` reads NRT_MAXSCORE
-        (default off; pruning is not ported)."""
+        (default off); with it the merge path takes MaxScore pruning
+        (core/maxscore.py), whose hit counts are lower bounds (``pruned``)."""
         from nrtsearch_tpu_torch.core.maxscore import _zero_reductions
 
         path = os.environ.get("NRT_FAST_PATH", "")

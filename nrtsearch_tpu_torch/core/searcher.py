@@ -18,8 +18,10 @@ or sort key, or the exact host sort for f64 keys and multi-component,
 docid and score sorts, and a merge of the segments' hits on the host.
 Timeouts and ``terminate_after`` cut at segment granularity there, and
 ``terminate_after`` also within a segment. ``knn_search`` runs exact kNN
-per segment (ops/knn.py); ``dist_shards`` above 1 (the server's
-virtualShards) names ROADMAP item 13.
+per segment (ops/knn.py). ``dist_shards`` above 1 (the server's
+virtualShards) serves plain text batches over a (shard, data) grid of
+``device.search_devices()`` (parallel/distributed.py) when there are two
+or more of them, and on the local path otherwise, as the reference does.
 
 A multi-component sort never reads the single-sort key cache: the
 reference's cache keys a sort by its first component only
@@ -134,8 +136,6 @@ def sort_compare_key(sort: SortSpec, raw_values) -> tuple:
 class Searcher:
     """Immutable multi-segment search snapshot."""
 
-    dist_shards: int = 1   # set by IndexRuntime from liveSettings
-
     def __init__(
         self,
         segments: Sequence[Segment],
@@ -150,6 +150,27 @@ class Searcher:
         self._packed_views: dict = {}
         self._views_lock = threading.Lock()
         self._gsort_cache: dict = {}
+        self._dist_cache: dict = {}   # (field, dist_shards) -> DistributedBM25
+        # _dist_lock guards the count and the cache and is held only briefly;
+        # _dist_build_lock serializes the slow builds (host repartition,
+        # dense rows) so that a live count change never waits on one
+        self._dist_lock = threading.Lock()
+        self._dist_build_lock = threading.Lock()
+        self._dist_shards = 1
+
+    @property
+    def dist_shards(self) -> int:
+        """liveSettings.virtualShards, set by IndexRuntime."""
+        return self._dist_shards
+
+    @dist_shards.setter
+    def dist_shards(self, n: int) -> None:
+        """A new shard count drops the meshes built for another one, so a
+        live change never keeps the old mesh beside the new."""
+        with self._dist_lock:
+            self._dist_shards = int(n)
+            for key in [key for key in self._dist_cache if key[1] != self._dist_shards]:
+                del self._dist_cache[key]
 
     @property
     def num_docs(self) -> int:
@@ -369,10 +390,13 @@ class Searcher:
 
     def release_device_caches(self) -> None:
         """Drop this snapshot's device caches (packed views with their
-        dense head rows and global columns, global sort keys); they rebuild
+        dense head rows and global columns, global sort keys, virtual-shard
+        meshes); they rebuild
         lazily if a search lands here later."""
         self._packed_views.clear()
         self._gsort_cache.clear()
+        with self._dist_lock:
+            self._dist_cache.clear()
 
     def packed_view(self, field: str):
         """The packed multi-segment view for one field, cached on this
@@ -777,14 +801,104 @@ class Searcher:
             additive=additive, sort=gsort,
         )
 
+    # -- virtual shards: the mesh-sharded serving path (reference: liveSettings
+    # virtualShards, luceneserver.proto:1458 / MyIndexSearcher.slicesForShards)
+
+    def _distributed_state(self, field: str):
+        """The mesh-sharded postings of one field, built on first use and
+        cached on this snapshot (the reference's searcher.py:665-687): the
+        packed view re-partitioned round-robin over a (shard, data) grid of
+        ``device.search_devices()``. The mesh is built outside
+        ``_dist_lock`` and installed only if the shard count is still the
+        one it was built for; otherwise it serves this call alone."""
+        from nrtsearch_tpu_torch import device as _device
+        from nrtsearch_tpu_torch.parallel.distributed import (
+            DistributedBM25, make_search_mesh,
+        )
+
+        with self._dist_build_lock:
+            with self._dist_lock:
+                n = self._dist_shards
+                dist = self._dist_cache.get((field, n))
+            if dist is not None:
+                return dist
+            n_dev = len(_device.search_devices())
+            shards = max(1, min(n, n_dev))
+            data = max(1, n_dev // shards)
+            mesh = make_search_mesh(shards * data, data_parallel=data)
+            dist = DistributedBM25.from_searcher(self, field, mesh)
+            with self._dist_lock:
+                if self._dist_shards == n:
+                    self._dist_cache[(field, n)] = dist
+        return dist
+
+    def _distributed_search_batch(self, specs, top_hits: int):
+        """Plain OR text queries over the virtual-shard mesh, or None when
+        the batch is not eligible (filters, sorts, additive columns and
+        multi-term conjunctions stay local) or fewer than two search
+        devices exist (the reference's searcher.py:689-767). The fused mesh
+        serves when NRT_FAST_PATH is dense/fused, or unset with the index
+        on CUDA; else the merge mesh."""
+        from nrtsearch_tpu_torch import device as _device
+        from nrtsearch_tpu_torch.core.packed_view import FastResult
+
+        if int(self.dist_shards) <= 1 or len(_device.search_devices()) < 2:
+            return None
+        for spec in specs:
+            if (spec.filter is not None or spec.additive is not None
+                    or spec.sort is not None):
+                return None
+            if spec.require_all and len(set(spec.terms)) > 1:
+                return None
+        try:
+            dist = self._distributed_state(specs[0].field)
+        except ValueError:
+            return None
+        data = dist.mesh.shape["data"]
+        B = len(specs)
+        B_pad = -(-B // data) * data
+        qs = [list(spec.terms) for spec in specs]
+        qs += [[] for _ in range(B_pad - B)]
+
+        def to_topdocs(scores, ids, hits):
+            scores, gids, hits_n = _host(scores, ids, hits)
+            return [self._fast_result_to_topdocs(
+                spec, FastResult(scores[qi], gids[qi], int(hits_n[qi]), False), top_hits)
+                for qi, spec in enumerate(specs)]
+
+        fp = os.environ.get("NRT_FAST_PATH", "")
+        view = self.packed_view(specs[0].field)
+        if fp in ("dense", "fused") or (not fp and on_cuda(view.index.doc_ids)):
+            with self._dist_build_lock:
+                if not dist.dense_attached:
+                    dist.attach_dense()
+            if dist.dense_rows is not None:
+                tid_qs = [[dist.vocab[t] for t in q if t in dist.vocab] for q in qs]
+                (W, row_idx, n_req, r_offs, r_lens, r_w, drun_len,
+                 has_head, has_tail) = dist.compile_dense_queries(tid_qs)
+                if has_head:
+                    for qi, spec in enumerate(specs):
+                        if spec.boost != 1.0:
+                            W[qi] *= np.float32(spec.boost)
+                            r_w[:, qi, :] *= np.float32(spec.boost)
+                    return to_topdocs(*dist.search_dense(
+                        W, row_idx, n_req, r_offs, r_lens, r_w, run_len=drun_len,
+                        k=top_hits, has_head=has_head, has_tail=has_tail))
+
+        offs, lens, w, n_terms, run_len = dist.compile_text_queries(qs)
+        for qi, spec in enumerate(specs):
+            if spec.boost != 1.0:
+                w[:, qi, :] *= np.float32(spec.boost)
+        return to_topdocs(*dist.search(offs, lens, w, n_terms, run_len=run_len,
+                                       k=top_hits))
+
     def fast_search_batch(self, specs, top_hits: int) -> list[TopDocs]:
         """Batched fast path: N queries against one field, one dispatch per
-        path and column group."""
-        if int(self.dist_shards) > 1:
-            raise NotImplementedError(
-                "virtualShards > 1 serves over a device mesh, which is not ported "
-                "yet (ROADMAP item 13)"
-            )
+        path and column group; with ``dist_shards`` above 1 and two or more
+        search devices, plain text queries serve over the mesh."""
+        dist = self._distributed_search_batch(specs, top_hits)
+        if dist is not None:
+            return dist
         view = self.packed_view(specs[0].field)
         return [
             self._fast_result_to_topdocs(spec, res, top_hits)

@@ -50,3 +50,14 @@ def scalar_f32(x, device: torch.device) -> torch.Tensor:
     device: ``torch.tensor(x, device=cuda)`` copies from pageable host
     memory, which waits for the stream."""
     return torch.full((), float(np.float32(x)), dtype=torch.float32, device=device)
+
+
+def search_devices() -> list[torch.device]:
+    """The devices a virtual-shard mesh may span (the reference counts
+    ``jax.devices()``): every CUDA device when a card is present, else the
+    CPU alone. With fewer than two, ``virtualShards`` serves on the local
+    path. Tests and the smoke run replace this function to lay a mesh over
+    one device repeated (``[cpu] * 8``, ``[cuda:0] * 4``)."""
+    if torch.cuda.is_available():
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")]

@@ -31,12 +31,23 @@ ascend inside a sorted tile).
 hand-written kernel (csrc/bucket_rank.cu) that adds each posting straight
 into the row's shared-memory accumulator, so no key tile exists on the
 card; on CPU tensors it runs ``bucket_rank_plain``, the two plain versions
-composed over the plan's tile. ``BucketIndex.build``, ``plan_bucket_batch``
-and ``reference_bucket_search`` are not ported: the serving caller is
-``PackedFieldView.bucket_search_batch``, which plans its own batches.
+composed over the plan's tile.
+
+The standalone API is the reference's as well: ``BucketIndex.build`` (the
+refresh-time per-term bucket bounds), ``plan_bucket_batch`` (a batch's
+tables, slots by descending mass, the per-query quantization scale),
+``reference_bucket_search`` (the numpy oracle). A ``BucketPlan`` drives
+``bucket_search_topk`` as it is. The reference's ``_hierarchical_topk_i32``
+and its plans' frozen shapes (``force_caps`` / ``force_tile``) are not
+ported: ``topk_i32_lowest_index`` gives the same top k in one call, and
+eager torch compiles no shapes to freeze. The serving caller,
+``PackedFieldView.bucket_search_batch``, plans its own batches from the
+packed view.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -49,6 +60,125 @@ I32_SENT = np.int32(2**31 - 1)     # padding and deleted postings
 I32_MIN = np.int32(-(2**31))       # no hit at this doc: never tops
 QMAX = 32000                       # 15-bit contribution quantization ceiling
 MIN_TILE = 1024                    # smallest key tile (the reference's 8 x 128)
+
+
+# ---------------------------------------------------------------------------
+# Refresh-time index and query planning (the reference's
+# bucket_retrieval.py:67-211, numpy)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class BucketIndex:
+    """Per-term bucket split offsets + impact bounds over packed postings."""
+
+    bucket_bits: int               # bucket_docs = 1 << bucket_bits
+    n_buckets: int
+    bounds: np.ndarray             # int32 [vocab, m+1] term-relative offsets
+    max_impact: np.ndarray         # float32 [vocab] per-term impact bound
+
+    @classmethod
+    def build(
+        cls,
+        post_docs: np.ndarray,     # int32 [P] doc ids, term-major, doc-sorted
+        post_impacts: np.ndarray,  # float32 [P] impacts (0 for deleted)
+        term_offsets: np.ndarray,  # int64 [V]
+        term_lengths: np.ndarray,  # int32 [V]
+        capacity: int,             # padded doc-space size (power of two)
+        bucket_docs: int = 16384,
+    ) -> "BucketIndex":
+        """One histogram of every term's postings over the buckets and a
+        cumulative sum: bounds[t, b] is where bucket b starts inside term
+        t's run (the reference's bucket_retrieval.py:83-115)."""
+        assert bucket_docs & (bucket_docs - 1) == 0 and bucket_docs <= 32768
+        bits = int(bucket_docs).bit_length() - 1
+        m = max(1, -(-capacity // bucket_docs))
+        V = len(term_lengths)
+        term_of = np.repeat(
+            np.arange(V, dtype=np.int64), np.asarray(term_lengths, np.int64)
+        )
+        post_docs = np.asarray(post_docs)
+        post_impacts = np.asarray(post_impacts)
+        docs = post_docs[: len(term_of)]
+        g = docs.astype(np.int64) >> bits
+        counts = np.zeros((V, m), np.int32)
+        np.add.at(counts, (term_of, g), 1)
+        bounds = np.zeros((V, m + 1), np.int32)
+        np.cumsum(counts, axis=1, out=bounds[:, 1:])
+        max_impact = np.zeros(V, np.float32)
+        imps = post_impacts[: len(term_of)]
+        np.maximum.at(max_impact, term_of, imps)
+        return cls(bits, m, bounds, max_impact)
+
+
+@dataclass
+class BucketPlan:
+    """Host tables for one batch (the reference's bucket_retrieval.py:118-129)."""
+
+    term_offs: np.ndarray    # int32 [B, T] absolute run starts
+    bounds: np.ndarray       # int32 [B, T, m+1] term-relative bucket offsets
+    weights: np.ndarray      # float32 [B, T] idf*boost*scale (0 = unused)
+    n_terms: np.ndarray      # int32 [B]
+    scales: np.ndarray       # float32 [B] score quantization scales
+    caps: tuple              # per-slot largest slice, rounded up (elements)
+    tile: int                # per-bucket key tile width (pow2)
+    shape_key: tuple         # (T, caps, tile, m)
+
+
+def _pow2(n: int, minimum: int = 1) -> int:
+    b = minimum
+    while b < n:
+        b <<= 1
+    return b
+
+
+def plan_bucket_batch(
+    idx: BucketIndex,
+    queries: list[list[tuple[int, float]]],  # per query [(term_id, weight)]
+    term_offsets: np.ndarray,
+    *,
+    max_terms: int = 8,
+) -> BucketPlan:
+    """Queries -> plan tables and shape (the reference's
+    bucket_retrieval.py:139-211, without its frozen ``force_caps`` /
+    ``force_tile``). Slots are ordered by descending slice mass, duplicate
+    term ids merge their weights, and each query's weights carry its scale
+    QMAX / (sum of w * max impact)."""
+    B = len(queries)
+    T = max_terms
+    m = idx.n_buckets
+    term_offs = np.zeros((B, T), np.int32)
+    bounds = np.zeros((B, T, m + 1), np.int32)
+    weights = np.zeros((B, T), np.float32)
+    n_terms = np.zeros(B, np.int32)
+    scales = np.ones(B, np.float32)
+    for qi, entries in enumerate(queries):
+        merged: dict[int, float] = {}
+        for tid, w in entries:
+            if w != 0.0:
+                merged[tid] = merged.get(tid, 0.0) + w
+        ents = sorted(
+            merged.items(),
+            key=lambda kv: -(idx.bounds[kv[0], -1]),
+        )[:T]
+        n_terms[qi] = len(ents)
+        smax = sum(w * float(idx.max_impact[t]) for t, w in ents)
+        scale = QMAX / smax if smax > 0 else 1.0
+        scales[qi] = scale
+        for ti, (tid, w) in enumerate(ents):
+            term_offs[qi, ti] = int(term_offsets[tid])
+            bounds[qi, ti] = idx.bounds[tid]
+            weights[qi, ti] = w * scale
+
+    lens = bounds[:, :, 1:] - bounds[:, :, :-1]      # [B, T, m]
+    per_slot = lens.max(axis=(0, 2)) if lens.size else np.zeros(T, np.int64)
+    caps = tuple(max(MIN_TILE, -(-int(c) // 1024) * 1024) for c in per_slot)
+    max_sum = int(lens.sum(axis=1).max()) if lens.size else 0
+    tile = _pow2(max_sum, MIN_TILE)
+    return BucketPlan(
+        term_offs, bounds, weights, n_terms, scales, caps, tile,
+        (T, caps, tile, m),
+    )
 
 
 def gather_pack_plain(post_docs, post_impacts, toffs, bounds, wts, *,
@@ -173,3 +303,53 @@ def decode_topk(top_keys, top_docs, scales):
         np.where(valid, scores, -np.inf).astype(np.float32),
         np.where(valid, top_docs, -1).astype(np.int32),
     )
+
+
+# ---------------------------------------------------------------------------
+# The numpy oracle (the reference's bucket_retrieval.py:535-576)
+# ---------------------------------------------------------------------------
+
+
+def reference_bucket_search(
+    post_docs, post_impacts, idx: BucketIndex, plan: BucketPlan, k: int,
+    *, require_all: bool = False,
+):
+    """The same quantized algorithm in numpy: per query, gather each term's
+    postings, quantize contributions with the plan's folded scale and
+    weight, sum per doc, rank by (quantized sum, -doc). Returns (scores
+    f32 [B, k] -inf padded, docs int32 [B, k] -1 padded, hits int64 [B])."""
+    post_docs = np.asarray(post_docs)
+    post_impacts = np.asarray(post_impacts)
+    B, T = plan.term_offs.shape
+    out_scores = np.full((B, k), -np.inf, np.float32)
+    out_docs = np.full((B, k), -1, np.int32)
+    hits = np.zeros(B, np.int64)
+    for qi in range(B):
+        acc: dict[int, int] = {}
+        cnt: dict[int, int] = {}
+        for ti in range(T):
+            w = plan.weights[qi, ti]
+            if w == 0.0:
+                continue
+            off = int(plan.term_offs[qi, ti])
+            ln = int(plan.bounds[qi, ti, -1])
+            docs = post_docs[off : off + ln]
+            imps = post_impacts[off : off + ln]
+            live = imps > 0.0
+            quant = np.clip((w * imps + 0.5).astype(np.int64), 1, QMAX)
+            for d, qv, lv in zip(docs, quant, live):
+                if not lv:
+                    continue
+                acc[d] = acc.get(d, 0) + int(qv)
+                cnt[d] = cnt.get(d, 0) + 1
+        items = [
+            (min(s, QMAX), d)
+            for d, s in acc.items()
+            if s > 0 and (not require_all or cnt[d] >= plan.n_terms[qi])
+        ]
+        hits[qi] = len(items)
+        items.sort(key=lambda sd: (-sd[0], sd[1]))
+        for j, (s, d) in enumerate(items[:k]):
+            out_scores[qi, j] = s / plan.scales[qi]
+            out_docs[qi, j] = d
+    return out_scores, out_docs, hits

@@ -63,17 +63,41 @@ def _pow2(n: int, minimum: int = 1) -> int:
     return b
 
 
+def plan_runs(
+    offs: np.ndarray,      # int64 [B, T] term postings offsets
+    lens: np.ndarray,      # int32 [B, T] term postings lengths
+    weights: np.ndarray,   # float32 [B, T]
+    *,
+    force_run_len: int = 0,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """[B, T] term tables -> ``plan_run_lists`` over each query's live
+    terms (length > 0, weight not 0), as the reference's
+    merge_scoring.py:39-70."""
+    B, T = lens.shape
+    rows = []
+    for b in range(B):
+        row = []
+        for t in range(T):
+            ln = int(lens[b, t])
+            if ln > 0 and weights[b, t] != 0.0:
+                row.append((int(offs[b, t]), ln, float(weights[b, t])))
+        rows.append(row)
+    return plan_run_lists(rows, force_run_len=force_run_len)
+
+
 def plan_run_lists(
     rows: list[list[tuple[int, int, float]]],  # per-query [(off, len, weight)]
     *,
     min_run: int = 1024,
+    force_run_len: int = 0,
     max_run: int = 0,   # cap run_len (must not exceed the postings array)
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
     """Plan per-query run lists into padded [B, R] tables with one shared
     power-of-two run_len that minimizes the merged width R * run_len
-    (ties go to the longer run_len: fewer merge levels). Long runs are
-    chunked; chunks of one term partition its docs, so per-doc term counts
-    are unchanged. Returns (run_offs, run_lens, run_weights, run_len)."""
+    (ties go to the longer run_len: fewer merge levels), or
+    ``pow2(force_run_len)`` when it is given (the mesh plans every shard at
+    one run_len). Long runs are chunked; chunks of one term partition its
+    docs, so per-doc term counts are unchanged. Returns (run_offs, run_lens, run_weights, run_len)."""
     B = len(rows)
     max_df = max((ln for row in rows for _, ln, _ in row), default=1)
 
@@ -86,17 +110,20 @@ def plan_run_lists(
 
     if max_run:
         min_run = min(min_run, max_run)
-    candidates = []
-    rl = _pow2(max(min_run, 1))
-    top = max(_pow2(max_df), rl)
-    if max_run:
-        top = min(top, _pow2(max_run) if max_run == _pow2(max_run) else max_run)
-    while rl <= top:
-        candidates.append(rl)
-        rl <<= 1
-    if not candidates:
-        candidates = [rl]
-    run_len = min(candidates, key=lambda rl_: (width(rl_), -rl_))
+    if force_run_len:
+        run_len = _pow2(force_run_len)
+    else:
+        candidates = []
+        rl = _pow2(max(min_run, 1))
+        top = max(_pow2(max_df), rl)
+        if max_run:
+            top = min(top, _pow2(max_run) if max_run == _pow2(max_run) else max_run)
+        while rl <= top:
+            candidates.append(rl)
+            rl <<= 1
+        if not candidates:
+            candidates = [rl]
+        run_len = min(candidates, key=lambda rl_: (width(rl_), -rl_))
 
     chunked = []
     max_runs = 1

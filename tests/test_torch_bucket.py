@@ -3,9 +3,14 @@ against the reference's Pallas kernels, on the CPU.
 
 The reference's kernels (nrtsearch_tpu/ops/bucket_retrieval.py) run in
 Pallas interpret mode (``interpret=True``, as tests/test_bucket_retrieval.py
-runs them); inputs come from the reference's ``BucketIndex.build`` and
-``plan_bucket_batch`` over seeded numpy corpora. Everything the port computes
-is compared bit for bit: the packed keys, the dense rank keys (the
+runs them); inputs come from the port's ``BucketIndex.build`` and
+``plan_bucket_batch`` over seeded numpy corpora, which equal the reference's
+bit for bit (``test_bucket_build_matches_reference``), as does the port's
+``reference_bucket_search``; the reference's ``reference_bucket_search``
+stays the numpy oracle. The port's top k over rank keys,
+``topk_i32_lowest_index``, equals the reference's ``_hierarchical_topk_i32``
+on both of its branches. Everything the port
+computes is compared bit for bit: the packed keys, the dense rank keys (the
 reference's (rank, doc) pairs scattered into an ``I32_MIN`` array), the top-k
 keys, docs and hits, and the served results. Against the f32 merge path the
 bucket path agrees only modulo its 15-bit quantization: equal hit counts,
@@ -90,8 +95,8 @@ def _gather_case(name):
                    for _ in range(3)]
         if name == "empty_query":
             queries.append([])
-    idx = ref_br.BucketIndex.build(docs, imps, offs, lens, capacity=4096, bucket_docs=1024)
-    plan = ref_br.plan_bucket_batch(idx, queries, offs, max_terms=6)
+    idx = br.BucketIndex.build(docs, imps, offs, lens, capacity=4096, bucket_docs=1024)
+    plan = br.plan_bucket_batch(idx, queries, offs, max_terms=6)
     if name == "zero_weight":
         # a zero-weight slot between live ones takes no room in the tile
         plan.weights[0, 1] = 0.0
@@ -197,11 +202,11 @@ def test_bucket_search_topk_matches_reference(require_all):
     equal to the numpy model ``reference_bucket_search``."""
     rng = np.random.default_rng(11 + require_all)
     docs, imps, offs, lens = _corpus(rng, 30, 3000, max_df=900, delete_frac=0.1)
-    idx = ref_br.BucketIndex.build(docs, imps, offs, lens, capacity=4096, bucket_docs=1024)
+    idx = br.BucketIndex.build(docs, imps, offs, lens, capacity=4096, bucket_docs=1024)
     queries = [[(int(t), float(rng.uniform(0.5, 2.5)))
                 for t in rng.choice(30, size=3, replace=False)] for _ in range(3)]
     queries.append([(4, 1.0)])
-    plan = ref_br.plan_bucket_batch(idx, queries, offs, max_terms=4)
+    plan = br.plan_bucket_batch(idx, queries, offs, max_terms=4)
     k = 40
     (rk, rd, rh), (pk, pd, ph) = _both_topk(docs, imps, idx, plan, k, require_all)
     np.testing.assert_array_equal(pk, rk)
@@ -226,13 +231,69 @@ def test_tie_break_lowest_doc_id():
     docs[:500] = np.arange(500)
     imps[:500] = 0.5
     offs, lens = np.array([0], np.int64), np.array([500], np.int32)
-    idx = ref_br.BucketIndex.build(docs, imps, offs, lens, capacity=512, bucket_docs=256)
-    plan = ref_br.plan_bucket_batch(idx, [[(0, 1.0)]], offs, max_terms=2)
+    idx = br.BucketIndex.build(docs, imps, offs, lens, capacity=512, bucket_docs=256)
+    plan = br.plan_bucket_batch(idx, [[(0, 1.0)]], offs, max_terms=2)
     (rk, rd, rh), (pk, pd, ph) = _both_topk(docs, imps, idx, plan, 300, False)
     np.testing.assert_array_equal(pd[0], np.arange(300))
     np.testing.assert_array_equal(pk, rk)
     np.testing.assert_array_equal(pd, rd)
     assert ph[0] == rh[0] == 500
+
+
+@pytest.mark.parametrize("name", ["deletions", "skewed", "zero_weight", "empty_query"])
+def test_bucket_build_matches_reference(name):
+    """The port's BucketIndex.build, plan_bucket_batch and
+    reference_bucket_search give the reference's arrays bit for bit, on
+    ``_gather_case``'s inputs."""
+    docs, imps, idx, plan = _gather_case(name)
+    rng = np.random.default_rng(len(name))
+    offs, lens = _corpus_tables(idx)
+    ref_idx = ref_br.BucketIndex.build(docs, imps, offs, lens, capacity=4096,
+                                       bucket_docs=1024)
+    for f in ("bucket_bits", "n_buckets", "bounds", "max_impact"):
+        np.testing.assert_array_equal(getattr(idx, f), getattr(ref_idx, f), err_msg=f)
+    queries = [[(int(t), float(rng.uniform(0.5, 3.0)))
+                for t in rng.choice(len(idx.bounds), size=int(rng.integers(1, 7)))]
+               for _ in range(5)] + [[]]
+    got = br.plan_bucket_batch(idx, queries, offs, max_terms=6)
+    want = ref_br.plan_bucket_batch(ref_idx, queries, offs, max_terms=6)
+    for f in ("term_offs", "bounds", "weights", "n_terms", "scales"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+    assert (got.caps, got.tile, got.shape_key) == (want.caps, want.tile, want.shape_key)
+    for require_all in (False, True):
+        for a, b in zip(br.reference_bucket_search(docs, imps, idx, got, 20,
+                                                   require_all=require_all),
+                        ref_br.reference_bucket_search(docs, imps, ref_idx, want, 20,
+                                                       require_all=require_all)):
+            np.testing.assert_array_equal(a, b)
+
+
+def _corpus_tables(idx):
+    """(offsets, lengths) of ``_gather_case``'s corpus, from its index: a
+    term's run length is its last bucket bound."""
+    lens = idx.bounds[:, -1].astype(np.int32)
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    return offs, lens
+
+
+@pytest.mark.parametrize("case", ["hierarchical", "tie_plateau", "narrow"])
+def test_topk_i32_matches_reference_hierarchical(case):
+    """The port's ``topk_i32_lowest_index`` (what ``bucket_search_topk``
+    takes its top k with) == the reference's ``_hierarchical_topk_i32``:
+    on its row-max branch where its check holds, on its full top-k where a
+    tie plateau at tau fails it, and below 2 * r_take rows."""
+    rng = np.random.default_rng(5)
+    N = 128 * (64 if case == "narrow" else 1024)
+    x = np.full((3, N), I32_MIN, np.int32)
+    hit = rng.random((3, N)) < 0.05
+    x[hit] = rng.integers(1, 32000, hit.sum())
+    if case == "tie_plateau":
+        x[1, ::64] = 7
+        x[1, x[1] > 7] = I32_MIN
+    pk, pi = topk_i32_lowest_index(torch.from_numpy(x), 100)
+    rk, ri = ref_br._hierarchical_topk_i32(jnp.asarray(x), 100)
+    np.testing.assert_array_equal(pk.numpy(), np.asarray(rk))
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ri))
 
 
 def test_topk_i32_lowest_index_matches_stable_sort():

@@ -1454,3 +1454,111 @@ def test_inner_hits_cuda_equals_cpu(cuda_device, tmp_path):
     cpu = _nested_served("cpu", tmp_path / "cpu")
     assert any(h["innerHits"]["good_reviews"].get("hits") for h in gpu["inner_hits"]["hits"])
     assert gpu == cpu
+
+
+# ---------------------------------------------------------------------------
+# virtual shards, MaxScore pruning and the standalone bucket API on the card
+# ---------------------------------------------------------------------------
+
+
+def _mesh_pair(cuda_device):
+    """The port's DistributedBM25 on [cuda:0] * 4 and on [cpu] * 4, one
+    corpus."""
+    from nrtsearch_tpu_torch.models.synthetic import SyntheticCorpus
+    from nrtsearch_tpu_torch.parallel import DistributedBM25, make_search_mesh
+
+    corpus = SyntheticCorpus(num_docs=20_000, vocab_size=2000, avg_doc_len=24, seed=7)
+    gpu = DistributedBM25.build(corpus, make_search_mesh(4, 1, [cuda_device] * 4))
+    cpu = DistributedBM25.build(corpus, make_search_mesh(4, 1, [torch.device("cpu")] * 4))
+    qs = [[int(t) for t in q] for q in corpus.sample_queries(8, 4)]
+    return gpu, cpu, qs
+
+
+def test_mesh_on_card_equals_cpu(cuda_device):
+    """The merge mesh and the fused mesh over four shards on one card
+    against the same meshes on the CPU: hits and docs equal, scores within
+    1e-6 relative (the card's merge takes the accelerator branch, the CPU's
+    the plain one); every shard launches its kernels."""
+    gpu, cpu, qs = _mesh_pair(cuda_device)
+    offs, lens, w, n_terms, run_len = gpu.compile_queries(qs, max_terms=4)
+    kernels.reset_launch_counts()
+    g = [t.cpu().numpy() for t in gpu.search(offs, lens, w, n_terms, run_len=run_len, k=50)]
+    assert kernels.LAUNCHES["gather_runs"] == 4 and kernels.LAUNCHES["near_stages"] >= 4
+    c = [t.numpy() for t in cpu.search(offs, lens, w, n_terms, run_len=run_len, k=50)]
+    np.testing.assert_array_equal(g[2], c[2])
+    np.testing.assert_array_equal(g[1], c[1])
+    np.testing.assert_allclose(g[0], c[0], rtol=1e-6)
+    for d in (gpu, cpu):
+        assert d.attach_dense(max_rows=64, min_df=400) > 0
+    args = gpu.compile_dense_queries(qs, max_terms=4)
+    kw = dict(run_len=args[6], k=50, has_head=args[7], has_tail=args[8])
+    kernels.reset_launch_counts()
+    g = [t.cpu().numpy() for t in gpu.search_dense(*args[:6], **kw)]
+    assert kernels.LAUNCHES["head_scores"] == 4
+    c = [t.numpy() for t in cpu.search_dense(*args[:6], **kw)]
+    np.testing.assert_array_equal(g[2], c[2])
+    np.testing.assert_allclose(g[0], c[0], rtol=1e-6)
+    swap = g[1] != c[1]
+    assert (np.abs(g[0] - c[0])[swap] <= 2e-6 * np.abs(c[0])[swap]).all()
+
+
+def test_pruned_search_on_card_equals_cpu(cuda_device, monkeypatch):
+    """MaxScore on the card against the CPU's accelerator-branch twins:
+    equal shape logs, docs, hits and exact flags, scores within 4 ulps."""
+    from torch_maxscore_data import index_arrays, queries, ulps
+
+    from nrtsearch_tpu_torch.core import maxscore
+
+    monkeypatch.setattr(maxscore, "PRUNE_MIN_WIDTH", 64)
+    monkeypatch.setattr(maxscore, "THETA_BUDGET", 256)
+    monkeypatch.setattr(maxscore, "WINDOW_MIN", 128)
+    d_ids, d_imp, offsets, lengths, n = index_arrays()
+    gpu = maxscore.PrunedIndex(torch.from_numpy(d_ids).to(cuda_device),
+                               torch.from_numpy(d_imp).to(cuda_device), offsets, lengths, n)
+    cpu = maxscore.PrunedIndex(torch.from_numpy(d_ids), torch.from_numpy(d_imp),
+                               offsets, lengths, n)
+    cpu.use_pallas = True
+    qs = queries(lengths, n, np.random.default_rng(7), 24, 5, len(lengths))
+    glog, clog = {}, {}
+    g = gpu.search(qs, 10, shape_log=glog)
+    c = cpu.search(qs, 10, shape_log=clog)
+    assert glog == clog and "essential" in glog
+    for a, b in zip(g, c):
+        np.testing.assert_array_equal(a[1], b[1])
+        assert ulps(a[0], b[0]) <= 4 and (a[2], a[3]) == (b[2], b[3])
+    assert sum(not a[3] for a in g) > 0
+
+
+def test_standalone_bucket_search_on_card(cuda_device):
+    """BucketIndex.build and plan_bucket_batch drive bucket_search_topk
+    (kernel #7/#8) as they are: decoded scores, docs and hits equal to
+    reference_bucket_search on the host, bit for bit."""
+    rng = np.random.default_rng(13)
+    V, D = 60, 60_000
+    runs = [np.sort(rng.choice(D, size=int(rng.integers(50, 5000)), replace=False))
+            for _ in range(V)]
+    lens = np.array([len(r) for r in runs], np.int32)
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    P = int(lens.sum()) + 8192
+    docs = np.zeros(P, np.int32)
+    imps = np.zeros(P, np.float32)
+    docs[: lens.sum()] = np.concatenate(runs)
+    imps[: lens.sum()] = rng.uniform(0.05, 1.0, lens.sum()).astype(np.float32)
+    imps[: lens.sum()][rng.random(lens.sum()) < 0.05] = 0.0
+    idx = br.BucketIndex.build(docs, imps, offs, lens, capacity=65536, bucket_docs=16384)
+    qs = [[(int(t), float(rng.uniform(0.5, 3.0))) for t in rng.choice(V, 4, replace=False)]
+          for _ in range(16)]
+    plan = br.plan_bucket_batch(idx, qs, offs, max_terms=8)
+    dev = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device) for x in
+           (docs, imps, plan.term_offs, plan.bounds, plan.weights, plan.n_terms)]
+    for require_all in (False, True):
+        kernels.reset_launch_counts()
+        keys, top_docs, hits = br.bucket_search_topk(
+            *dev, tile=plan.tile, bucket_bits=idx.bucket_bits, k=100, require_all=require_all)
+        assert kernels.LAUNCHES["bucket_rank"] == 1
+        s, d = br.decode_topk(keys.cpu().numpy(), top_docs.cpu().numpy(), plan.scales)
+        ws, wd, wh = br.reference_bucket_search(docs, imps, idx, plan, 100,
+                                                require_all=require_all)
+        np.testing.assert_array_equal(s.view(np.int32), ws.view(np.int32))
+        np.testing.assert_array_equal(d, wd)
+        np.testing.assert_array_equal(hits.cpu().numpy(), wh)

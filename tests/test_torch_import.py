@@ -129,6 +129,30 @@ res = rtr.run_retrievers(vs, [
 blended = rtr.blend_rrf(res, {"text": 1.0, "knn": 2.0})
 assert blended[0].global_ord == 9, blended[:3]
 assert len(script_rescore(vs, blended, 5, "_score * 2")) == len(blended)
+# virtual shards on a (2, 2) grid of the CPU, MaxScore pruning, the
+# standalone bucket API
+import torch
+from nrtsearch_tpu_torch import device as _device
+from nrtsearch_tpu_torch.parallel import DistributedBM25, make_search_mesh
+_device.search_devices = lambda: [torch.device("cpu")] * 4
+dist = DistributedBM25.from_searcher(s, "body", make_search_mesh())
+sc, ids, hits = dist.search(*dist.compile_text_queries([["gamma", "needle"], ["beta"]])[:4],
+                            run_len=1024, k=5)
+assert hits.tolist() == [120, 180], hits
+s.dist_shards = 4
+assert s.search(parse_query({"matchQuery": {"field": "body", "query": "gamma needle"}}),
+                10).total_hits == 120 and s._dist_cache
+from nrtsearch_tpu_torch.core import maxscore
+pruned = s.packed_view("body").index.search(
+    [{"entries": [(0.5, [1]), (2.0, [4])], "require_all": False, "n_terms": 1}], 5,
+    prune=True)
+assert pruned[0][2] > 0
+from nrtsearch_tpu_torch.ops import bucket_retrieval as br
+bidx = br.BucketIndex.build(np.arange(8, dtype=np.int32), np.ones(8, np.float32),
+                            np.array([0, 4]), np.array([4, 4], np.int32), capacity=8,
+                            bucket_docs=4)
+bplan = br.plan_bucket_batch(bidx, [[(0, 1.0), (1, 2.0)]], np.array([0, 4]), max_terms=2)
+assert br.reference_bucket_search(np.arange(8), np.ones(8), bidx, bplan, 3)[2][0] == 8
 loaded = [k for k, v in sys.modules.items() if v is not None]
 assert not any(k == "jax" or k.startswith("jax.") for k in loaded)
 assert not any(k == "nrtsearch_tpu" or k.startswith("nrtsearch_tpu.") for k in loaded)
@@ -140,9 +164,15 @@ VECTOR_SLICE = ("nrtsearch_tpu_torch.ops.knn", "nrtsearch_tpu_torch.search.retri
                 "nrtsearch_tpu_torch.search.rescore", "nrtsearch_tpu_torch.search.highlight")
 
 
+# the modules of the virtual-shard, MaxScore and standalone-bucket slice
+MESH_SLICE = ("nrtsearch_tpu_torch.parallel", "nrtsearch_tpu_torch.parallel.distributed",
+              "nrtsearch_tpu_torch.core.maxscore", "nrtsearch_tpu_torch.ops.bucket_retrieval")
+
+
 def test_port_imports_and_searches_without_jax():
     mods = [m for m in _port_modules() if not _is_wire(m)]
     assert set(VECTOR_SLICE) <= set(mods)
+    assert set(MESH_SLICE) <= set(mods)
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT % {"blocked": BLOCKED, "mods": mods}],
         capture_output=True, text=True, cwd=str(REPO), timeout=300,

@@ -660,18 +660,24 @@ def test_packed_view_built_once_under_threads(head_searcher, monkeypatch):
     assert all(v is views[0] for v in views)
 
 
-def test_virtual_shards_raise_item_13(head_searcher):
-    """The runtime sets ``dist_shards`` from liveSettings.virtualShards; above
-    1 the port raises at search time, naming the mesh's ROADMAP item."""
+def test_virtual_shards_serve_locally_on_one_device(head_searcher):
+    """The runtime sets ``dist_shards`` from liveSettings.virtualShards; with
+    one search device (the CPU) a snapshot at 2 shards answers on the local
+    path, as the reference does with fewer than two devices, and builds no
+    mesh."""
     from nrtsearch_tpu_torch.core.searcher import Searcher
     from nrtsearch_tpu_torch.query import parse_query
 
     s = Searcher(head_searcher.segments, head_searcher.field_defs)
     node = parse_query({"matchQuery": {"field": "body", "query": "common"}})
-    assert s.search(node, 5).total_hits == 600
+    base = s.search(node, 5)
+    assert base.total_hits == 600
     s.dist_shards = 2
-    with pytest.raises(NotImplementedError, match="item 13"):
-        s.search(node, 5)
+    td = s.search(node, 5)
+    assert (td.total_hits, td.relation) == (base.total_hits, base.relation)
+    assert [(h.global_ord, h.score) for h in td.hits] == \
+        [(h.global_ord, h.score) for h in base.hits]
+    assert not s._dist_cache
 
 
 # ---------------------------------------------------------------------------
