@@ -277,6 +277,33 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    over the merge path's packed postings and phase 5's singles (a term's
    runs as slots), bucket_search_topk on the card (kernel #7/#8) equal bit
    for bit to reference_bucket_search on a host copy.
+19. the flagship model (models/flagship.py) at bench.py's configuration:
+   phase 4's corpus as one segment (``SyntheticCorpus.to_model``, raw
+   lengths), attach_bucket(16384), attach_dense(max_rows 1024, min_df 2048,
+   residual rows) and attach_maxscore, each timed, with the bytes on the
+   card. With the launch counters reset just before and read just after:
+   each of the six routes (search, MaxScore, bucket, dense head + bucket
+   tail, dense head + merge tail, fused) on 8 singles and a B=32 batch of
+   4 Zipf terms, then one compile_queries_bucketed batch (31 tail-term
+   queries and one of the four most frequent terms, which must split);
+   head_scores, near_stages, far_stage, far_pair_stage, gather_runs,
+   finish_mask and bucket_rank must all launch. Per route: B=1 and B=32
+   p50 on the host clock, a traced B=32 call's device-busy share (every
+   kernel the call launched must show in its trace), its launches, the
+   index bytes on the card it holds and its B=32 call's peak working bytes.
+   The answers: search bit-equal to a CPU copy of the model (the
+   accelerator branch's plain versions) on a B=8 batch and within MERGE_REL
+   of the corpus's numpy BM25 (raw lengths), MaxScore within 4 ulps of
+   search (hits lower bounds where pruned), the bucketed split as one
+   batch, bucket bit-equal to the CPU copy and to reference_bucket_search
+   (4 queries), the dense tail within 8 f32 ulps of the largest score a
+   query can reach of the CPU copy (bit-equal rank keys, the head products
+   summed in another order) and, plus one quantum per tail term, of
+   reference_dense_search (4 queries), dense merge and fused within CPU_GPU_FUSED_REL of the CPU
+   copy, their window branch and exact flags printed. Last, the segment
+   builder over 20,000 documents of the corpus's token draws with the
+   native accumulator (which must load) and with NRT_NATIVE=0, timed; the
+   segments must be equal.
 
 Launches per main-path batch: the counters around one fast_search_batch
 of the first B=32 batch (merge path), one B=1 query (fused path) and, for
@@ -291,7 +318,8 @@ replica alone, ``launches_general`` from phase 12's timeout and arrays
 searches, ``launches_write`` from phase 13's searches on the deleted index,
 ``launches_vectors`` from phase 14's hybrid request, ``launches_mesh`` from
 phase 16's S = 2 and S = 4 runs, ``launches_pruned`` from phase 17's pruned
-searches, ``launches_bucket_standalone`` from phase 18's search),
+searches, ``launches_bucket_standalone`` from phase 18's search,
+``launches_flagship`` from phase 19's routes),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
@@ -299,6 +327,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -362,6 +391,10 @@ L2_FLUSH_BYTES = 128 << 20   # written before each timed launch: > the 50 MB L2
 # has enqueued the timed work before the start event runs: the events then
 # time the device's work, not the host's Python before the launch
 SPIN_CYCLES = 2_000_000
+# profile_call: idle inside each trace on both sides of the measured call,
+# and the traces taken at most before a missing kernel fails the phase
+PROFILE_PAD_S = 0.2
+PROFILE_TRIES = 3
 # (B, U) of the fused path's dispatches: an engine single, the batcher's
 # padded groups and a B=32 batch, at the U menu's two widths
 HEAD_SHAPES = ((1, 32), (8, 32), (16, 128), (32, 128))
@@ -959,24 +992,48 @@ def profile_batch(searcher, batch, specs=None) -> dict:
     return profile_call(lambda: searcher.fast_search_batch(specs, TOP_K))
 
 
+def _traced_kernel(name: str, items) -> bool:
+    """Whether a device item of the trace is the port's kernel ``name``
+    (its C++ function ``<name>_kernel``, or ``<name>_wide_kernel``)."""
+    pat = re.compile(rf"\b{name}(_wide)?_kernel\b")
+    return any(pat.search(n) for n in items)
+
+
 def profile_call(fn) -> dict:
     """``torch.profiler`` over one ``fn()``: the device's busy time (the sum
     of the durations of every kernel, copy and memset on the card; one
     stream, so they do not overlap), the number of those device items, the
     largest ones and the traced wall time on the host clock. The tracer's
     own host cost varies from run to run (tens to hundreds of ms), so the
-    busy share is taken against the untraced latency, not this wall. A
-    trace that comes back with no device item at all (the tracer now and
-    then returns an empty device buffer) is taken once more; the callers
-    raise if that one is empty too."""
+    busy share is taken against the untraced latency, not this wall.
+
+    Every kernel of the port that the traced call launched (its count in
+    ``kernels.LAUNCHES`` moved) must show among the trace's device items.
+    Without a warm-up step the tracer loses more and more of a call's
+    kernels the longer the process has run (on an H100, all five of a merge
+    batch's kernels after about 3 minutes of searches), so each trace is a
+    schedule of one warm-up call, traced and discarded, and the measured
+    call, with PROFILE_PAD_S of idle on both sides; a trace that still
+    lacks a launched kernel (or holds no device item) is taken again,
+    PROFILE_TRIES in all, and then the phase fails."""
+    from nrtsearch_tpu_torch import kernels
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(2):
-        with torch.profiler.profile(activities=acts) as prof:
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    for attempt in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=acts, schedule=sched) as prof:
             torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            before = dict(kernels.LAUNCHES)
+            time.sleep(PROFILE_PAD_S)
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t)
+            time.sleep(PROFILE_PAD_S)
+            prof.step()
         # device items only: an operator's row would count its kernels
         # again, and the profiler's own step annotation spans the whole
         # batch on the device's timeline
@@ -988,13 +1045,19 @@ def profile_call(fn) -> dict:
                 acc = per_name.setdefault(e.name, [0.0, 0])
                 acc[0] += e.time_range.elapsed_us() / 1e3
                 acc[1] += 1
-        if per_name:
+        launched = sorted(k for k, v in kernels.LAUNCHES.items() if v > before.get(k, 0))
+        lost = [k for k in launched if not _traced_kernel(k, per_name)]
+        if per_name and not lost:
             break
-        log("profile: the trace held no device item; tracing once more")
+        log(f"profile: trace {attempt + 1} held {len(per_name)} device item names and "
+            f"lacks the launched kernels {lost}; tracing once more")
+    else:
+        raise AssertionError(f"{PROFILE_TRIES} traces of one call lacked the kernels it "
+                             f"launched: {lost} (held {sorted(per_name)[:8]})")
     items = sorted(((k, ms, n) for k, (ms, n) in per_name.items()), key=lambda x: -x[1])
     busy = sum(x[1] for x in items)
     return {"traced_wall_ms": wall, "device_busy_ms": busy,
-            "device_items": sum(x[2] for x in items),
+            "device_items": sum(x[2] for x in items), "kernels": launched,
             "top": [[k[:60], ms, n] for k, ms, n in items[:10]]}
 
 
@@ -5348,6 +5411,403 @@ def phase_bucket_standalone(dev, searcher, singles, card: str) -> dict:
     return {"launches": launches, "ms": ms_, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the flagship model
+# ---------------------------------------------------------------------------
+
+FLAGSHIP_BUCKET_DOCS = 16384       # bench.py BUCKET_DOCS
+# bench.py DENSE_ROWS, DENSE_MIN_DF, DENSE_RESIDUAL (the dense tail keeps
+# attach_dense's 32768-doc buckets, as bench.py does)
+FLAGSHIP_DENSE = {"max_rows": 1024, "min_df": 2048, "residual": True}
+FLAGSHIP_REPS = 5                  # B=32 calls per route for the p50
+FLAGSHIP_CPU_B = 8                 # the batch held to the CPU copy
+FLAGSHIP_ORACLE_QUANT = 4          # queries held to the numpy oracles of the quantized routes
+FLAGSHIP_ULPS = 4                  # MaxScore against search; bucketed split against one batch
+NATIVE_DOCS = 20_000
+
+
+def _zipf_queries(corpus, rng, n: int, terms: int = TERMS_PER_QUERY) -> list[list[str]]:
+    """``n`` queries of Zipf terms (as SyntheticCorpus.sample_queries draws
+    them) from ``rng``."""
+    ranks = np.arange(1, corpus.vocab_size + 1)
+    p = 1.0 / ranks
+    p /= p.sum()
+    return [[str(t) for t in row] for row in rng.choice(corpus.vocab_size, (n, terms), p=p)]
+
+
+def _host_rows(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _check_rows(got, want, rel: float, ctx: str, hits_lower: bool = False) -> int:
+    """(scores, docs, hits) rows against (scores, docs, hits): hits equal
+    (or, with ``hits_lower``, at most ``want``'s), scores rank by rank
+    within ``rel`` (or an absolute bound per row when ``rel`` is an array),
+    a doc different only where the two scores at that rank are that close.
+    Returns the number of such near-tie swaps."""
+    s, d, h = (_host_rows(x) for x in got)
+    ws, wd, wh = (_host_rows(x) for x in want)
+    swaps = 0
+    for qi in range(len(wh)):
+        bad_hits = h[qi] > wh[qi] if hits_lower else h[qi] != wh[qi]
+        if bad_hits:
+            raise AssertionError(f"{ctx} query {qi}: hits {h[qi]} vs {wh[qi]}")
+        fin = np.isfinite(ws[qi])
+        if not np.array_equal(np.isfinite(s[qi]), fin):
+            raise AssertionError(f"{ctx} query {qi}: filled slots differ")
+        tol = (rel[qi] if np.ndim(rel) else rel * np.abs(ws[qi][fin]))
+        err = np.abs(s[qi][fin].astype(np.float64) - ws[qi][fin])
+        if (err > tol).any():
+            raise AssertionError(f"{ctx} query {qi}: score error {err.max():.3g} > tolerance")
+        docs = d[qi][fin].astype(np.int64)
+        if len(set(docs.tolist())) != len(docs):
+            raise AssertionError(f"{ctx} query {qi}: duplicate docs")
+        swaps += int((docs != wd[qi][fin]).sum())
+    return swaps
+
+
+def _dense_tail_tolerance(plan, row_max: np.ndarray, quanta: bool) -> np.ndarray:
+    """Per query of a dense-tail plan: 8 f32 ulps of the largest score it
+    can reach (the bf16 head products summed in another order, the tail
+    share added), and with ``quanta`` one quantum (1 / scale) per tail term
+    (against the numpy oracle, which rounds each term its own way). Head
+    terms carry no quantum: their products are never quantized."""
+    from nrtsearch_tpu_torch.ops.bucket_retrieval import QMAX
+
+    top = np.abs(plan.W.astype(np.float64)) @ row_max
+    q = 0.0
+    if plan.tail is not None:
+        top = top + np.where(plan.tail.n_terms > 0, QMAX / plan.tail.scales, 0.0)
+        q = plan.tail.n_terms / plan.tail.scales
+    return 8 * 2.0**-23 * top + (q if quanta else 0.0)
+
+
+def _native_docs(corpus, n: int) -> list[dict]:
+    """``n`` documents of the corpus's own token draws (term t as the word
+    ``w<t>``), every 50th with a non-ASCII word (the Python analyzer's
+    path into the accumulator)."""
+    docs = []
+    for i in range(n):
+        toks = corpus.tokens[corpus.doc_starts[i] : corpus.doc_starts[i + 1]]
+        text = " ".join(f"w{t}" for t in toks)
+        docs.append({"body": text + (" café" if i % 50 == 0 else "")})
+    return docs
+
+
+def phase_native_builder(dev, corpus, card: str) -> dict:
+    """The builder over NATIVE_DOCS documents with the native accumulator
+    and with NRT_NATIVE=0: the extension must load, the segments must be
+    equal."""
+    from nrtsearch_tpu_torch import native_ext
+    from nrtsearch_tpu_torch.core.segment import SegmentBuilder
+
+    docs = _native_docs(corpus, NATIVE_DOCS)
+    if native_ext.get() is None:
+        raise AssertionError("the native extension did not load")
+
+    def build(flag: str):
+        native_ext._module, native_ext._tried = None, False
+        try:
+            def run():
+                b = SegmentBuilder(body_field_defs(), dev)
+                if (b._native is not None) != (flag == "1"):
+                    raise AssertionError(f"NRT_NATIVE={flag}: native {b._native}")
+                t = time.perf_counter()
+                for d in docs:
+                    b.add_document(d)
+                seg = b.flush()
+                torch.cuda.synchronize()
+                return seg, time.perf_counter() - t
+            return _with_env("NRT_NATIVE", flag, run)
+        finally:
+            native_ext._module, native_ext._tried = None, False
+
+    (a, ta), (p, tp) = build("1"), build("0")
+    if native_ext.get() is None:
+        raise AssertionError("the native extension did not load again")
+    x, y = a.fields["body"], p.fields["body"]
+    same = (x.terms == y.terms and x.postings_len == y.postings_len
+            and x.sum_doc_lens == y.sum_doc_lens and x.doc_count == y.doc_count
+            and all(np.array_equal(getattr(x, f), getattr(y, f))
+                    for f in ("offsets", "lengths", "positions", "position_offsets"))
+            and all(torch.equal(getattr(x, f), getattr(y, f))
+                    for f in ("doc_ids", "freqs", "doc_lens")))
+    if not same:
+        raise AssertionError("native and Python builders packed different segments")
+    log(f"flagship: builder over {NATIVE_DOCS} docs ({x.postings_len} postings, "
+        f"{len(x.positions)} positions, {len(x.terms)} terms): native accumulator "
+        f"{ta:.2f} s, NRT_NATIVE=0 {tp:.2f} s ({tp / ta:.1f}x); segments equal | {card}")
+    return {"native_s": ta, "python_s": tp}
+
+
+def phase_flagship(dev, corpus, card: str) -> dict:
+    """Phase 19 (see the module docstring). Returns the routes' launches
+    and the phase's measurements."""
+    import dataclasses
+
+    from nrtsearch_tpu_torch import kernels
+    from nrtsearch_tpu_torch.models import flagship
+    from nrtsearch_tpu_torch.ops import bucket_retrieval as br
+    from nrtsearch_tpu_torch.ops import dense_head
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    t = time.perf_counter()
+    model = corpus.to_model(dev)
+    torch.cuda.synchronize()
+    mem_model = torch.cuda.memory_allocated(dev) - mem0
+    build = {"model": time.perf_counter() - t}
+    t = time.perf_counter()
+    model.attach_bucket(FLAGSHIP_BUCKET_DOCS)
+    build["bucket"] = time.perf_counter() - t
+    t = time.perf_counter()
+    model.attach_dense(**FLAGSHIP_DENSE)
+    torch.cuda.synchronize()
+    build["dense"] = time.perf_counter() - t
+    mem_dense = torch.cuda.memory_allocated(dev) - mem0 - mem_model
+    t = time.perf_counter()
+    model.attach_maxscore()
+    torch.cuda.synchronize()
+    build["maxscore"] = time.perf_counter() - t
+    mem_maxscore = torch.cuda.memory_allocated(dev) - mem0 - mem_model - mem_dense
+    idx = model.dense_idx
+    log(f"flagship: SyntheticCorpus({NUM_DOCS}, {VOCAB}, {DRAWS}, seed={SEED}).to_model "
+        f"{build['model']:.2f} s: {int(model.doc_ids.shape[0])} postings slots, D "
+        f"{model.capacity}, {mem_model / 2**30:.3f} GiB on the card; attach_bucket("
+        f"{FLAGSHIP_BUCKET_DOCS}) {build['bucket']:.2f} s (host bounds); attach_dense"
+        f"({FLAGSHIP_DENSE}) {build['dense']:.2f} s: {idx.n_rows} head rows (Hp "
+        f"{idx.rows.shape[0]}), {mem_dense / 2**30:.3f} GiB of rows on the card; "
+        f"attach_maxscore {build['maxscore']:.2f} s, {mem_maxscore / 2**20:.1f} MiB on the "
+        f"card | {card}")
+
+    rng = np.random.default_rng(SEED + 19)
+    singles = _zipf_queries(corpus, rng, 8)
+    batch = _zipf_queries(corpus, rng, BATCH)
+    # the bucketed batch: 31 light queries of tail terms beside one heavy
+    # query of the four most frequent terms, so the width split engages
+    tail_terms = [str(t) for t in range(corpus.vocab_size)
+                  if 0 < corpus.term_lengths[t] < FLAGSHIP_DENSE["min_df"]]
+    light = [[tail_terms[int(i)] for i in rng.choice(len(tail_terms), TERMS_PER_QUERY)]
+             for _ in range(BATCH - 1)]
+    bucketed = light + [["0", "1", "2", "3"]]
+
+    def run_search(qs):
+        return [_host_rows(x) for x in model.search(model.compile_queries(qs), TOP_K)]
+
+    def run_maxscore(qs):
+        return model.serve_maxscore_batch(qs, TOP_K)
+
+    def run_bucket(qs):
+        plan = model.plan_bucket(qs)
+        keys, docs, hits = model.serve_bucket_batch(plan, TOP_K)
+        s, d = br.decode_topk(keys.cpu().numpy(), docs.cpu().numpy(), plan.scales)
+        return s, d, hits.cpu().numpy()
+
+    def run_dense_tail(qs):
+        return dense_head.decode_packed(model.serve_dense_batch(model.plan_dense(qs), TOP_K),
+                                        TOP_K)
+
+    def run_dense_merge(qs):
+        return dense_head.decode_packed2(
+            model.serve_dense_merge(model.plan_dense_merge(qs), TOP_K), TOP_K)
+
+    def run_fused(qs):
+        return dense_head.decode_packed2(
+            model.serve_dense_fused(model.plan_dense_merge(qs), TOP_K), TOP_K)
+
+    runs = {"search": run_search, "maxscore": run_maxscore, "bucket": run_bucket,
+            "dense_tail": run_dense_tail, "dense_merge": run_dense_merge, "fused": run_fused}
+    for fn in runs.values():        # warm-up: first calls allocate
+        fn(batch[:2])
+
+    # the main path's run: every route at B=1 and B=32, and the bucketed
+    # batch, with the launch counters reset just before and read just after
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    timing, per_route, ran32, answers = {}, {}, {}, {}
+    branch0 = dict(dense_head.WINDOW_BRANCH)
+    for name, fn in runs.items():
+        before = dict(kernels.LAUNCHES)
+        lat1 = []
+        for q in singles:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn([q])
+            lat1.append(time.perf_counter() - t)
+        mid = dict(kernels.LAUNCHES)
+        lat32 = []
+        for _ in range(FLAGSHIP_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            answers[name] = fn(batch)
+            lat32.append(time.perf_counter() - t)
+        timing[name] = (1e3 * float(np.median(lat1)), 1e3 * float(np.median(lat32)))
+        per_route[name] = {k: kernels.LAUNCHES[k] - before.get(k, 0) for k in kernels.LAUNCHES}
+        ran32[name] = sorted(k for k in kernels.LAUNCHES if kernels.LAUNCHES[k] > mid.get(k, 0))
+    split = model.compile_queries_bucketed(bucketed)
+    split_out = [(ix, [_host_rows(x) for x in model.search(qb, TOP_K)]) for qb, ix in split]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    branches = {k: dense_head.WINDOW_BRANCH[k] - branch0[k] for k in branch0}
+    missing = [k for k in KERNEL_SOURCES if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the flagship routes: {missing}")
+    if len(split) != 2:
+        raise AssertionError(f"the bucketed batch did not split: {[ix for _q, ix in split]}")
+
+    # the index bytes on the card each route holds: the postings and
+    # impacts, MaxScore's own tensors, the head rows (and their maxima and
+    # residual rows where the route reads them; the dense tails stream all
+    # the head rows per call, the fused route only the rows a batch uses)
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    postings = nbytes(model.doc_ids, model.impacts)
+    held = {"search": postings, "maxscore": postings + mem_maxscore, "bucket": postings,
+             "dense_tail": postings + nbytes(idx.rows),
+             "dense_merge": postings + nbytes(idx.rows, idx.row_max),
+             "fused": postings + nbytes(idx.rows, idx.rows_lo, idx.row_max)}
+
+    # profiles: one traced B=32 call per route, which must launch what the
+    # route's B=32 calls launched, each kernel showing in the trace; its
+    # peak working bytes beyond the index
+    busy, peak = {}, {}
+    for name, fn in runs.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        busy[name] = profile_call(lambda: fn(batch))
+        peak[name] = torch.cuda.max_memory_allocated(dev) - base
+        if busy[name]["kernels"] != ran32[name]:
+            raise AssertionError(f"the traced {name} call launched {busy[name]['kernels']}, "
+                                 f"its B={BATCH} calls {ran32[name]}")
+    for name in runs:
+        b1, b32 = timing[name]
+        pr = busy[name]
+        if pr["device_busy_ms"] <= 0:
+            raise AssertionError(f"the traced {name} call ran nothing on the device")
+        log(f"flagship route {name}: B=1 p50 {b1:.2f} ms ({len(singles)} singles), B={BATCH} "
+            f"p50 {b32:.2f} ms ({FLAGSHIP_REPS} calls); traced B={BATCH} call: device busy "
+            f"{pr['device_busy_ms']:.3f} ms ({100 * pr['device_busy_ms'] / b32:.1f}% of the "
+            f"p50) in {pr['device_items']} items, its kernels {pr['kernels']} all in the "
+            f"trace, top {json.dumps(pr['top'][:4])}; launches "
+            f"{ {k: v for k, v in per_route[name].items() if v} }; card bytes: index held "
+            f"{held[name] / 2**30:.3f} GiB, B={BATCH} peak working "
+            f"{peak[name] / 2**20:.1f} MiB | {card}")
+
+    # ---- the answers ---------------------------------------------------
+    t_check = time.perf_counter()
+    sub = batch[:FLAGSHIP_CPU_B]
+    cpu = corpus.to_model("cpu")
+    if not torch.equal(cpu.impacts.view(torch.int32), model.impacts.cpu().view(torch.int32)):
+        raise AssertionError("the card's impacts differ from the CPU copy's")
+    cpu.bucket_idx = model.bucket_idx
+    cpu.dense_idx = dataclasses.replace(idx, rows=idx.rows.cpu(), rows_lo=idx.rows_lo.cpu(),
+                                        row_max=idx.row_max.cpu())
+    cpu.attach_maxscore()
+    swaps = {}
+    # search: bit-equal to the CPU copy on the accelerator branch's plain
+    # versions, and to the numpy BM25 within MERGE_REL
+    card_s = run_search(sub)
+    qb = cpu.compile_queries(sub)
+    cpu_s = [_host_rows(x) for x in flagship.bm25_search_step(
+        cpu.doc_ids, cpu.impacts, *(torch.from_numpy(np.ascontiguousarray(a)) for a in (
+            qb.term_offsets, qb.term_lengths, qb.term_weights, qb.n_terms)),
+        run_len=qb.run_len, k=TOP_K, use_pallas=True)]
+    if not (np.array_equal(card_s[0].view(np.int32), cpu_s[0].view(np.int32))
+            and np.array_equal(card_s[1], cpu_s[1]) and np.array_equal(card_s[2], cpu_s[2])):
+        raise AssertionError("flagship search on the card differs from the CPU copy")
+    ex = [corpus.exact_topk(q, TOP_K, raw_lengths=True) for q in sub]
+    width = TOP_K
+    ex_rows = (np.stack([np.pad(e[0], (0, width - len(e[0])), constant_values=-np.inf)
+                         for e in ex]),
+               np.stack([np.pad(e[1], (0, width - len(e[1])), constant_values=-1) for e in ex]),
+               np.array([e[2] for e in ex]))
+    swaps["search_numpy"] = _check_rows(card_s, ex_rows, MERGE_REL, "search vs numpy BM25")
+    # MaxScore: the card's search within FLAGSHIP_ULPS
+    ms = answers["maxscore"]
+    full = answers["search"]
+    ulps = np.abs(ms[0].view(np.int32).astype(np.int64) - full[0].view(np.int32))
+    if np.where(np.isfinite(full[0]), ulps, 0).max() > FLAGSHIP_ULPS:
+        raise AssertionError("MaxScore scores differ from search beyond the ulps bound")
+    swaps["maxscore"] = _check_rows(ms[:3], full, 2 * FLAGSHIP_ULPS * 2.0**-23, "maxscore",
+                                    hits_lower=True)
+    # the bucketed split: every query's answer as in one batch
+    one = run_search(bucketed)
+    for ix, out in split_out:
+        swaps["bucketed"] = swaps.get("bucketed", 0) + _check_rows(
+            out, [x[ix] for x in one], 2 * FLAGSHIP_ULPS * 2.0**-23, "bucketed split")
+    # bucket: integer keys, equal to the CPU copy and to the numpy oracle
+    bp = model.plan_bucket(sub)
+    kc, dc, hc = (x.cpu().numpy() for x in model.serve_bucket_batch(bp, TOP_K))
+    kp, dp, hp = (x.numpy() for x in cpu.serve_bucket_batch(bp, TOP_K))
+    filled = kc != br.I32_MIN
+    if not (np.array_equal(kc, kp) and np.array_equal(hc, hp)
+            and np.array_equal(dc[filled], dp[filled])):
+        raise AssertionError("bucket route on the card differs from the CPU copy")
+    oq = sub[:FLAGSHIP_ORACLE_QUANT]
+    op = model.plan_bucket(oq)
+    t = time.perf_counter()
+    docs_h, imps_h = model.host_postings()
+    ws, wd, wh = br.reference_bucket_search(docs_h, imps_h, model.bucket_idx, op, TOP_K)
+    oracle_s = time.perf_counter() - t
+    got = run_bucket(oq)
+    if not (np.array_equal(got[0].view(np.int32), ws.view(np.int32))
+            and np.array_equal(got[1], wd) and np.array_equal(got[2], wh)):
+        raise AssertionError("bucket route differs from reference_bucket_search")
+    # dense head + bucket tail: the CPU copy and reference_dense_search
+    row_max = idx.row_max.double().cpu().numpy()
+    dp_ = model.plan_dense(sub)
+    # the same rank keys on both: only the head's sums differ
+    tol = _dense_tail_tolerance(dp_, row_max, quanta=False)
+    swaps["dense_tail"] = _check_rows(
+        dense_head.decode_packed(model.serve_dense_batch(dp_, TOP_K), TOP_K),
+        dense_head.decode_packed(cpu.serve_dense_batch(dp_, TOP_K), TOP_K), tol,
+        "dense tail vs CPU copy")
+    t = time.perf_counter()
+    dq = model.plan_dense(oq)
+    want = dense_head.reference_dense_search(docs_h, imps_h, idx, model.bucket_entries(oq),
+                                             model.offsets, model.lengths, TOP_K)
+    oracle_s += time.perf_counter() - t
+    swaps["dense_tail_numpy"] = _check_rows(run_dense_tail(oq), want,
+                                            _dense_tail_tolerance(dq, row_max, quanta=True),
+                                            "dense tail vs reference_dense_search")
+    # dense head + merge tail and the fused path: the CPU copy within the
+    # fused contract; the window branch and the exact flags printed
+    mp = model.plan_dense_merge(sub)
+    flags = {}
+    for name, fn in (("dense_merge", "serve_dense_merge"), ("fused", "serve_dense_fused")):
+        a = dense_head.decode_packed2(getattr(model, fn)(mp, TOP_K), TOP_K)
+        b = dense_head.decode_packed2(getattr(cpu, fn)(mp, TOP_K), TOP_K)
+        same_flags = np.array_equal(a[3], b[3])
+        swaps[name] = _check_rows(a[:3], b[:3], CPU_GPU_FUSED_REL, f"{name} vs CPU copy",
+                                  hits_lower=not same_flags)
+        flags[name] = (int(a[3].sum()), int(b[3].sum()))
+    check_s = time.perf_counter() - t_check
+
+    native = phase_native_builder(dev, corpus, card)
+    del model, cpu, idx
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"flagship: answers held: search bit-equal to the CPU copy (B={FLAGSHIP_CPU_B}) and "
+        f"within {MERGE_REL} of the numpy BM25; MaxScore within {FLAGSHIP_ULPS} ulps of "
+        f"search ({answers['maxscore'][3]} of {BATCH} pruned); the bucketed batch split "
+        f"{[len(ix) for _q, ix in split]} as one batch answers; bucket bit-equal to the CPU "
+        f"copy and reference_bucket_search ({FLAGSHIP_ORACLE_QUANT} queries); dense tail "
+        f"within 8 ulps of its reach of the CPU copy, plus one quantum per tail term of "
+        f"reference_dense_search; dense "
+        f"merge and fused within {CPU_GPU_FUSED_REL} of the CPU copy (exact flags card/cpu "
+        f"{flags}); dense-merge window branch over the run {branches}; near-tie swaps "
+        f"{swaps}; checks {check_s:.1f} s (numpy oracles {oracle_s:.1f} s) | {card}")
+    log(f"flagship: launches over the routes' run {launches}; phase {seconds:.1f} s | {card}")
+    return {"launches": launches, "per_route": per_route, "timing": timing,
+            "busy": {k: v["device_busy_ms"] for k, v in busy.items()}, "build": build,
+            "bytes": {"model": mem_model, "dense_rows": mem_dense, "maxscore": mem_maxscore,
+                      "held": held, "peak": peak}, "native": native,
+            "seconds": seconds}
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -5500,6 +5960,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     standalone = phase_bucket_standalone(dev, searcher, singles, card)
 
+    # 19. the flagship model: its six routes at bench.py's configuration,
+    # and the segment builder's native accumulator
+    flagship = phase_flagship(dev, corpus, card)
+
     table = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         st = stats[name]
@@ -5521,6 +5985,7 @@ def main() -> int:
             "launches_mesh": mesh["launches"].get(name, 0),
             "launches_pruned": pruned["launches"].get(name, 0),
             "launches_bucket_standalone": standalone["launches"].get(name, 0),
+            "launches_flagship": flagship["launches"].get(name, 0),
         })
         if name == "head_scores":
             table[-1].update({k: st[k] for k in ("parent_ms", "index_select_ms", "max_rel_err",
@@ -5540,7 +6005,8 @@ def main() -> int:
             f"{vectors['launches'].get(name, 0)} in the hybrid request, "
             f"{mesh['launches'].get(name, 0)} on the meshes, "
             f"{pruned['launches'].get(name, 0)} in the pruned runs, "
-            f"{standalone['launches'].get(name, 0)} in the standalone bucket search | {card}")
+            f"{standalone['launches'].get(name, 0)} in the standalone bucket search, "
+            f"{flagship['launches'].get(name, 0)} on the flagship routes | {card}")
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

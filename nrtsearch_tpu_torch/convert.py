@@ -25,6 +25,11 @@ columns add ``mv_offsets`` / ``mv_values``.
 ``float16`` column's bf16 values as f32), ``present`` bool [capacity],
 ``norms`` f32 [capacity] (of the original f32 vectors), ``fmt`` and
 ``scale``. The column's squared norms are computed on ``device``.
+
+``batched_bm25_from_numpy`` carries a flagship model across (the reference
+``BatchedBM25``'s arrays through ``np.asarray``), ``dense_head_from_numpy`` a
+reference ``DenseHeadIndex`` (its bf16 rows, residual rows, row maxima, head
+ids and tail bucket bounds), so that both packages score the same rows.
 """
 
 from __future__ import annotations
@@ -99,4 +104,55 @@ def _vector_column(col: dict, dev: torch.device) -> VectorColumn:
         host_norms=np.array(col["norms"], np.float32),
         fmt=fmt,
         scale=float(col.get("scale", 1.0)),
+    )
+
+
+def _bf16_tensor(a, dev: torch.device) -> torch.Tensor:
+    """A numpy bfloat16 array as a bf16 tensor on ``dev`` (moved through
+    its bit pattern)."""
+    a = np.asarray(a)
+    if a.dtype.name != "bfloat16":
+        raise ValueError(f"expected bfloat16 rows, got {a.dtype}")
+    return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16).to(dev)
+
+
+def batched_bm25_from_numpy(*, terms: dict, offsets, lengths, doc_ids, freqs, doc_lens,
+                            live, num_docs_real: int, device: str | torch.device,
+                            k1: float = 1.2, b: float = 0.75):
+    """A port ``models.flagship.BatchedBM25`` over a flagship model's
+    arrays (numpy) on ``device``; its impacts are computed there."""
+    from nrtsearch_tpu_torch.models.flagship import BatchedBM25
+
+    return BatchedBM25(
+        terms=dict(terms), offsets=np.asarray(offsets, np.int64),
+        lengths=np.asarray(lengths, np.int32), doc_ids=np.asarray(doc_ids, np.int32),
+        freqs=np.asarray(freqs, np.float32), doc_lens=np.asarray(doc_lens, np.float32),
+        live=np.asarray(live, bool), num_docs_real=int(num_docs_real), k1=k1, b=b,
+        device=device,
+    )
+
+
+def dense_head_from_numpy(*, rows, rows_lo, row_max, head_ids, tail_bounds,
+                          tail_max_impact, bucket_bits: int, capacity: int, min_df: int,
+                          device: str | torch.device):
+    """A port ``ops.dense_head.DenseHeadIndex`` holding a dense head index's
+    arrays: bf16 ``rows`` [Hp, D] (and ``rows_lo`` or None), f32 ``row_max``
+    [Hp], int32 ``head_ids`` [H], and the tail's bucket bounds [V, m+1] and
+    per-term impact bounds [V] at ``bucket_bits``."""
+    from nrtsearch_tpu_torch.ops.bucket_retrieval import BucketIndex
+    from nrtsearch_tpu_torch.ops.dense_head import DenseHeadIndex
+
+    dev = resolve_device(device)
+    head_ids = np.asarray(head_ids, np.int32)
+    bounds = np.asarray(tail_bounds, np.int32)
+    return DenseHeadIndex(
+        rows=_bf16_tensor(rows, dev),
+        head_ids=head_ids,
+        head_pos={int(t): i for i, t in enumerate(head_ids)},
+        tail=BucketIndex(int(bucket_bits), bounds.shape[1] - 1, bounds,
+                         np.asarray(tail_max_impact, np.float32)),
+        capacity=int(capacity),
+        min_df=int(min_df),
+        row_max=torch.from_numpy(np.array(row_max, np.float32)).to(dev),
+        rows_lo=None if rows_lo is None else _bf16_tensor(rows_lo, dev),
     )

@@ -45,6 +45,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from nrtsearch_tpu_torch import native_ext
 from nrtsearch_tpu_torch.schema.fields import (
     DocValueKind, FieldDef, FieldType, parse_geojson_polygon,
 )
@@ -404,9 +405,17 @@ def vector_column(mat: np.ndarray, present: np.ndarray, fmt: str,
 
 class SegmentBuilder:
     """Accumulates analyzed documents in host memory; ``flush()`` packs them
-    into a Segment on ``device``. The pure-Python layout of the reference's
-    builder: term ids in first-seen order, postings doc-ascending, each
-    entry's positions in the order the analyzer gave them."""
+    into a Segment on ``device``. The reference's layout: term ids in
+    first-seen order, postings doc-ascending, each entry's positions in the
+    order the analyzer gave them.
+
+    When the native extension loads (``native_ext.get()``), a text field's
+    postings accumulate in its C++ ``PostingsAccumulator``, as in the
+    reference's builder: ``add_text`` tokenizes ASCII values of a TEXT field
+    with the default analyzer in C++; other analyzers, non-ASCII values and
+    the ``_index_prefix`` companions analyze in Python and feed it through
+    ``add_terms``. Otherwise (``NRT_NATIVE=0``, no toolchain) the postings
+    are Python lists. Both give the same arrays."""
 
     NESTED_PATH_FIELD = NESTED_PATH_FIELD
     ROOT_PATH = ROOT_PATH
@@ -433,8 +442,11 @@ class SegmentBuilder:
             if fd.type != FieldType.OBJECT and fd.raw.get("childFields")
         )
         self.num_docs = 0
-        # field -> term -> [(doc, freq, positions)]
+        # field -> term -> [(doc, freq, positions)] (the pure-Python path)
         self._postings: dict[str, dict[str, list]] = {}
+        # the native extension, or None; field -> its PostingsAccumulator
+        self._native = native_ext.get()
+        self._acc: dict[str, Any] = {}
         # field -> packed postings from a merge (``set_text_arrays``)
         self._text_arrays: dict[str, tuple] = {}
         self._doc_lens: dict[str, list[int]] = {}
@@ -540,12 +552,24 @@ class SegmentBuilder:
         positions, ``POSITION_GAP`` past the previous value's last one. An
         ``indexPrefixes`` field also indexes each token's [min, max]-char
         prefixes into the hidden ``<field>._index_prefix`` field at the
-        same positions (reference: PrefixFieldDef)."""
+        same positions (reference: PrefixFieldDef). With the native
+        accumulator each value goes in as it is analyzed, so a term's
+        positions keep the values' order."""
+        acc = self._accumulator(fd.name) if self._native is not None else None
+        native_tok = (acc is not None and fd.type == FieldType.TEXT
+                      and fd.index_analyzer is None and fd.index_prefixes is None)
         positions: dict[str, list[int]] = {}
         prefixes: dict[str, list[int]] = {}
         total = 0
         base = 0
         for v in values:
+            cnt = acc.add_text(doc_id, v, base) if native_tok else -1
+            if cnt >= 0:
+                total += cnt
+                base += cnt + self.POSITION_GAP
+                continue
+            if acc is not None:
+                positions = {}
             max_pos = 0
             for tok in fd.index_tokens(v):
                 pos = base + tok.position
@@ -556,17 +580,30 @@ class SegmentBuilder:
                         prefixes.setdefault(tok.text[:plen], []).append(pos)
                 max_pos = max(max_pos, tok.position + 1)
                 total += 1
+            if acc is not None:
+                acc.add_terms(doc_id, positions)
             base += max_pos + self.POSITION_GAP
-        self._add_postings(fd.name, doc_id, positions, total)
+        self._add_postings(fd.name, doc_id, {} if acc is not None else positions, total)
         if prefixes:
             self._add_postings(f"{fd.name}._index_prefix", doc_id, prefixes,
                                sum(len(p) for p in prefixes.values()))
 
+    def _accumulator(self, name: str):
+        acc = self._acc.get(name)
+        if acc is None:
+            acc = self._acc[name] = self._native.PostingsAccumulator()
+        return acc
+
     def _add_postings(self, name: str, doc_id: int, positions: dict, length: int) -> None:
+        """The doc's field length, and its postings: into the field's native
+        accumulator when it has one, else the Python lists."""
         lens = self._doc_lens.setdefault(name, [])
         while len(lens) < doc_id:
             lens.append(0)
         lens.append(length)
+        if self._native is not None:
+            self._accumulator(name).add_terms(doc_id, positions)
+            return
         post = self._postings.setdefault(name, {})
         for term, plist in positions.items():
             post.setdefault(term, []).append((doc_id, len(plist), plist))
@@ -589,6 +626,8 @@ class SegmentBuilder:
             name: self._pack_text_arrays(name, capacity, *_postings_arrays(post))
             for name, post in self._postings.items()
         }
+        for name, acc in self._acc.items():
+            fields[name] = self._pack_text_field_native(name, acc, capacity)
         for name, arrays in self._text_arrays.items():
             fields[name] = self._pack_text_arrays(name, capacity, *arrays)
         doc_values = {
@@ -672,6 +711,19 @@ class SegmentBuilder:
                 present[d] = True
         return doc_value_column(kind, host, present, self.device, ord_terms,
                                 mv_offsets, np.asarray(mv_vals, dtype=host.dtype))
+
+    def _pack_text_field_native(self, field_name: str, acc, capacity: int) -> TextFieldIndex:
+        """A native accumulator's packed arrays in the layout of
+        ``_pack_text_arrays``; an entry's position offsets are the running
+        sum of the freqs (each token occurrence holds one position)."""
+        names, _offs_b, lens_b, docs_b, freqs_b, pos_b = acc.finish()
+        freqs = np.frombuffer(freqs_b, np.int32)
+        pos_offsets = np.zeros(len(freqs) + 1, np.int64)
+        np.cumsum(freqs, out=pos_offsets[1:])
+        return self._pack_text_arrays(
+            field_name, capacity, names, np.frombuffer(lens_b, np.int32).copy(),
+            np.frombuffer(docs_b, np.int32), freqs.astype(np.float32),
+            np.frombuffer(pos_b, np.int32).copy(), pos_offsets)
 
     def _pack_text_arrays(self, field_name: str, capacity: int, terms: list[str],
                           lengths: np.ndarray, docs: np.ndarray, freqs: np.ndarray,

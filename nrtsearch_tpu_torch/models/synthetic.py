@@ -5,7 +5,8 @@ The same seed gives the same arrays as the reference: the random draws run
 in the same order. ``segment_arrays`` cuts the corpus into doc-range
 segments in the layout ``convert.segment_from_numpy`` takes.
 ``clustered_vectors`` is benchmarks/vector_recall.py's clustered Gaussian
-vector corpus, drawn in the same order.
+vector corpus, drawn in the same order. ``SyntheticCorpus.to_model`` builds
+the flagship model of the whole corpus (models/flagship.py).
 """
 
 from __future__ import annotations
@@ -225,14 +226,41 @@ class SyntheticCorpus:
         qs = self.rng.choice(self.vocab_size, size=(batch, terms_per_query), p=probs)
         return [[str(t) for t in row] for row in qs]
 
+    def to_model(self, device="cuda"):
+        """The flagship model (models/flagship.py ``BatchedBM25``) of the
+        whole corpus as one segment on ``device``, as the reference's
+        ``SyntheticCorpus.to_model`` lays it out: raw (unquantized) doc
+        lengths, docs padded to a power of two, postings padded past the
+        merge gather's and the bucket kernel's reach."""
+        from nrtsearch_tpu_torch.core.packed_view import GATHER_TILE
+        from nrtsearch_tpu_torch.models.flagship import BatchedBM25
+
+        d_pad = pad_to_bucket(self.num_docs)
+        p_pad = pad_to_bucket(len(self.post_docs) + max(2 * GATHER_TILE, 34816))
+        doc_ids = np.zeros(p_pad, np.int32)
+        doc_ids[: len(self.post_docs)] = self.post_docs
+        freqs = np.zeros(p_pad, np.float32)
+        freqs[: len(self.post_freqs)] = self.post_freqs
+        lens = np.zeros(d_pad, np.float32)
+        lens[: self.num_docs] = self.doc_lens
+        live = np.zeros(d_pad, bool)
+        live[: self.num_docs] = True
+        return BatchedBM25(
+            terms={str(t): t for t in range(self.vocab_size)}, offsets=self.term_offsets,
+            lengths=self.term_lengths, doc_ids=doc_ids, freqs=freqs, doc_lens=lens,
+            live=live, num_docs_real=self.num_docs, device=device,
+        )
+
     def exact_topk(self, terms: list[str], k: int, *, require_all: bool = False,
-                   k1: float = 1.2, b: float = 0.75):
+                   k1: float = 1.2, b: float = 0.75, raw_lengths: bool = False):
         """Independent exact BM25 answer in numpy, over the corpus as
-        ``segment_arrays`` lays it out (quantized lengths, no deletes):
-        f32 impacts with the same formula, a dense score array summed term
-        by term, and a (score desc, doc asc) order. Returns (scores [<=k],
-        docs [<=k], total_hits)."""
-        scores, counts = self._bm25(terms, k1, b)
+        ``segment_arrays`` lays it out (quantized lengths, no deletes), or
+        with ``raw_lengths`` as ``to_model`` lays it out (the raw lengths,
+        their mean from the f32 sum over the padded doc space): f32 impacts
+        with the same formula, a dense score array summed term by term, and
+        a (score desc, doc asc) order. Returns (scores [<=k], docs [<=k],
+        total_hits)."""
+        scores, counts = self._bm25(terms, k1, b, raw_lengths)
         matched = counts >= len(terms) if require_all else counts > 0
         docs = np.nonzero(matched)[0]
         order = np.lexsort((docs, -scores[docs]))[:k]
@@ -296,11 +324,18 @@ class SyntheticCorpus:
         order = np.lexsort((docs, -fs[docs]))[:k]
         return fs[docs[order]], docs[order], int(matched.sum())
 
-    def _bm25(self, terms: list[str], k1: float = 1.2, b: float = 0.75):
+    def _bm25(self, terms: list[str], k1: float = 1.2, b: float = 0.75,
+              raw_lengths: bool = False):
         """Dense f32 BM25 scores and matched-term counts over all docs."""
-        qlens = quantize_length(self.doc_lens.astype(np.int64))
-        avgdl = np.float32(int(qlens.sum()) / self.num_docs)
-        qlens = qlens.astype(np.float32)
+        if raw_lengths:
+            padded = np.zeros(pad_to_bucket(self.num_docs), np.float32)
+            padded[: self.num_docs] = self.doc_lens
+            avgdl = np.float32(float(padded.sum()) / self.num_docs)
+            qlens = self.doc_lens.astype(np.float32)
+        else:
+            qlens = quantize_length(self.doc_lens.astype(np.int64))
+            avgdl = np.float32(int(qlens.sum()) / self.num_docs)
+            qlens = qlens.astype(np.float32)
         k1, b = np.float32(k1), np.float32(b)
         scores = np.zeros(self.num_docs, np.float32)
         counts = np.zeros(self.num_docs, np.int64)

@@ -1,7 +1,7 @@
 """Fused dense-head retrieval: compact head rows + window combine.
 
 Counterpart: nrtsearch_tpu/ops/dense_fused.py (``gather_rows``,
-``dense_fused_topk``). Head terms (df >= min_df) are dense bf16 impact rows
+``dense_fused_topk``, ``dispatch_fused``). Head terms (df >= min_df) are dense bf16 impact rows
 [Hp, D]; a batch scores just its U rows with bf16 products accumulated in
 f32, and the Dekker residual rows recover ~f32 head scores with three more
 products (``head_scores``: on the card one kernel, csrc/head_scores.cu, that
@@ -24,6 +24,7 @@ host: one sync per batch each, counted in ``HOST_SYNCS``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from nrtsearch_tpu_torch import kernels
@@ -280,3 +281,42 @@ def dense_fused_topk(
         return pack(fs_p, fd_p, hits_p, all_selected.to(torch.int32))
     WINDOW_BRANCH["full"] += 1
     return pack(*full())
+
+
+def dispatch_fused(
+    idx,                      # ops.dense_head.DenseHeadIndex
+    plan,                     # ops.dense_head.DenseMergePlan
+    post_docs,
+    post_impacts,
+    k: int,
+    *,
+    n_req=None,
+    filt=None,
+    additive=None,
+    sort_keys=None,
+    require_all: bool = False,
+    sort_ascending: bool = True,
+    prune: bool = True,
+    exact_counts: bool = False,
+):
+    """Run one planned batch on the fused path (the reference's
+    ``dispatch_fused``, dense_fused.py:389-421, without its ``use_pallas``:
+    the kernel runs where the index lives). Returns the packed [B, 2k+2]
+    tensor (decode with ``ops.dense_head.decode_packed2``)."""
+    dev = idx.rows.device
+    B = plan.W.shape[0]
+    if n_req is None:
+        n_req = np.ones(B, np.int32)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return dense_fused_topk(
+        idx.rows, idx.row_max, post_docs, post_impacts,
+        put(plan.W), put(plan.row_idx), put(n_req),
+        put(plan.run_offs), put(plan.run_lens), put(plan.run_weights),
+        filt, additive, sort_keys, getattr(idx, "rows_lo", None),
+        k=k, has_head=plan.has_head, has_tail=plan.has_tail,
+        run_len=plan.run_len, require_all=require_all,
+        sort_ascending=sort_ascending, prune=prune, exact_counts=exact_counts,
+    )

@@ -69,6 +69,7 @@ def plan_runs(
     weights: np.ndarray,   # float32 [B, T]
     *,
     force_run_len: int = 0,
+    max_run: int = 0,      # cap run_len (must not exceed the postings array)
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
     """[B, T] term tables -> ``plan_run_lists`` over each query's live
     terms (length > 0, weight not 0), as the reference's
@@ -82,7 +83,7 @@ def plan_runs(
             if ln > 0 and weights[b, t] != 0.0:
                 row.append((int(offs[b, t]), ln, float(weights[b, t])))
         rows.append(row)
-    return plan_run_lists(rows, force_run_len=force_run_len)
+    return plan_run_lists(rows, force_run_len=force_run_len, max_run=max_run)
 
 
 def plan_run_lists(

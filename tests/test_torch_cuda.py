@@ -1562,3 +1562,146 @@ def test_standalone_bucket_search_on_card(cuda_device):
         np.testing.assert_array_equal(s.view(np.int32), ws.view(np.int32))
         np.testing.assert_array_equal(d, wd)
         np.testing.assert_array_equal(hits.cpu().numpy(), wh)
+
+
+# ---------------------------------------------------------------------------
+# the flagship model's routes (models/flagship.py) on the card against a
+# CPU copy of the same model
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def flagship_pair(cuda_device):
+    """The same corpus as a model on the card and on the CPU, with the same
+    bucket, dense-head and MaxScore indexes (the CPU copy takes the card's
+    head rows, so both score the same bf16 rows)."""
+    import dataclasses
+
+    from nrtsearch_tpu_torch.models.synthetic import SyntheticCorpus
+
+    corpus = SyntheticCorpus(40_000, 3_000, 24, seed=7)
+    card, cpu = corpus.to_model(cuda_device), corpus.to_model("cpu")
+    card.attach_bucket(4096)
+    card.attach_dense(max_rows=32, min_df=400, residual=True)
+    card.attach_maxscore()
+    idx = card.dense_idx
+    cpu.bucket_idx = card.bucket_idx
+    cpu.dense_idx = dataclasses.replace(idx, rows=idx.rows.cpu(), rows_lo=idx.rows_lo.cpu(),
+                                        row_max=idx.row_max.cpu())
+    cpu.attach_maxscore()
+    return card, cpu, corpus.sample_queries(24, 4) + [[], ["no-such-term"]]
+
+
+def test_flagship_search_on_card_equals_cpu(flagship_pair):
+    """search on the card (kernels #2-#6) bit-equal to the CPU copy's
+    accelerator branch (its plain versions)."""
+    from nrtsearch_tpu_torch.models.flagship import bm25_search_step
+
+    card, cpu, qs = flagship_pair
+    qb = card.compile_queries(qs)
+    kernels.reset_launch_counts()
+    got = [x.cpu() for x in card.search(qb, 50)]
+    assert kernels.LAUNCHES["gather_runs"] == 1
+    want = bm25_search_step(cpu.doc_ids, cpu.impacts, *(torch.from_numpy(a) for a in (
+        qb.term_offsets, qb.term_lengths, qb.term_weights, qb.n_terms)),
+        run_len=qb.run_len, k=50, use_pallas=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                           w.view(torch.int32) if w.dtype == torch.float32 else w)
+
+
+def test_flagship_bucket_and_dense_tail_on_card_equal_cpu(flagship_pair):
+    """The bucket route bit-equal; the dense head + bucket tail with equal
+    hits, scores within 8 f32 ulps of the largest score the query can reach
+    (the rank keys are bit-equal; cuBLAS sums the head products in another
+    order), docs equal but at such near-ties."""
+    from nrtsearch_tpu_torch.ops import dense_head
+
+    card, cpu, qs = flagship_pair
+    plan = card.plan_bucket(qs)
+    kernels.reset_launch_counts()
+    got = [x.cpu() for x in card.serve_bucket_batch(plan, 50)]
+    assert kernels.LAUNCHES["bucket_rank"] == 1
+    want = cpu.serve_bucket_batch(plan, 50)
+    filled = got[0] != int(br.I32_MIN)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    assert torch.equal(got[1][filled], want[1][filled])
+    dp = card.plan_dense(qs)
+    kernels.reset_launch_counts()
+    s, d, h = dense_head.decode_packed(card.serve_dense_batch(dp, 50), 50)
+    assert kernels.LAUNCHES["bucket_rank"] == 1
+    ws, wd, wh = dense_head.decode_packed(cpu.serve_dense_batch(dp, 50), 50)
+    np.testing.assert_array_equal(h, wh)
+    top = np.abs(dp.W.astype(np.float64)) @ card.dense_idx.row_max.double().cpu().numpy()
+    top = top + np.where(dp.tail.n_terms > 0, br.QMAX / dp.tail.scales, 0.0)
+    tol = 8 * 2.0**-23 * top
+    for qi in range(len(qs)):
+        fin = np.isfinite(ws[qi])
+        assert np.array_equal(np.isfinite(s[qi]), fin)
+        assert np.abs(s[qi][fin] - ws[qi][fin]).max(initial=0) <= tol[qi]
+        for j in np.nonzero(d[qi][fin] != wd[qi][fin])[0]:
+            assert abs(s[qi][fin][j] - ws[qi][fin][j]) <= tol[qi], (qi, j)
+
+
+def test_flagship_dense_merge_and_fused_on_card_equal_cpu(flagship_pair):
+    """Dense head + merge tail (kernels #2/#4 in the tail merge) and the
+    fused path (kernel #1): docs, hits and exact flags equal to the CPU
+    copy, scores within 1e-6 relative (the fused contract)."""
+    from nrtsearch_tpu_torch.ops import dense_head
+
+    card, cpu, qs = flagship_pair
+    plan = card.plan_dense_merge(qs)
+    for fn in ("serve_dense_merge", "serve_dense_fused"):
+        for kw in ({}, {"exact_counts": True}):
+            kernels.reset_launch_counts()
+            got = dense_head.decode_packed2(getattr(card, fn)(plan, 50, **kw), 50)
+            if fn == "serve_dense_fused":
+                assert kernels.LAUNCHES["head_scores"] == 1
+            assert kernels.LAUNCHES["near_stages"] > 0
+            want = dense_head.decode_packed2(getattr(cpu, fn)(plan, 50, **kw), 50)
+            for i in (1, 2, 3):
+                np.testing.assert_array_equal(got[i], want[i])
+            np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
+
+
+def test_flagship_maxscore_on_card_equals_cpu(flagship_pair):
+    """MaxScore on the card: docs, hits and the pruned count equal to the
+    CPU copy's, scores within 4 f32 ulps."""
+    card, cpu, qs = flagship_pair
+    got = card.serve_maxscore_batch(qs, 50)
+    want = cpu.serve_maxscore_batch(qs, 50)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    assert got[3] == want[3]
+    fin = np.isfinite(want[0])
+    bits = np.abs(got[0].view(np.int32).astype(np.int64) - want[0].view(np.int32))
+    assert np.where(fin, bits, 0).max() <= 4
+
+
+def test_native_builder_segments_on_card(cuda_device, monkeypatch):
+    """The builder's native accumulator loads on the card's machine and
+    packs, onto the card, the segment its Python path packs."""
+    from nrtsearch_tpu_torch import native_ext
+    from nrtsearch_tpu_torch.core.segment import SegmentBuilder
+    from nrtsearch_tpu_torch.schema import create_field_def
+
+    fds = {"body": create_field_def("body", {"type": "TEXT", "search": True})}
+    rng = np.random.default_rng(3)
+    words = ["alpha", "beta", "gamma", "délta", "can't", "x86"]
+    docs = [{"body": " ".join(rng.choice(words, 8))} for _ in range(2000)]
+    segs = []
+    for flag in ("1", "0"):
+        monkeypatch.setattr(native_ext, "_module", None)
+        monkeypatch.setattr(native_ext, "_tried", False)
+        monkeypatch.setenv("NRT_NATIVE", flag)
+        b = SegmentBuilder(fds, cuda_device)
+        assert (b._native is not None) == (flag == "1")
+        for d in docs:
+            b.add_document(d)
+        segs.append(b.flush().fields["body"])
+    a, p = segs
+    assert a.terms == p.terms and a.doc_ids.is_cuda
+    for f in ("doc_ids", "freqs", "doc_lens"):
+        assert torch.equal(getattr(a, f), getattr(p, f))
+    for f in ("offsets", "lengths", "positions", "position_offsets"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(p, f))

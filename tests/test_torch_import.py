@@ -153,6 +153,28 @@ bidx = br.BucketIndex.build(np.arange(8, dtype=np.int32), np.ones(8, np.float32)
                             bucket_docs=4)
 bplan = br.plan_bucket_batch(bidx, [[(0, 1.0), (1, 2.0)]], np.array([0, 4]), max_terms=2)
 assert br.reference_bucket_search(np.arange(8), np.ones(8), bidx, bplan, 3)[2][0] == 8
+# the flagship model's six routes on a small corpus, and the native
+# postings accumulator under the builder above
+from nrtsearch_tpu_torch import native_ext
+from nrtsearch_tpu_torch.models.synthetic import SyntheticCorpus
+from nrtsearch_tpu_torch.ops import dense_head
+assert native_ext.get() is not None and w._builder._native is not None
+corpus = SyntheticCorpus(3000, 300, 12, seed=1)
+model = corpus.to_model("cpu")
+fq = corpus.sample_queries(4, 3)
+fs, fd, fh = model.search(model.compile_queries(fq), 5)
+model.attach_bucket(1024)
+model.attach_dense(max_rows=4, min_df=100, bucket_docs=1024, residual=True)
+model.attach_maxscore()
+assert model.serve_bucket_batch(model.plan_bucket(fq), 5)[2].tolist() == fh.tolist()
+assert dense_head.decode_packed(model.serve_dense_batch(model.plan_dense(fq), 5), 5)[2].tolist() \
+    == fh.tolist()
+mplan = model.plan_dense_merge(fq)
+assert dense_head.decode_packed2(model.serve_dense_merge(mplan, 5, exact_counts=True),
+                                 5)[2].tolist() == fh.tolist()
+assert dense_head.decode_packed2(model.serve_dense_fused(mplan, 5, exact_counts=True),
+                                 5)[2].tolist() == fh.tolist()
+assert model.serve_maxscore_batch(fq, 5)[1].tolist() == fd.tolist()
 loaded = [k for k, v in sys.modules.items() if v is not None]
 assert not any(k == "jax" or k.startswith("jax.") for k in loaded)
 assert not any(k == "nrtsearch_tpu" or k.startswith("nrtsearch_tpu.") for k in loaded)
@@ -167,12 +189,18 @@ VECTOR_SLICE = ("nrtsearch_tpu_torch.ops.knn", "nrtsearch_tpu_torch.search.retri
 # the modules of the virtual-shard, MaxScore and standalone-bucket slice
 MESH_SLICE = ("nrtsearch_tpu_torch.parallel", "nrtsearch_tpu_torch.parallel.distributed",
               "nrtsearch_tpu_torch.core.maxscore", "nrtsearch_tpu_torch.ops.bucket_retrieval")
+# the modules of the flagship slice: the model, the dense head's routes,
+# the native postings accumulator
+FLAGSHIP_SLICE = ("nrtsearch_tpu_torch.models.flagship", "nrtsearch_tpu_torch.ops.dense_head",
+                  "nrtsearch_tpu_torch.ops.dense_fused", "nrtsearch_tpu_torch.native_ext",
+                  "nrtsearch_tpu_torch.convert")
 
 
 def test_port_imports_and_searches_without_jax():
     mods = [m for m in _port_modules() if not _is_wire(m)]
     assert set(VECTOR_SLICE) <= set(mods)
     assert set(MESH_SLICE) <= set(mods)
+    assert set(FLAGSHIP_SLICE) <= set(mods)
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT % {"blocked": BLOCKED, "mods": mods}],
         capture_output=True, text=True, cwd=str(REPO), timeout=300,
