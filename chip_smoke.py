@@ -44,10 +44,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    merge results bit-equal, fused results within 1e-6 relative.
 8. the bucket path (NRT_FAST_PATH=bucket for this phase only) on the same
    index: bucket_rank against its plain version at the first B=32 batch's
-   plan, bit-equal with require_all both ways, CUDA-event times; the 8 singles and 4 batches of phase 5 through
+   plan, bit-equal with require_all both ways, CUDA-event times, and the
+   share of its (query, bucket) rows with more than k hits; then
+   bucket_rank_topk (the entry that selects each row's top k in the block)
+   at the bucket cell's shape (tests/torch_bucket_data.py: B=32, T=4,
+   m=1024 buckets of 2^14 docs, k=100) on drawn scores and on a tie-heavy
+   batch, require_all both ways: its candidates equal to the plain
+   version's row by row, bucket_search_topk equal to the dense route
+   (bucket_rank and topk_i32_lowest_index) bit for bit, keys, docs and hits;
+   the share of rows it prunes (hits above k, as the plain version reads
+   them); CUDA-event times of the entry, of bucket_search_topk and of the
+   dense route. The 8 singles and 4 batches of phase 5 through
    the merge path (timed), then, with the launch counters reset just before
    and read just after, through the bucket path: every spec must be served
-   there and bucket_rank must launch once per bucket batch. Answers against
+   there and bucket_rank_topk must launch once per bucket batch. Answers against
    the merge path's: equal hit counts, scores
    within one quantum (1 / scale) per query term, docs equal up to
    near-ties at the k-th score; a query whose plan shares a scale bound
@@ -178,7 +188,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    forms over gRPC, four general kinds (range filter, geo radius, function
    score, prefix), and the updated values in a range, a ts sort and a
    price sum; head_scores, near_stages, far_stage, far_pair_stage,
-   gather_runs, finish_mask and bucket_rank must all launch. No answer
+   gather_runs, finish_mask and bucket_rank_topk must all launch. No answer
    may hold a deleted doc, a deleted id or an upserted doc's old version.
    Each against the CPU replay's general evaluator (exact f32): fused
    within FUSED_REL, merge within MERGE_REL with hits exact, config #3
@@ -275,8 +285,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    batcher's k (pow2(topHits, 8)) prunes, with the unpruned docs.
 18. the standalone bucket API: BucketIndex.build and plan_bucket_batch
    over the merge path's packed postings and phase 5's singles (a term's
-   runs as slots), bucket_search_topk on the card (kernel #7/#8) equal bit
-   for bit to reference_bucket_search on a host copy.
+   runs as slots), bucket_search_topk on the card (kernel #7/#8's top-k
+   entry) equal bit for bit to reference_bucket_search on a host copy.
 19. the flagship model (models/flagship.py) at bench.py's configuration:
    phase 4's corpus as one segment (``SyntheticCorpus.to_model``, raw
    lengths), attach_bucket(16384), attach_dense(max_rows 1024, min_df 2048,
@@ -287,7 +297,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    4 Zipf terms, then one compile_queries_bucketed batch (31 tail-term
    queries and one of the four most frequent terms, which must split);
    head_scores, near_stages, far_stage, far_pair_stage, gather_runs,
-   finish_mask and bucket_rank must all launch. Per route: B=1 and B=32
+   finish_mask, bucket_rank (the dense tail) and bucket_rank_topk (the
+   bucket route) must all launch. Per route: B=1 and B=32
    p50 on the host clock, a traced B=32 call's device-busy share (every
    kernel the call launched must show in its trace), its launches, the
    index bytes on the card it holds and its B=32 call's peak working bytes.
@@ -310,7 +321,7 @@ of the first B=32 batch (merge path), one B=1 query (fused path) and, for
 the bucket kernels, one bucket batch.
 
 The last lines are the kernel table as JSON (``launches`` from phase 5's
-run, or phase 8's for bucket_rank; ``launches_config3`` from phase 9's, and
+run, or phase 8's for bucket_rank_topk; ``launches_config3`` from phase 9's, and
 ``launches_per_config3_request`` from one sorted B=32 batch, or for
 head_scores one fused config-#3 single; ``launches_served`` from phase 10's
 served searches, ``launches_replica`` from phase 11's searches sent to the
@@ -360,13 +371,20 @@ KERNEL_SOURCES = {
                     "nrtsearch_tpu/ops/pallas_merge.py:317"),
     "finish_mask": ("nrtsearch_tpu_torch/csrc/finish_mask.cu",
                     "nrtsearch_tpu/ops/pallas_merge.py:450"),
-    # one kernel for both TPU kernels of the bucket path
+    # one kernel for both TPU kernels of the bucket path, with two entries:
+    # the dense keys (the dense tail's) and each row's top k (the bucket path's)
     "bucket_rank": ("nrtsearch_tpu_torch/csrc/bucket_rank.cu",
                     "nrtsearch_tpu/ops/bucket_retrieval.py:293 (gather_pack_pallas); "
                     "nrtsearch_tpu/ops/bucket_retrieval.py:418 (sort_finish_pallas)"),
+    "bucket_rank_topk": ("nrtsearch_tpu_torch/csrc/bucket_rank.cu",
+                         "nrtsearch_tpu/ops/bucket_retrieval.py:293 (gather_pack_pallas); "
+                         "nrtsearch_tpu/ops/bucket_retrieval.py:418 (sort_finish_pallas) "
+                         "and _hierarchical_topk_i32 over its keys"),
 }
-# the kernels of phase 8's bucket path; phase 5 drives the others
-BUCKET_KERNELS = ("bucket_rank",)
+# the kernel of phase 8's bucket path; phase 5 drives the others but these
+# and the dense entry, which only the dense tail (phase 19) launches
+BUCKET_KERNELS = ("bucket_rank_topk",)
+DENSE_TAIL_KERNELS = ("bucket_rank",)
 # the one PyTorch call that computes a kernel's function, timed beside it
 # (the port never calls it), or why there is none
 LIBRARY = {
@@ -379,6 +397,9 @@ LIBRARY = {
     "finish_mask": "none: no torch call runs a bounded segmented scan",
     "bucket_rank": "none: torch.Tensor.index_add_ sums but weighs, quantizes and "
                    "masks nothing",
+    "bucket_rank_topk": "none: no torch call sums postings; library_ms times the "
+                        "route it replaces, bucket_rank and topk_i32_lowest_index "
+                        "(torch.topk over [B, m * 2^bits] int64 keys)",
 }
 # the card's peaks (H100 SXM data sheet): device memory, the f32 rate
 # outside the tensor cores, at which one compare-exchange or add counts, and
@@ -1313,7 +1334,11 @@ def phase_bucket_kernels(dev, view, specs) -> dict:
                                  f"require_all={require_all}")
         if not bool((ref != int(br.I32_MIN)).any()):
             raise AssertionError("bucket_rank kept no doc of the batch")
+        if not require_all:
+            over = _rows_over(ref, B * m, TOP_K)
         del ref, out
+    log(f"bucket rows: {100 * over:.2f}% of the first B={B} batch's {B * m} (query, "
+        f"bucket) rows hold more than k={TOP_K} hits (the plain version's keys)")
     ms = cuda_ms(lambda: kernels.bucket_rank(*args, n_terms, bits, False))
     plain_ms = cuda_ms(lambda: br.bucket_rank_plain(*args, n_terms, tile=tile,
                                                     bucket_bits=bits, require_all=False))
@@ -1322,6 +1347,91 @@ def phase_bucket_kernels(dev, view, specs) -> dict:
     return {"bucket_rank": {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                             "shape": [B, T, m, 1 << bits],
                             "bytes": 8 * live + tables + rank_bytes, "ops": live}}
+
+
+def _rows_over(rank, rows: int, k: int) -> float:
+    """The share of ``rows`` (query, bucket) rows of dense rank keys that
+    hold more than k hits: the rows whose top k the selection prunes."""
+    hits = (rank != -(2**31)).reshape(rows, -1).sum(dim=1)
+    return float((hits > k).float().mean())
+
+
+def phase_bucket_topk(dev) -> dict:
+    """bucket_rank_topk at the bucket cell's shape, on drawn scores and on
+    a tie-heavy batch (see the module docstring, phase 8)."""
+    from nrtsearch_tpu_torch import kernels
+    from nrtsearch_tpu_torch.ops import bucket_retrieval as br
+    from nrtsearch_tpu_torch.ops.topk import topk_i32_lowest_index
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_bucket_data import CELL, bucket_tables
+
+    B, T, m, bits, k = CELL["B"], CELL["T"], CELL["m"], CELL["bits"], TOP_K
+    kk = min(k, 1 << bits)
+    out = {}
+    for ties in (False, True):
+        tabs, n_terms, tile = bucket_tables(dev, 1900 + ties, ties=ties)
+        need = torch.minimum(n_terms, (torch.arange(B, device=dev, dtype=torch.int32) // 2)
+                             % T + 1)
+        for require_all, nt in ((False, n_terms), (True, need)):
+            kernels.reset_launch_counts()
+            keys, docs, hits = br.bucket_search_topk(*tabs, nt, tile=tile, bucket_bits=bits,
+                                                     k=k, require_all=require_all)
+            torch.cuda.synchronize()
+            launched = {n: kernels.LAUNCHES[n] for n in ("bucket_rank", "bucket_rank_topk")}
+            if launched != {"bucket_rank": 0, "bucket_rank_topk": 1}:
+                raise AssertionError(f"bucket_search_topk launched {launched}")
+            cands, _ = kernels.bucket_rank_topk(*tabs, nt, bits, require_all, k)
+            ref_c, ref_h = br.bucket_rank_topk_plain(*tabs, nt, tile=tile, bucket_bits=bits,
+                                                     require_all=require_all, k=k)
+            rows = torch.sort(cands.reshape(-1, kk), dim=-1, descending=True).values
+            if not (_bits_equal(rows.reshape(cands.shape), ref_c)
+                    and _bits_equal(hits, ref_h)):
+                raise AssertionError(f"bucket_rank_topk differs from its plain version, "
+                                     f"ties={ties} require_all={require_all}")
+            del cands, ref_c, rows
+            rank = br.bucket_rank_plain(*tabs, nt, tile=tile, bucket_bits=bits,
+                                        require_all=require_all)
+            want_k, want_d = topk_i32_lowest_index(rank, k)
+            if not (_bits_equal(keys, want_k) and _bits_equal(docs, want_d.to(torch.int32))):
+                raise AssertionError(f"bucket_search_topk differs from the dense route, "
+                                     f"ties={ties} require_all={require_all}")
+            out[(ties, require_all)] = _rows_over(rank, B * m, kk)
+            del rank, want_k, want_d
+        torch.cuda.empty_cache()
+        if not ties:
+            drawn = (tabs, n_terms, tile)
+    tabs, n_terms, tile = drawn
+
+    def dense_route():
+        rank = kernels.bucket_rank(*tabs, n_terms, bits, False)
+        hits = (rank != int(br.I32_MIN)).sum(dim=-1, dtype=torch.int32)
+        return topk_i32_lowest_index(rank, k), hits
+
+    ms = cuda_ms(lambda: kernels.bucket_rank_topk(*tabs, n_terms, bits, False, k))
+    search_ms = cuda_ms(lambda: br.bucket_search_topk(*tabs, n_terms, tile=tile,
+                                                      bucket_bits=bits, k=k))
+    library_ms = cuda_ms(dense_route, reps=10)
+    plain_ms = cuda_ms(lambda: br.bucket_rank_topk_plain(
+        *tabs, n_terms, tile=tile, bucket_bits=bits, require_all=False, k=k), reps=5)
+    live = int(torch.where((tabs[4] != 0)[..., None], tabs[3][..., 1:] - tabs[3][..., :-1],
+                           0).sum())
+    tables = 4 * sum(t.numel() for t in tabs[2:]) + 4 * B
+    log(f"kernel bucket_rank_topk B={B} T={T} m={m} bits={bits} k={k}: candidates equal to "
+        f"the plain version's and bucket_search_topk equal to the dense route bit for bit "
+        f"(drawn and tie-heavy, require_all both ways); rows over k (pruned): drawn "
+        f"{100 * out[(False, False)]:.2f}% ({100 * out[(False, True)]:.2f}% with "
+        f"require_all), tie-heavy {100 * out[(True, False)]:.2f}% "
+        f"({100 * out[(True, True)]:.2f}%); {ms:.4f} ms, bucket_search_topk {search_ms:.4f} "
+        f"ms, the dense route (bucket_rank, topk_i32_lowest_index) {library_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms; {live} live postings")
+    return {"bucket_rank_topk": {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                 "library_ms": library_ms, "search_ms": search_ms,
+                                 "rows_over_k": {f"ties={t},require_all={r}": v
+                                                 for (t, r), v in out.items()},
+                                 "shape": [B, T, m, 1 << bits, k],
+                                 "bytes": 8 * live + tables + 8 * B * m * kk + 4 * B,
+                                 "ops": live}}
 
 
 def _check_bucket_answer(b, mres, tol: float, ctx: str) -> float:
@@ -1370,6 +1480,8 @@ def phase_bucket(dev, searcher, singles, batches, card: str) -> dict:
         f"{time.perf_counter() - t:.2f} s")
     stats = phase_bucket_kernels(
         dev, view, [searcher.fast_query_spec(_match(q)) for q in batches[0]])
+    torch.cuda.empty_cache()
+    stats.update(phase_bucket_topk(dev))
     torch.cuda.empty_cache()
 
     merge = _with_path("merge", lambda: _timed_searches(searcher, singles, batches))
@@ -3321,7 +3433,7 @@ DBQ_PRICE = (500.0, 510.0)  # and a price range (about 1%), bounds inclusive
 UPDATED_PRICE = 5000.0     # above every drawn price: a range finds the updated docs
 UPDATED_TS = 2e9           # above every drawn ts; UPDATED_TS + 128 i is an f32 number
 WRITE_KERNELS = ("head_scores", "near_stages", "far_stage", "far_pair_stage",
-                 "gather_runs", "finish_mask", "bucket_rank")
+                 "gather_runs", "finish_mask", "bucket_rank_topk")
 GENERAL_WRITE_KINDS = ("columns", "geo_radius", "function_score", "prefix")
 WRITE_BRANCH = {"alt": 1, "plain": 0}   # the B=32 batch's merge network on the card
 
@@ -5415,8 +5527,8 @@ def phase_bucket_standalone(dev, searcher, singles, card: str) -> dict:
         index.doc_ids, index.impacts, *tabs, tile=plan.tile, bucket_bits=idx.bucket_bits,
         k=TOP_K)
     torch.cuda.synchronize()
-    launches = {"bucket_rank": kernels.LAUNCHES["bucket_rank"]}
-    if launches["bucket_rank"] != 1:
+    launches = {k: kernels.LAUNCHES[k] for k in ("bucket_rank", "bucket_rank_topk")}
+    if launches != {"bucket_rank": 0, "bucket_rank_topk": 1}:
         raise AssertionError(f"bucket_search_topk launched {launches}")
     scores, d = br.decode_topk(keys.cpu().numpy(), top_docs.cpu().numpy(), plan.scales)
     t = time.perf_counter()
@@ -5891,8 +6003,8 @@ def main() -> int:
     log(f"search: specs by path {res['paths']}; host syncs window {syncs[0]}, "
         f"hierarchical_topk {syncs[1]}; window branch {dense_fused.WINDOW_BRANCH}; "
         f"merge branch {branches}")
-    missing = [k for k in KERNEL_SOURCES
-               if k not in BUCKET_KERNELS and launches.get(k, 0) == 0]
+    missing = [k for k in KERNEL_SOURCES if k not in BUCKET_KERNELS + DENSE_TAIL_KERNELS
+               and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     if res["paths"]["fused"] == 0 or res["paths"]["merge"] == 0:

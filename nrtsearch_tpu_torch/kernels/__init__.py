@@ -49,7 +49,7 @@ NVCC_FLAGS = (
 LAUNCHES = {
     "head_scores": 0, "near_stages": 0, "far_stage": 0,
     "gather_runs": 0, "far_pair_stage": 0, "finish_mask": 0,
-    "bucket_rank": 0,
+    "bucket_rank": 0, "bucket_rank_topk": 0,
 }
 # near_stages: the largest tile (2^14 pairs, 128 KB of shared memory)
 NEAR_MAX_TILE = 16384
@@ -159,9 +159,11 @@ def _bind(so: Path) -> None:
                                     ci, ci, vp]
     lib.nrt_bucket_rank.argtypes = [vp, vp, cll, vp, vp, vp, vp, vp,
                                     ci, ci, ci, ci, ci, vp]
+    lib.nrt_bucket_rank_topk.argtypes = [vp, vp, cll, vp, vp, vp, vp, vp, vp,
+                                         ci, ci, ci, ci, ci, ci, vp]
     for fn in (lib.nrt_head_scores, lib.nrt_near_stages, lib.nrt_far_stage,
                lib.nrt_far_pair_stage, lib.nrt_gather_runs,
-               lib.nrt_finish_mask, lib.nrt_bucket_rank):
+               lib.nrt_finish_mask, lib.nrt_bucket_rank, lib.nrt_bucket_rank_topk):
         fn.restype = ci
     lib.nrt_error_string.argtypes = [ci]
     lib.nrt_error_string.restype = ctypes.c_char_p
@@ -412,14 +414,11 @@ def finish_smem_bytes(window: int, max_seg: int, require_all: bool) -> int:
                 + 2 * warps * _pad(span) * (2 if require_all else 1))
 
 
-def bucket_rank(post_docs: torch.Tensor, post_impacts: torch.Tensor,
-                toffs: torch.Tensor, bounds: torch.Tensor, wts: torch.Tensor,
-                n_terms: torch.Tensor, bucket_bits: int,
-                require_all: bool) -> torch.Tensor:
-    """[B, T] / [B, T, m+1] bucket plan tables -> int32 [B, m * 2^bucket_bits]
-    rank keys in global doc order, the postings summed straight into each
-    (query, bucket) row's shared-memory accumulator
-    (``ops/bucket_retrieval.bucket_rank_plain`` is the plain version)."""
+def _bucket_shape(post_docs: torch.Tensor, post_impacts: torch.Tensor,
+                  toffs: torch.Tensor, bounds: torch.Tensor, wts: torch.Tensor,
+                  n_terms: torch.Tensor, bucket_bits: int) -> tuple[int, int, int]:
+    """(B, T, m) of the bucket kernels' inputs, or raises on what they do
+    not take."""
     _check(post_docs, "post_docs", torch.int32, 1)
     _check(post_impacts, "post_impacts", torch.float32, 1)
     _check(toffs, "toffs", torch.int32, 2)
@@ -446,6 +445,19 @@ def bucket_rank(post_docs: torch.Tensor, post_impacts: torch.Tensor,
                          f"{BUCKET_MAX_BITS}, got {bucket_bits}")
     if B * m >= 2**31:
         raise ValueError(f"B * m = {B * m} exceeds the kernel's grid")
+    return B, T, m
+
+
+def bucket_rank(post_docs: torch.Tensor, post_impacts: torch.Tensor,
+                toffs: torch.Tensor, bounds: torch.Tensor, wts: torch.Tensor,
+                n_terms: torch.Tensor, bucket_bits: int,
+                require_all: bool) -> torch.Tensor:
+    """[B, T] / [B, T, m+1] bucket plan tables -> int32 [B, m * 2^bucket_bits]
+    rank keys in global doc order, the postings summed straight into each
+    (query, bucket) row's shared-memory accumulator
+    (``ops/bucket_retrieval.bucket_rank_plain`` is the plain version)."""
+    B, T, m = _bucket_shape(post_docs, post_impacts, toffs, bounds, wts, n_terms,
+                            bucket_bits)
     rank = torch.empty((B, m << bucket_bits), dtype=torch.int32, device=post_docs.device)
     if B == 0:
         return rank
@@ -455,3 +467,32 @@ def bucket_rank(post_docs: torch.Tensor, post_impacts: torch.Tensor,
             toffs.data_ptr(), bounds.data_ptr(), wts.data_ptr(), n_terms.data_ptr(),
             rank.data_ptr(), B, T, m, bucket_bits, int(require_all))
     return rank
+
+
+def bucket_rank_topk(post_docs: torch.Tensor, post_impacts: torch.Tensor,
+                     toffs: torch.Tensor, bounds: torch.Tensor, wts: torch.Tensor,
+                     n_terms: torch.Tensor, bucket_bits: int, require_all: bool,
+                     k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inputs of ``bucket_rank`` -> (int64 [B, m * kk] candidates, int32
+    [B] hits), kk = min(k, 2^bucket_bits): each (query, bucket) row's top kk
+    rank keys by (key desc, doc asc), I32_MIN docs included, as
+    ``ops/topk.lowest_index_keys`` of (key, global doc), in no order within
+    the row; hits counts each query's keys other than I32_MIN. The dense
+    keys are never written (``ops/bucket_retrieval.bucket_rank_topk_plain``
+    is the plain version)."""
+    B, T, m = _bucket_shape(post_docs, post_impacts, toffs, bounds, wts, n_terms,
+                            bucket_bits)
+    if k < 1:
+        raise ValueError(f"bucket_rank_topk needs k >= 1, got {k}")
+    kk = min(k, 1 << bucket_bits)
+    dev = post_docs.device
+    cands = torch.empty((B, m * kk), dtype=torch.int64, device=dev)
+    hits = torch.zeros((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return cands, hits
+    lib = _library()
+    _launch("bucket_rank_topk", lib.nrt_bucket_rank_topk, dev,
+            post_docs.data_ptr(), post_impacts.data_ptr(), post_docs.shape[0],
+            toffs.data_ptr(), bounds.data_ptr(), wts.data_ptr(), n_terms.data_ptr(),
+            cands.data_ptr(), hits.data_ptr(), B, T, m, bucket_bits, int(require_all), kk)
+    return cands, hits

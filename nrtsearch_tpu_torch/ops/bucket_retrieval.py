@@ -31,7 +31,16 @@ ascend inside a sorted tile).
 hand-written kernel (csrc/bucket_rank.cu) that adds each posting straight
 into the row's shared-memory accumulator, so no key tile exists on the
 card; on CPU tensors it runs ``bucket_rank_plain``, the two plain versions
-composed over the plan's tile.
+composed over the plan's tile. The dense tail (ops/dense_head.py) reads its
+dense keys.
+
+``bucket_search_topk`` wants only each query's top k, and takes
+``bucket_rank_topk``: the same accumulate phase in a second kernel entry,
+which selects each row's top kk = min(k, bucket_docs) in shared memory and
+writes only those candidates and the hit counts, so the dense
+[B, m * bucket_docs] keys are never written on the card; one
+``torch.topk`` over the [B, m * kk] candidates finishes. On CPU tensors
+``bucket_rank_topk_plain`` runs the same two stages over the dense keys.
 
 The standalone API is the reference's as well: ``BucketIndex.build`` (the
 refresh-time per-term bucket bounds), ``plan_bucket_batch`` (a batch's
@@ -39,8 +48,8 @@ tables, slots by descending mass, the per-query quantization scale),
 ``reference_bucket_search`` (the numpy oracle). A ``BucketPlan`` drives
 ``bucket_search_topk`` as it is. The reference's ``_hierarchical_topk_i32``
 and its plans' frozen shapes (``force_caps`` / ``force_tile``) are not
-ported: ``topk_i32_lowest_index`` gives the same top k in one call, and
-eager torch compiles no shapes to freeze. The serving caller,
+ported: the per-row selection and one top k over its candidates give the
+same top k, and eager torch compiles no shapes to freeze. The serving caller,
 ``PackedFieldView.bucket_search_batch``, plans its own batches from the
 packed view.
 """
@@ -54,7 +63,9 @@ import torch
 
 from nrtsearch_tpu_torch import kernels
 from nrtsearch_tpu_torch.device import on_cuda
-from nrtsearch_tpu_torch.ops.topk import topk_i32_lowest_index
+from nrtsearch_tpu_torch.ops.topk import (
+    lowest_index_keys, top_lowest_index_keys, topk_i32_lowest_index,
+)
 
 I32_SENT = np.int32(2**31 - 1)     # padding and deleted postings
 I32_MIN = np.int32(-(2**31))       # no hit at this doc: never tops
@@ -274,17 +285,53 @@ def bucket_rank(post_docs, post_impacts, toffs, bounds, wts, n_terms, *,
                              tile=tile, bucket_bits=bucket_bits, require_all=require_all)
 
 
+def bucket_rank_topk_plain(post_docs, post_impacts, toffs, bounds, wts, n_terms, *,
+                           tile: int, bucket_bits: int, require_all: bool, k: int):
+    """Plain torch version of ``bucket_rank_topk``: ``bucket_rank_plain``'s
+    dense keys, then each (query, bucket) row's top kk = min(k, bucket_docs)
+    by ``topk_i32_lowest_index`` (I32_MIN docs included). Returns (int64
+    [B, m * kk] ``lowest_index_keys`` of (key, global doc), each row's in
+    order; int32 [B] hits)."""
+    rank = bucket_rank_plain(post_docs, post_impacts, toffs, bounds, wts, n_terms,
+                             tile=tile, bucket_bits=bucket_bits, require_all=require_all)
+    B, m = rank.shape[0], bounds.shape[2] - 1
+    kk = min(k, 1 << bucket_bits)
+    keys, local = topk_i32_lowest_index(rank.reshape(B * m, 1 << bucket_bits), kk)
+    first = torch.arange(m, device=rank.device, dtype=torch.int64).repeat(B) << bucket_bits
+    cands = lowest_index_keys(keys, local + first[:, None])
+    hits = (rank != int(I32_MIN)).sum(dim=-1, dtype=torch.int32)
+    return cands.reshape(B, m * kk), hits
+
+
+def bucket_rank_topk(post_docs, post_impacts, toffs, bounds, wts, n_terms, *,
+                     tile: int, bucket_bits: int, require_all: bool, k: int):
+    """Plan tables -> (int64 [B, m * kk] candidates, int32 [B] hits): each
+    (query, bucket) row's top kk = min(k, bucket_docs) rank keys with their
+    global docs, as ``lowest_index_keys``. The CUDA kernel for CUDA tensors
+    (which needs no ``tile`` and writes no dense keys),
+    ``bucket_rank_topk_plain`` for CPU ones."""
+    if on_cuda(post_docs):
+        return kernels.bucket_rank_topk(post_docs, post_impacts, toffs, bounds, wts,
+                                        n_terms, bucket_bits, require_all, k)
+    return bucket_rank_topk_plain(post_docs, post_impacts, toffs, bounds, wts, n_terms,
+                                  tile=tile, bucket_bits=bucket_bits,
+                                  require_all=require_all, k=k)
+
+
 def bucket_search_topk(post_docs, post_impacts, toffs, bounds, wts, n_terms, *,
                        tile: int, bucket_bits: int, k: int,
                        require_all: bool = False):
     """Bucket-local retrieval. Returns (rank keys int32 [B, k], doc ids int32
     [B, k], hits int32 [B]); keys are quantized score sums (dequantize with
     the plan's per-query scale), and ``I32_MIN`` marks an empty slot. The
-    bucket count m is ``bounds.shape[2] - 1``."""
-    rank = bucket_rank(post_docs, post_impacts, toffs, bounds, wts, n_terms,
-                       tile=tile, bucket_bits=bucket_bits, require_all=require_all)
-    hits = (rank != int(I32_MIN)).sum(dim=-1, dtype=torch.int32)
-    top_keys, top_docs = topk_i32_lowest_index(rank, min(k, rank.shape[1]))
+    bucket count m is ``bounds.shape[2] - 1``. Every entry of a query's top
+    k is among its own row's top kk, so the top k of the rows' candidates
+    (``bucket_rank_topk``) is the top k of the dense rank keys, ties to
+    the lower doc; slots beyond the m * bucket_docs docs are (I32_MIN, 0)."""
+    cands, hits = bucket_rank_topk(post_docs, post_impacts, toffs, bounds, wts, n_terms,
+                                   tile=tile, bucket_bits=bucket_bits,
+                                   require_all=require_all, k=k)
+    top_keys, top_docs = top_lowest_index_keys(cands, min(k, cands.shape[1]))
     if top_keys.shape[1] < k:       # fewer docs than k: empty slots
         pad = k - top_keys.shape[1]
         top_keys = torch.nn.functional.pad(top_keys, (0, pad), value=int(I32_MIN))

@@ -6,7 +6,8 @@ asc) contract. ``torch.topk`` promises no tie order, so the port takes every
 ``lax.top_k`` through ``topk_lowest_index``: a stable descending sort keeps
 equal values in index order. Over int32 keys ``topk_i32_lowest_index`` gets
 the same order from one ``torch.topk`` of unique int64 keys, without the
-full sort. Over f32, ``topk_f32_total_order`` ranks by the IEEE total
+full sort (``lowest_index_keys``, which also orders candidates that carry
+their own indices). Over f32, ``topk_f32_total_order`` ranks by the IEEE total
 order as ``lax.top_k`` does (+0.0 above -0.0), through the same int64
 keys; ``masked_top_k`` and ``masked_top_k_by_key`` (the reference's masked
 selections) are built on it.
@@ -28,18 +29,30 @@ def topk_lowest_index(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tens
     return vals[..., :k], idx[..., :k]
 
 
+def lowest_index_keys(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The unique int64 keys ``(x << 32) | (2^32 - 1 - idx)`` of int32
+    values ``x`` at indices ``idx`` (0 <= idx < 2^32, broadcast against
+    x): their order is (x desc, idx asc). Built in place, one int64 copy of
+    x beside x."""
+    return x.to(torch.int64, copy=True).mul_(1 << 32).add_(_LOW32 - idx)
+
+
+def top_lowest_index_keys(keys: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of ``lowest_index_keys`` along the last dim, split:
+    (int32 values, int64 indices), ordered (value desc, index asc)."""
+    top = torch.topk(keys, k, dim=-1).values
+    return (top >> 32).to(torch.int32), _LOW32 - (top & _LOW32)
+
+
 def topk_i32_lowest_index(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top k of int32 [B, N] keys with ties to the lower index, as
-    ``lax.top_k``: one ``torch.topk`` over the unique int64 keys
-    ``(x << 32) | (2^32 - 1 - index)``, built in place (one int64 copy of
-    x beside x). No host sync. Returns (int32 values, int64 indices)."""
+    ``lax.top_k``: one ``torch.topk`` over ``lowest_index_keys``. No host
+    sync. Returns (int32 values, int64 indices)."""
     N = x.shape[-1]
     if k > N or N > _LOW32:
         raise ValueError(f"k={k} must not exceed the width {N} (< 2^32)")
     idx = torch.arange(N, device=x.device, dtype=torch.int64)
-    composite = x.to(torch.int64, copy=True).mul_(1 << 32).add_(_LOW32 - idx)
-    top = torch.topk(composite, k, dim=-1).values
-    return (top >> 32).to(torch.int32), _LOW32 - (top & _LOW32)
+    return top_lowest_index_keys(lowest_index_keys(x, idx), k)
 
 
 def f32_order_keys(x: torch.Tensor) -> torch.Tensor:

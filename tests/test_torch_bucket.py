@@ -222,6 +222,114 @@ def test_bucket_search_topk_matches_reference(require_all):
     np.testing.assert_array_equal(scores, ms)
 
 
+def _dense_route(docs, imps, idx, plan, k, require_all):
+    """The dense route: ``bucket_rank_plain``'s [B, m * bucket_docs] keys,
+    their hit counts and ``topk_i32_lowest_index`` over them, padded past
+    the m * bucket_docs docs with (I32_MIN, 0)."""
+    rank = br.bucket_rank_plain(
+        *map(to_torch, (docs, imps, plan.term_offs, plan.bounds, plan.weights, plan.n_terms)),
+        tile=plan.tile, bucket_bits=idx.bucket_bits, require_all=require_all)
+    hits = (rank != I32_MIN).sum(dim=-1, dtype=torch.int32)
+    keys, pos = topk_i32_lowest_index(rank, min(k, rank.shape[1]))
+    pad = k - keys.shape[1]
+    keys = torch.nn.functional.pad(keys, (0, pad), value=I32_MIN)
+    pos = torch.nn.functional.pad(pos, (0, pad), value=0)
+    return keys.numpy(), pos.to(torch.int32).numpy(), hits.numpy(), rank.numpy()
+
+
+def _row_case(name):
+    """(docs, imps, BucketIndex, plan, k, require_all) of one case of
+    ``test_bucket_search_topk_by_row_candidates``."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    cap, bd, k, T, require_all = 4096, 256, 100, 4, False
+    V, D, max_df, nq, nterms = 30, 4000, 900, 3, 3
+    if name == "ties_across_buckets":
+        max_df = 2000
+    elif name == "rows_under_k":           # 16 rows of 10-60 hits, > k a query
+        max_df = 250
+    elif name == "total_under_k":
+        max_df, k = 12, 100
+    elif name == "require_all":
+        require_all, bd, max_df = True, 1024, 3999
+    elif name == "k_1":
+        k = 1
+    elif name == "k_at_least_bucket_docs":
+        bd, k = 64, 100
+    elif name == "k_past_every_doc":       # m * bucket_docs = 128 docs < k
+        cap, bd, k, D, max_df = 128, 64, 200, 128, 60
+    elif name == "bucket_bits_2":
+        cap, bd, k, D, max_df = 256, 4, 10, 256, 80
+    elif name == "bucket_bits_15":
+        cap, bd, D, max_df = 65536, 32768, 60000, 6000
+    elif name == "t_16":
+        T, nterms = 16, 16
+    docs, imps, offs, lens = _corpus(rng, V, D, max_df=max_df, delete_frac=0.1)
+    if name == "ties_across_buckets":    # every posting adds the same quantum
+        imps[imps > 0] = 0.5
+    idx = br.BucketIndex.build(docs, imps, offs, lens, capacity=cap, bucket_docs=bd)
+    weight = (lambda: 1.0) if name == "ties_across_buckets" else (
+        lambda: float(rng.uniform(0.5, 2.5)))
+    queries = [[(int(t), weight()) for t in rng.choice(V, size=nterms, replace=False)]
+               for _ in range(nq)]
+    if name == "require_all":  # the densest terms, so that AND rows pass k
+        top = [int(t) for t in np.argsort(-lens)[:5]]
+        queries = [[(top[0], weight()), (top[1], weight())],
+                   [(top[0], weight()), (top[2], weight())],
+                   [(top[1], weight()), (top[3], weight()), (top[4], weight())]]
+    if name == "no_hits":      # an empty query, and terms whose postings are all deleted
+        dead = [int(np.argmin(lens)), int(np.argsort(lens)[1])]
+        for t in dead:
+            imps[offs[t]: offs[t] + lens[t]] = 0.0
+        idx = br.BucketIndex.build(docs, imps, offs, lens, capacity=cap, bucket_docs=bd)
+        queries = [[], [(t, 1.0) for t in dead]]
+    plan = br.plan_bucket_batch(idx, queries, offs, max_terms=T)
+    return docs, imps, idx, plan, k, require_all
+
+
+ROW_CASES = ["ties_across_buckets", "rows_under_k", "total_under_k", "no_hits",
+             "require_all", "k_1", "k_at_least_bucket_docs", "k_past_every_doc",
+             "bucket_bits_2", "bucket_bits_15", "t_16"]
+
+
+@pytest.mark.parametrize("name", ROW_CASES)
+def test_bucket_search_topk_by_row_candidates(name):
+    """``bucket_search_topk`` on CPU tensors (``bucket_rank_topk_plain``:
+    each (query, bucket) row's top min(k, bucket_docs), then one top k over
+    the candidates) == the dense route bit for bit, keys, docs and hits,
+    the docs of empty slots included; keys and hits == the reference's
+    interpret-mode ``bucket_search_topk``, docs at every filled slot (its
+    empty slots hold other positions) where its shapes allow."""
+    docs, imps, idx, plan, k, require_all = _row_case(name)
+    wk, wd, wh, rank = _dense_route(docs, imps, idx, plan, k, require_all)
+    bd, B = 1 << idx.bucket_bits, len(plan.n_terms)
+    row_hits = (rank != I32_MIN).reshape(B, idx.n_buckets, bd).sum(axis=2)
+    if name == "ties_across_buckets":    # the k-th key shared by docs of several buckets
+        assert any(len(set(wd[q][wk[q] == wk[q, -1]] >> idx.bucket_bits)) > 1
+                   for q in range(B))
+    if name == "rows_under_k":
+        assert (row_hits.max(axis=1) < k).all() and (wh > k).all()
+    if name in ("total_under_k", "k_past_every_doc"):
+        assert (wh < k).all() and (wk == I32_MIN).any()
+    if name == "no_hits":
+        assert (wh == 0).all()
+    if name in ("require_all", "k_1", "bucket_bits_15", "t_16"):
+        assert (row_hits > min(k, bd)).any()
+    args = (docs, imps, plan.term_offs, plan.bounds, plan.weights, plan.n_terms)
+    pk, pd, ph = (x.numpy() for x in br.bucket_search_topk(
+        *map(to_torch, args), tile=plan.tile, bucket_bits=idx.bucket_bits, k=k,
+        require_all=require_all))
+    np.testing.assert_array_equal(pk, wk)
+    np.testing.assert_array_equal(pd, wd)
+    np.testing.assert_array_equal(ph, wh)
+    if name == "k_past_every_doc":      # the reference's top k needs k <= its width
+        return
+    (rk, rd, rh), _ = _both_topk(docs, imps, idx, plan, k, require_all)
+    np.testing.assert_array_equal(pk, rk)
+    np.testing.assert_array_equal(ph, rh)
+    filled = rk != I32_MIN
+    np.testing.assert_array_equal(pd[filled], rd[filled])
+
+
 def test_tie_break_lowest_doc_id():
     """Equal quantized scores rank by ascending doc id (the case of
     tests/test_bucket_retrieval.py::test_tie_break_lowest_doc_id), across a

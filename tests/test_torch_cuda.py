@@ -684,11 +684,80 @@ def test_bucket_search_topk_cuda_equals_cpu(cuda_device):
         kernels.reset_launch_counts()
         g = br.bucket_search_topk(*[t.to(cuda_device) for t in tabs],
                                   n_terms.to(cuda_device), **kw)
-        assert kernels.LAUNCHES["bucket_rank"] == 1
+        assert kernels.LAUNCHES["bucket_rank_topk"] == 1
         c = br.bucket_search_topk(*tabs, n_terms, **kw)
         for a, b in zip(g, c):
             assert torch.equal(a.cpu(), b)
         assert int(c[2][0]) > 100 and int(c[2][2]) == 0
+
+
+def _sorted_rows(cands, kk):
+    """Each (query, bucket) row's kk candidates in descending order."""
+    rows = torch.sort(cands.cpu().reshape(-1, kk), dim=-1, descending=True).values
+    return rows.reshape(cands.shape)
+
+
+@pytest.mark.parametrize("B,T,m,bits,density,shift", BUCKET_SHAPES)
+@pytest.mark.parametrize("require_all", [False, True])
+@pytest.mark.parametrize("k", [1, 100, 40000])
+def test_bucket_rank_topk_kernel_equals_plain(cuda_device, B, T, m, bits, density, shift,
+                                              require_all, k):
+    """The fused entry's candidates (each row's top min(k, bucket_docs), in
+    no order within the row) equal the plain version's as sets, its hits
+    equal, and the dense entry does not launch; k = 40000 passes every
+    bucket size."""
+    tabs, tile = _bucket_inputs(B * T + bits + shift, B, T, m, bits, density, shift)
+    n_terms = torch.from_numpy(np.arange(B, dtype=np.int32) % T + 1)
+    kernels.reset_launch_counts()
+    cands, hits = kernels.bucket_rank_topk(*[t.to(cuda_device) for t in tabs],
+                                           n_terms.to(cuda_device), bits, require_all, k)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bucket_rank_topk"] == 1 and kernels.LAUNCHES["bucket_rank"] == 0
+    ref_c, ref_h = br.bucket_rank_topk_plain(*tabs, n_terms, tile=tile, bucket_bits=bits,
+                                             require_all=require_all, k=k)
+    assert cands.shape == ref_c.shape == (B, m * min(k, 1 << bits))
+    assert torch.equal(_sorted_rows(cands, min(k, 1 << bits)), ref_c)
+    assert torch.equal(hits.cpu(), ref_h)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("require_all", [False, True])
+def test_bucket_search_topk_at_the_cell_shape(cuda_device, ties, require_all):
+    """At the bucket cell's shape (B = 32, T = 4, m = 1024 buckets of 2^14
+    docs, k = 100): ``bucket_search_topk`` (the fused entry and its final
+    top k) equals the dense route, the dense kernel's keys through
+    ``topk_i32_lowest_index``, bit for bit (keys, docs, hits), on drawn
+    scores and on a tie-heavy batch; the fused candidates equal the plain
+    version's; some rows prune and some pass whole."""
+    from torch_bucket_data import CELL, bucket_tables
+
+    from nrtsearch_tpu_torch.ops.topk import topk_i32_lowest_index
+
+    tabs, n_terms, tile = bucket_tables(cuda_device, 19 + ties + 2 * require_all, ties=ties)
+    bits, k, kk = CELL["bits"], 100, 100
+    if require_all:   # 1 to T required terms, so that some rows still prune
+        need = torch.arange(len(n_terms), device=cuda_device, dtype=torch.int32) // 2
+        n_terms = torch.minimum(n_terms, need % CELL["T"] + 1)
+    kernels.reset_launch_counts()
+    keys, docs, hits = br.bucket_search_topk(*tabs, n_terms, tile=tile, bucket_bits=bits,
+                                             k=k, require_all=require_all)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bucket_rank_topk"] == 1 and kernels.LAUNCHES["bucket_rank"] == 0
+    rank = kernels.bucket_rank(*tabs, n_terms, bits, require_all)
+    want_k, want_d = topk_i32_lowest_index(rank, k)
+    assert torch.equal(keys, want_k) and torch.equal(docs, want_d.to(torch.int32))
+    row_hits = (rank != int(br.I32_MIN)).reshape(CELL["B"] * CELL["m"], -1).sum(dim=1)
+    assert torch.equal(hits, row_hits.reshape(CELL["B"], -1).sum(dim=1, dtype=torch.int32))
+    assert bool((row_hits > kk).any()) and bool(((row_hits > 0) & (row_hits <= kk)).any())
+    del rank
+    cands, _ = kernels.bucket_rank_topk(*tabs, n_terms, bits, require_all, k)
+    ref_c, ref_h = br.bucket_rank_topk_plain(*tabs, n_terms, tile=tile, bucket_bits=bits,
+                                             require_all=require_all, k=k)
+    assert torch.equal(_sorted_rows(cands, kk), ref_c.cpu()) and torch.equal(hits, ref_h)
+    if ties:          # some query's k-th key is shared by docs of several buckets
+        tied = (keys == keys[:, -1:]) & (keys != int(br.I32_MIN))
+        spread = [len(set((docs[q][tied[q]] >> bits).tolist())) for q in range(len(keys))]
+        assert max(spread) > 1
 
 
 def test_bucket_wrappers_refuse_bad_inputs(cuda_device):
@@ -712,6 +781,10 @@ def test_bucket_wrappers_refuse_bad_inputs(cuda_device):
         kernels.bucket_rank(docs[1:], imps[1:], toffs, bounds, wts, n_terms, 10, False)
     with pytest.raises(ValueError):
         kernels.bucket_rank(docs, imps, toffs, bounds, wts, n_terms.cpu(), 10, False)
+    with pytest.raises(ValueError):                                  # k >= 1
+        kernels.bucket_rank_topk(docs, imps, toffs, bounds, wts, n_terms, 10, False, 0)
+    with pytest.raises(TypeError):
+        kernels.bucket_rank_topk(docs, imps, toffs.long(), bounds, wts, n_terms, 10, False, 5)
 
 
 # ---------------------------------------------------------------------------
@@ -1559,7 +1632,7 @@ def test_standalone_bucket_search_on_card(cuda_device):
         kernels.reset_launch_counts()
         keys, top_docs, hits = br.bucket_search_topk(
             *dev, tile=plan.tile, bucket_bits=idx.bucket_bits, k=100, require_all=require_all)
-        assert kernels.LAUNCHES["bucket_rank"] == 1
+        assert kernels.LAUNCHES["bucket_rank_topk"] == 1
         s, d = br.decode_topk(keys.cpu().numpy(), top_docs.cpu().numpy(), plan.scales)
         ws, wd, wh = br.reference_bucket_search(docs, imps, idx, plan, 100,
                                                 require_all=require_all)
@@ -1625,7 +1698,7 @@ def test_flagship_bucket_and_dense_tail_on_card_equal_cpu(flagship_pair):
     plan = card.plan_bucket(qs)
     kernels.reset_launch_counts()
     got = [x.cpu() for x in card.serve_bucket_batch(plan, 50)]
-    assert kernels.LAUNCHES["bucket_rank"] == 1
+    assert kernels.LAUNCHES["bucket_rank_topk"] == 1
     want = cpu.serve_bucket_batch(plan, 50)
     filled = got[0] != int(br.I32_MIN)
     assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
