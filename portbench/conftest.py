@@ -1,14 +1,21 @@
-"""Shared fixtures of the benchmark's own tests: a CPU device and the cells
-cut to a size a CPU test can hold (the harness's ``overrides``)."""
+"""Shared fixtures of the benchmark's own tests: a CPU device, the cells of
+``BENCHMARK.json``, and each cell cut to a size a CPU test can hold (the
+harness's ``overrides``, its kind's ``TINY``)."""
+
+import json
 
 import pytest
 import torch
 
-TINY = {
-    "config": {"corpus": {"num_docs": 20000, "vocab_size": 2000}},
-    "traffic": {"max_batches": 4096, "warmup_batches": 1, "check": {"sample": 96}},
-}
-CELLS = ("node-8m.text-b32", "batch-8m.search-b32", "batch-8m.bucket-b32")
+from portbench import harness, kinds
+
+CELLS = tuple(w["name"] for w in json.loads(
+    (harness.ROOT / "BENCHMARK.json").read_text())["workloads"])
+
+
+def tiny_overrides(cell: str) -> dict:
+    """The overrides that cut ``cell`` to a CPU test's size."""
+    return kinds.load(harness.load_cell(cell)[2]["kind"]).TINY
 
 
 @pytest.fixture
@@ -18,7 +25,7 @@ def cpu():
 
 @pytest.fixture
 def tiny():
-    return TINY
+    return tiny_overrides
 
 
 @pytest.fixture

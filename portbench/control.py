@@ -4,14 +4,16 @@ judged by the same check. It has to come out as not correct.
 
     python3 -m portbench.control --workload <name> --seeds 11,12,13
 
-For each seed it draws the cell's corpus and the batches a run would
-send, answers as many queries as a run's check compares with the control
-(the traffic's ``check.control``: ``{"dtype": "bfloat16"}`` computes the
-impacts, products and sums in bf16, for the f32 merge path;
+For each seed it draws the cell's data and the batches a run would send,
+answers as many queries as a run's check compares with the control (the
+configuration's kind's ``Reference`` built with the traffic's
+``check.control``; for BM25, ``{"dtype": "bfloat16"}`` computes the
+impacts, products and sums in bf16, for the f32 merge path, and
 ``{"qmax": 127}`` quantizes each contribution to 7 bits, int8's range,
-for the bucket path's 15-bit contract) and prints the check's numbers
-beside the cell's limits, one JSON line per seed. The benchmark's own
-runs never run it.
+for the bucket path's 15-bit contract), checks them with the kind's
+check against its exact reference and prints the numbers beside the
+cell's limits, one JSON line per seed. The benchmark's own runs never
+run it.
 """
 
 from __future__ import annotations
@@ -24,27 +26,22 @@ import numpy as np
 
 
 def control_numbers(workload: str, seed: int, device, overrides: dict | None = None) -> dict:
-    import torch
-
-    from portbench import compare, generate
+    from portbench import compare, kinds
     from portbench.harness import _merge, load_cell
-    from portbench.reference import Reference
 
     _bench, _cell, cfg, traffic = load_cell(workload)
     overrides = overrides or {}
     cfg = _merge(cfg, overrides.get("config", {}))
     traffic = _merge(traffic, overrides.get("traffic", {}))
+    kind = kinds.load(cfg["kind"])
     chk = traffic["check"]
     B, k = int(traffic["batch"]), int(traffic["k"])
     n_batches = -(-int(chk["sample"]) // B)
-    corpus = generate.make_corpus(cfg, seed, device)
-    stream = generate.QueryStream(cfg, traffic, seed, "queries", n_batches, device)
+    data = kind.make_data(cfg, seed, device)[0]
+    stream = kind.QueryStream(cfg, traffic, seed, "queries", n_batches, device)
     queries = np.concatenate([stream.batch(i) for i in range(n_batches)])
-    bm = cfg["bm25"]
-    args = dict(k1=float(bm["k1"]), b=float(bm["b"]), quantized_norms=bool(bm["quantized_norms"]))
     ctl = chk["control"]
-    low = Reference(corpus, **args, dtype=getattr(torch, ctl.get("dtype", "float64")),
-                    qmax=int(ctl.get("qmax", 0)))
+    low = kind.Reference(data, cfg, ctl)
     answers = []
     for lo in range(0, len(queries), compare.BLOCK):
         dense, matched = low.dense(queries[lo:lo + compare.BLOCK])
@@ -52,8 +49,8 @@ def control_numbers(workload: str, seed: int, device, overrides: dict | None = N
         answers.append((s.astype(np.float32), d, h))
         del dense, matched
     prog = tuple(np.concatenate([a[i] for a in answers]) for i in range(3))
-    ref = Reference(corpus, **args)
-    numbers = compare.check(ref, queries, prog, k, chk["mode"])
+    ref = kind.Reference(data, cfg)
+    numbers = kind.check(ref, queries, prog, k, chk)
     return {"seed": seed, "control": ctl, "numbers": numbers, "limits": chk["limits"],
             "correct": compare.verdict(numbers, chk["limits"])}
 

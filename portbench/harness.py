@@ -4,17 +4,19 @@
 
 The cell names a configuration and a traffic mix; each has a file of its
 own (``BENCHMARK.json`` names the configuration's; the traffic's is
-``portbench/traffic/<traffic>.json``). The configuration's ``engine`` key
-picks the engine that runs the program (``portbench/engines/<engine>.py``); every
-metric has a reader of its own (``portbench/metrics/<name>.py``). Nothing
-here changes for a new cell, traffic or metric.
+``portbench/traffic/<traffic>.json``). The configuration's ``kind`` key
+picks what its data, queries, reference and check are
+(``portbench/kinds/<kind>.py``), its ``engine`` key the engine that runs
+the program (``portbench/engines/<engine>.py``); every metric has a
+reader of its own (``portbench/metrics/<name>.py``). Nothing here changes
+for a new cell, configuration, kind, traffic or metric.
 
-A run: the corpus and the batches are drawn on the card from the seed;
+A run: the data and the batches are drawn on the card from the seed;
 the engine builds the program's index; the traffic's warm-up batches run;
 then the window, a closed loop with one batch in flight, for ``--seconds``
 (under ``torch.profiler`` with ``--trace 1``). After the window the
-program's state is freed and the plain reference checks a sample of the
-window's answers (``compare.py``). Standard error ends with each number
+program's state is freed and the kind's plain reference checks a sample
+of the window's answers. Standard error ends with each number
 compared beside its limit; the last line of standard output is the
 result, whose last key ``check`` repeats them.
 """
@@ -52,6 +54,9 @@ def load_cell(workload: str) -> tuple[dict, dict, dict, dict]:
     cell = cells[workload]
     conf = next(c for c in bench["configs"] if c["name"] == cell["config"])
     cfg = json.loads((ROOT / conf["file"]).read_text())
+    if "kind" not in cfg:
+        raise ValueError(f"{conf['file']}: a configuration names its kind "
+                         "(portbench/kinds/<kind>.py) under 'kind'")
     traffic = json.loads((ROOT / "portbench" / "traffic" / f"{cell['traffic']}.json").read_text())
     return bench, cell, cfg, traffic
 
@@ -81,7 +86,8 @@ class Run:
 
     batch: int
     k: int
-    df: object
+    kind: object = None   # the configuration's kind module (its ``least_bytes``)
+    data: object = None   # the kind's data the engine was given
     setup_s: float = 0.0
     window_s: float = 0.0
     queries_done: int = 0
@@ -246,8 +252,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
     import numpy as np
     import torch
 
-    from portbench import compare, engines, generate, metrics
-    from portbench.reference import Reference
+    from portbench import compare, engines, kinds, metrics
 
     bench, cell, cfg, traffic = load_cell(workload)
     overrides = overrides or {}
@@ -255,13 +260,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
     traffic = _merge(traffic, overrides.get("traffic", {}))
     wanted = cell_metrics(bench, cell, trace)
     readers = {m["name"]: metrics.load(m["name"]) for m in wanted}
+    kind = kinds.load(cfg["kind"])
 
     split = {}
     t = time.perf_counter()
-    corpus = generate.make_corpus(cfg, seed, device)
-    columns = generate.make_columns(cfg, seed, device)
-    stream = generate.QueryStream(cfg, traffic, seed, "queries", int(traffic["max_batches"]), device)
-    warm = generate.QueryStream(cfg, traffic, seed, "warmup", int(traffic["warmup_batches"]), device)
+    data, columns = kind.make_data(cfg, seed, device)
+    stream = kind.QueryStream(cfg, traffic, seed, "queries", int(traffic["max_batches"]), device)
+    warm = kind.QueryStream(cfg, traffic, seed, "warmup", int(traffic["warmup_batches"]), device)
     sync(device)
     split["generate"] = time.perf_counter() - t
     if device.type == "cuda":
@@ -270,7 +275,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
         t = time.perf_counter()
         kernels.build()
         split["build"] = time.perf_counter() - t
-    engine = engines.load(cfg["engine"]).Engine(cfg, traffic, corpus, columns, device)
+    engine = engines.load(cfg["engine"]).Engine(cfg, traffic, data, columns, device)
     split.update(engine.setup_split)
     t = time.perf_counter()
     for j in range(len(warm)):
@@ -279,7 +284,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
     split["warmup"] = time.perf_counter() - t
     del columns
 
-    run = Run(batch=int(traffic["batch"]), k=int(traffic["k"]), df=corpus.term_lengths)
+    run = Run(batch=int(traffic["batch"]), k=int(traffic["k"]), kind=kind, data=data)
     run.setup_s = time.perf_counter() - T_START
     log(f"setup: {run.setup_s:.3f} s; " + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()))
     if device.type == "cuda":
@@ -323,10 +328,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
         torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    ref = Reference(corpus, k1=float(cfg["bm25"]["k1"]), b=float(cfg["bm25"]["b"]),
-                    quantized_norms=bool(cfg["bm25"]["quantized_norms"]))
-    numbers = compare.check(ref, np.concatenate(qs), (np.concatenate(ps), np.concatenate(pd),
-                                                      np.concatenate(ph)), K, chk["mode"])
+    ref = kind.Reference(data, cfg)
+    numbers = kind.check(ref, np.concatenate(qs), (np.concatenate(ps), np.concatenate(pd),
+                                                   np.concatenate(ph)), K, chk)
     numbers["failed_queries"] = failed
     limits = {**chk["limits"], "failed_queries": 0}
     log(f"check: {len(pos)} queries against the reference in {time.perf_counter() - t:.3f} s; "

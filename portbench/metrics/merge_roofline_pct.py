@@ -1,6 +1,6 @@
 """The merge path's share of its roofline, in %: the least time the
 window's batches need at the card's memory bandwidth
-(``peaks.least_bytes``) over the device time of every kernel launched
+(the kind's ``least_bytes``) over the device time of every kernel launched
 inside the benchmark's ranges around the calls into ``merge_score_topk``."""
 
 from portbench.peaks import least_seconds
@@ -17,4 +17,4 @@ def read(run):
     s = run.summary
     if s is None or not run.batches or s.layer_s.get(LAYER, 0.0) <= 0.0:
         return None
-    return 100.0 * least_seconds(run.batches, run.df, run.k) / s.layer_s[LAYER]
+    return 100.0 * least_seconds(run) / s.layer_s[LAYER]

@@ -7,27 +7,35 @@ import numpy as np
 import pytest
 
 from portbench import peaks, trace
+from portbench.kinds import bm25
 from portbench.metrics import bucket_roofline_pct, device_idle_pct, merge_roofline_pct
 from portbench.trace import Ev
 
 
+def _run(df, batches, k, **kw):
+    """A run of the bm25 kind over a corpus whose terms have ``df`` entries."""
+    return SimpleNamespace(kind=bm25, data=SimpleNamespace(term_lengths=df), batches=batches,
+                           k=k, **kw)
+
+
 def test_least_bytes_by_hand():
     df = np.array([1000, 10, 7, 0])
+    data = SimpleNamespace(term_lengths=df)
     # 2 queries, k = 5: terms {0, 1} and {0, 0}: term 0 read once for the batch
     batch = np.array([[0, 1], [0, 0]])
-    assert peaks.least_bytes(batch, df, 5) == (1000 + 10) * 8 + 2 * (5 * 8 + 4)
-    assert peaks.least_bytes(np.array([[3, 3]]), df, 1) == 12
-    assert peaks.least_seconds([batch, batch], df, 5) == pytest.approx(
-        2 * peaks.least_bytes(batch, df, 5) / peaks.HBM_BYTES_PER_S)
+    assert bm25.least_bytes(data, batch, 5) == (1000 + 10) * 8 + 2 * (5 * 8 + 4)
+    assert bm25.least_bytes(data, np.array([[3, 3]]), 1) == 12
+    assert peaks.least_seconds(_run(df, [batch, batch], 5)) == pytest.approx(
+        2 * bm25.least_bytes(data, batch, 5) / peaks.HBM_BYTES_PER_S)
 
 
 @pytest.mark.parametrize("mod", [merge_roofline_pct, bucket_roofline_pct])
 def test_roofline_share_by_hand(mod):
     df = np.array([1000, 10])
     batch = np.array([[0, 1]])
-    least = peaks.least_bytes(batch, df, 5) / peaks.HBM_BYTES_PER_S
+    least = bm25.least_bytes(SimpleNamespace(term_lengths=df), batch, 5) / peaks.HBM_BYTES_PER_S
     summary = trace.Summary(window_s=1.0, busy_s=0.5, layer_s={mod.LAYER: 4 * least})
-    run = SimpleNamespace(summary=summary, batches=[batch, batch], df=df, k=5)
+    run = _run(df, [batch, batch], 5, summary=summary)
     assert mod.read(run) == pytest.approx(50.0)
     assert device_idle_pct.read(run) == pytest.approx(50.0)
     # no time in the layer: the reader finds nothing (and the harness fails the run)

@@ -14,7 +14,7 @@ pytestmark = pytest.mark.cuda
 @pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("traced", [False, True])
 def test_cell_on_the_card(cell, traced, card, tiny):
-    result, lines = harness.run_cell(cell, 2**31 + 99, 1.0, traced, card, tiny)
+    result, lines = harness.run_cell(cell, 2**31 + 99, 1.0, traced, card, tiny(cell))
     assert result["correct"], lines
     assert result["device"]["platform"] == "gpu"
     if traced:
@@ -26,4 +26,4 @@ def test_cell_on_the_card(cell, traced, card, tiny):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_on_the_card(cell, card, tiny):
-    assert control_numbers(cell, 5, card, tiny)["correct"] is False
+    assert control_numbers(cell, 5, card, tiny(cell))["correct"] is False

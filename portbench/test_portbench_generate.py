@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from portbench import generate
-from portbench.conftest import TINY
+from portbench.kinds.bm25 import TINY
 from portbench.harness import _merge, load_cell
 
 CFG = _merge(load_cell("node-8m.text-b32")[2], TINY["config"])

@@ -28,10 +28,10 @@ def test_a_run_loads_no_jax_and_no_jax_package():
     tops = _fresh(
         "import json, sys, torch\n"
         "from portbench import harness\n"
-        "from portbench.conftest import TINY\n"
+        "from portbench.conftest import tiny_overrides\n"
         "for cell in ('node-8m.text-b32', 'batch-8m.search-b32', 'batch-8m.bucket-b32'):\n"
         "    r, _ = harness.run_cell(cell, 3, 0.2, cell.endswith('search-b32'),\n"
-        "                            torch.device('cpu'), TINY)\n"
+        "                            torch.device('cpu'), tiny_overrides(cell))\n"
         "    assert r['correct'], r\n"
         "print(json.dumps(sorted({m.split('.', 1)[0] for m in sys.modules})))\n")
     assert "nrtsearch_tpu_torch" in tops
@@ -40,6 +40,7 @@ def test_a_run_loads_no_jax_and_no_jax_package():
 
 @pytest.mark.parametrize("module", ["portbench.reference", "portbench.compare",
                                     "portbench.generate", "portbench.control",
+                                    "portbench.kinds.bm25",
                                     "portbench.trace", "portbench.metrics.merge_roofline_pct"])
 def test_the_yardstick_loads_nothing_of_the_program(module):
     tops = _fresh(f"import json, sys, {module}\n"

@@ -8,9 +8,10 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import compare, smallfloat
+from portbench import smallfloat
 from portbench.generate import Corpus
 from portbench.harness import run_cell
+from portbench.kinds import bm25
 from portbench.reference import Reference
 
 
@@ -68,6 +69,17 @@ def test_quantum_and_coarse_control():
     assert np.all(np.abs(dense[0].numpy() - exact[0].numpy()) <= 3 * unit)
 
 
+def test_the_kind_builds_the_configured_reference():
+    cfg = {"bm25": {"k1": 1.2, "b": 0.75, "quantized_norms": False}}
+    q = np.array([[0, 1], [2, 2]])
+    want, _ = Reference(_hand_corpus(), k1=1.2, b=0.75, quantized_norms=False).dense(q)
+    got, _ = bm25.Reference(_hand_corpus(), cfg).dense(q)
+    assert torch.equal(got, want)
+    # the traffic's control: a lower precision, or the quantized algorithm
+    assert bm25.Reference(_hand_corpus(), cfg, {"dtype": "bfloat16"}).dtype == torch.bfloat16
+    assert bm25.Reference(_hand_corpus(), cfg, {"qmax": 127}).qmax == 127
+
+
 def test_smallfloat_copy_matches_the_program():
     from nrtsearch_tpu_torch.utils.smallfloat import quantize_length
 
@@ -78,7 +90,7 @@ def test_smallfloat_copy_matches_the_program():
 @pytest.mark.parametrize("cell", ["node-8m.text-b32", "batch-8m.search-b32",
                                   "batch-8m.bucket-b32"])
 def test_program_agrees_with_the_reference(cell, cpu, tiny):
-    result, lines = run_cell(cell, 77, 0.5, False, cpu, tiny)
+    result, lines = run_cell(cell, 77, 0.5, False, cpu, tiny(cell))
     assert result["correct"], lines
     gap = result["check"].get("score_gap", result["check"].get("quanta_gap"))
     # exact f32 against f64 (merge), or within the quantization (bucket)
@@ -108,23 +120,26 @@ def test_node_segments_hold_only_their_terms(cpu):
         assert np.array_equal(seg["doc_ids"][off:off + ln], want)
 
 
+REL = {"mode": "relative"}
+
+
 def test_check_reads_each_fault():
     ref = Reference(_hand_corpus(), k1=1.2, b=0.75, quantized_norms=False)
     q = np.array([[0, 1]])
     dense, matched = ref.dense(q)
     s, d, h = ref.topk(dense, matched, 3)
     good = (s.astype(np.float32), d, h)
-    assert compare.check(ref, q, good, 3, "relative") == {
+    assert bm25.check(ref, q, good, 3, REL) == {
         "score_gap": pytest.approx(0, abs=1e-7), "hits_wrong": 0, "short_lists": 0,
         "order_faults": 0}
     swapped = (good[0], d[:, [1, 0, 2]], h)
-    assert compare.check(ref, q, swapped, 3, "relative")["score_gap"] > 1e-3
+    assert bm25.check(ref, q, swapped, 3, REL)["score_gap"] > 1e-3
     unsorted = (good[0][:, [1, 0, 2]], d[:, [1, 0, 2]], h)
-    assert compare.check(ref, q, unsorted, 3, "relative")["order_faults"] > 0
+    assert bm25.check(ref, q, unsorted, 3, REL)["order_faults"] > 0
     repeated = (good[0], d[:, [0, 0, 2]], h)
-    assert compare.check(ref, q, repeated, 3, "relative")["order_faults"] > 0
-    assert compare.check(ref, q, (good[0], good[1], h + 1), 3, "relative")["hits_wrong"] == 1
+    assert bm25.check(ref, q, repeated, 3, REL)["order_faults"] > 0
+    assert bm25.check(ref, q, (good[0], good[1], h + 1), 3, REL)["hits_wrong"] == 1
     short = (np.where(np.arange(3) < 2, good[0], -np.inf).astype(np.float32), d, h)
-    assert compare.check(ref, q, short, 3, "relative")["short_lists"] == 1
+    assert bm25.check(ref, q, short, 3, REL)["short_lists"] == 1
     off = (good[0] * np.float32(1.001), d, h)
-    assert compare.check(ref, q, off, 3, "relative")["score_gap"] > 5e-4
+    assert bm25.check(ref, q, off, 3, REL)["score_gap"] > 5e-4

@@ -8,7 +8,7 @@ import sys
 
 import pytest
 
-from portbench import harness, metrics
+from portbench import harness, kinds, metrics
 from portbench.conftest import CELLS
 
 ROOT = harness.ROOT
@@ -32,6 +32,10 @@ def test_benchmark_file_keeps_the_contract():
         assert c["file"].startswith("portbench/") and (ROOT / c["file"]).is_file()
         cfg = json.loads((ROOT / c["file"]).read_text())
         assert sorted(c["reduced"]) == sorted(cfg["reduced"])
+        # the kind the configuration names defines what the harness reaches through it
+        kind = kinds.load(cfg["kind"])
+        for attr in ("make_data", "QueryStream", "Reference", "check", "least_bytes", "TINY"):
+            assert hasattr(kind, attr), (cfg["kind"], attr)
     e2e = {m["name"]: m for m in b["end_to_end"]}
     assert e2e["setup_s"]["bound"] <= 0.25
     for m in b["end_to_end"]:
@@ -48,11 +52,12 @@ def test_benchmark_file_keeps_the_contract():
         # every cell a per-layer metric lists reports the end-to-end metric it moves
         moved = e2e[m["moves"]].get("workloads")
         assert moved is None or set(m["workloads"]) <= set(moved), m["name"]
-    assert layers <= {"device", "merge path", "bucket path", "top-k", "host planning"}
+    for layer in layers:
+        assert isinstance(layer, str) and 1 <= len(layer) <= 32 and layer.isprintable(), layer
     pairs = set()
     for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"} and NAME.match(w["name"])
-        assert w["config"] in configs and w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["config"] in configs and w["chips"] in (1, 4) and len(w["why"]) <= 200
         assert (ROOT / "portbench" / "traffic" / f"{w['traffic']}.json").is_file()
         assert (w["config"], w["traffic"]) not in pairs
         pairs.add((w["config"], w["traffic"]))
@@ -60,14 +65,15 @@ def test_benchmark_file_keeps_the_contract():
         names = {m["name"] for m in harness.cell_metrics(b, w, False)}
         assert "setup_s" in names and len(names) >= 2
         assert harness.cell_metrics(b, w, True)
-    assert [w["name"] for w in b["workloads"]] == list(CELLS)
+    assert {"node-8m.text-b32", "batch-8m.search-b32", "batch-8m.bucket-b32"} <= set(CELLS)
+    assert len(CELLS) == len(set(CELLS)) == len(b["workloads"])
 
 
 @pytest.mark.parametrize("traced", [False, True])
 def test_result_line_keys(cpu, tiny, traced):
     b = _bench()
     cell = "batch-8m.search-b32"
-    result, lines = harness.run_cell(cell, 2**31 + 5, 0.3, traced, cpu, tiny)
+    result, lines = harness.run_cell(cell, 2**31 + 5, 0.3, traced, cpu, tiny(cell))
     assert list(result)[:5] == ["correct", "attempted", "failed", "metrics", "device"]
     assert list(result)[-1] == "check"
     assert result["correct"] is True and result["failed"] == 0 and result["attempted"] > 0
@@ -93,7 +99,8 @@ def test_a_listed_metric_that_reads_nothing_fails_the_run(cpu, tiny, monkeypatch
 
     monkeypatch.setattr(plan_ms, "read", lambda run: None)
     with pytest.raises(RuntimeError, match="plan_ms"):
-        harness.run_cell("batch-8m.search-b32", 2**31 + 6, 0.3, True, cpu, tiny)
+        harness.run_cell("batch-8m.search-b32", 2**31 + 6, 0.3, True, cpu,
+                         tiny("batch-8m.search-b32"))
 
 
 def test_counters_are_the_readers_own(cpu, tiny, monkeypatch):
@@ -104,7 +111,8 @@ def test_counters_are_the_readers_own(cpu, tiny, monkeypatch):
     # the harness reads the reader's counter before and after the window
     calls = iter(range(0, 1000, 10))
     monkeypatch.setattr(host_syncs_per_batch, "counter", lambda: next(calls))
-    result, _ = harness.run_cell("batch-8m.search-b32", 2**31 + 7, 0.3, True, cpu, tiny)
+    result, _ = harness.run_cell("batch-8m.search-b32", 2**31 + 7, 0.3, True, cpu,
+                                 tiny("batch-8m.search-b32"))
     batches = result["attempted"] // 32
     assert result["metrics"]["host_syncs_per_batch.search"]["value"] == pytest.approx(10 / batches)
 
@@ -132,3 +140,20 @@ def test_no_card_no_result():
 def test_unknown_workload_fails():
     with pytest.raises(SystemExit):
         harness.load_cell("no-such.cell")
+
+
+def test_a_configuration_without_kind_fails_to_load(tmp_path, monkeypatch):
+    b = _bench()
+    (tmp_path / "portbench" / "traffic").mkdir(parents=True)
+    conf = b["configs"][0]
+    cfg = json.loads((ROOT / conf["file"]).read_text())
+    del cfg["kind"]
+    (tmp_path / "portbench" / "configs").mkdir()
+    (tmp_path / conf["file"]).write_text(json.dumps(cfg))
+    cell = next(w for w in b["workloads"] if w["config"] == conf["name"])
+    traffic = f"portbench/traffic/{cell['traffic']}.json"
+    (tmp_path / traffic).write_text((ROOT / traffic).read_text())
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
+    monkeypatch.setattr(harness, "ROOT", tmp_path)
+    with pytest.raises(ValueError, match="kind"):
+        harness.load_cell(cell["name"])

@@ -19,7 +19,7 @@ ALL_SPANS = ["plan", "plan.terms", "plan.runs", "fused", "results", "sync", "rea
 
 
 def _run(counters: dict, batches: int = 4, busy_s: float = 1.0, layer_s=None):
-    run = harness.Run(batch=32, k=100, df=None)
+    run = harness.Run(batch=32, k=100)
     run.batches = [None] * batches
     run.counters = counters
     run.summary = Summary(window_s=2.0, busy_s=busy_s, layer_s=layer_s or {})
