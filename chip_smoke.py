@@ -207,7 +207,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the seed) doc for doc beside phase 4's text and columns, in the same 4
    segments, as three fields: vec (f32, l2_norm), vec_bf16 (bf16, cosine)
    and vec_i8 (int8, dot_product), built with convert.segment_from_numpy;
-   the commit also opened on the CPU (the plain runs). Ops: knn_search and
+   the commit also opened on the CPU (the plain runs). First the kNN
+   kernel knn_topk at one segment of the vec cell (1,105,228 x 768 f32, B
+   = 32 and 1, k = 100) against an f64 reference, timed beside its bound,
+   the plain version and torch.mm + masked_top_k; the engine's searches of
+   the f32 field must launch it once a segment. Ops: knn_search and
    knn_search_quantized on one 250,000-doc segment (its vector column's
    250,000 rows under the segment's [262,144] mask) for the 5 similarities
    and 3 formats at B=1, k=100, against the CPU run of the same inputs
@@ -381,11 +385,18 @@ KERNEL_SOURCES = {
                          "nrtsearch_tpu/ops/bucket_retrieval.py:293 (gather_pack_pallas); "
                          "nrtsearch_tpu/ops/bucket_retrieval.py:418 (sort_finish_pallas) "
                          "and _hierarchical_topk_i32 over its keys"),
+    # replaces no TPU kernel: the reference leaves the kNN products and top
+    # k to XLA
+    "knn_topk": ("nrtsearch_tpu_torch/csrc/knn_topk.cu",
+                 "none: nrtsearch_tpu/ops/knn.py _scores (lax.dot_general) and "
+                 "masked_top_k (lax.top_k), left to XLA"),
 }
 # the kernel of phase 8's bucket path; phase 5 drives the others but these
 # and the dense entry, which only the dense tail (phase 19) launches
 BUCKET_KERNELS = ("bucket_rank_topk",)
 DENSE_TAIL_KERNELS = ("bucket_rank",)
+# the kNN path's kernel, which phase 14 drives
+VECTOR_KERNELS = ("knn_topk",)
 # the one PyTorch call that computes a kernel's function, timed beside it
 # (the port never calls it), or why there is none
 LIBRARY = {
@@ -401,6 +412,8 @@ LIBRARY = {
     "bucket_rank_topk": "none: no torch call sums postings; library_ms times the "
                         "route it replaces, bucket_rank and topk_i32_lowest_index "
                         "(torch.topk over [B, m * 2^bits] int64 keys)",
+    "knn_topk": "torch.mm (f32, TF32 off) and ops/topk.py masked_top_k over the "
+                "[B, rows] dots",
 }
 # the card's peaks (H100 SXM data sheet): device memory, the f32 rate
 # outside the tensor cores, at which one compare-exchange or add counts, and
@@ -469,6 +482,39 @@ def cuda_ms(fn, setup=lambda: (), reps: int = 25, warmup: int = 3) -> float:
         if i >= warmup:
             times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def sm_clock_under(fn, seconds: float = 3.0) -> dict:
+    """What nvidia-smi samples every 100 ms while ``fn`` runs back to back
+    for ``seconds`` (the first two samples, taken as the load starts, left
+    out): the median and lowest SM clock, the card's highest SM clock, in
+    MHz, and the median power draw in W."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        proc.stdout.readline()          # sampling has started
+        t_end = time.perf_counter() + seconds
+        while time.perf_counter() < t_end:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+    samples = []
+    for line in out.splitlines():
+        try:
+            samples.append([float(x) for x in line.split(",")])
+        except ValueError:
+            continue
+    samples = np.array(samples[2:], dtype=np.float64).reshape(-1, 3)
+    if not len(samples):
+        raise AssertionError(f"nvidia-smi gave no clock samples: {out[:200]!r}")
+    return {"sm_mhz": float(np.median(samples[:, 0])), "sm_mhz_min": float(samples[:, 0].min()),
+            "sm_mhz_max": float(samples[:, 1].max()), "watts": float(np.median(samples[:, 2])),
+            "samples": len(samples)}
 
 
 # ---------------------------------------------------------------------------
@@ -3993,6 +4039,10 @@ VEC_INGEST = 2000          # docs with vectors, in VEC_ROUNDS addDocuments + ref
 VEC_ROUNDS = 4
 VEC_WINDOW = 100           # rescore window
 VEC_DBQ_TAG = 13           # kNN after deleting one tag ordinal (about 1% of the docs)
+# knn_topk at one segment of the vec cell (portbench/configs/vec-8m.json:
+# 8,841,823 x 768 f32 embeddings in 8 segments), dot_product, top 100
+KNN_CELL_ROWS, KNN_CELL_DIMS, KNN_CELL_B, KNN_CELL_K = 1_105_228, 768, 32, 100
+KNN_CELL_REPS = 10
 INT8_TOPS = 1979e12        # dense int8 tensor-core operations per second
 VEC_WIRE_FIELDS = [
     ("body", {"type": "TEXT", "search": True, "store": True}),
@@ -4165,6 +4215,105 @@ def phase_vector_ops(dev, seg, cpu_seg, queries, card: str) -> dict:
     return out
 
 
+def phase_knn_topk(dev, card: str) -> dict:
+    """knn_topk at one segment of the vec cell (KNN_CELL_*: normalised
+    random rows, every 997th masked, queries by rows): at B = 32 and B = 1
+    against an f64 reference of the same inputs (ids equal but at
+    near-ties, scores within VEC_ULPS of their scale S, eligible rows those
+    of the plain version), its largest score difference from the plain
+    version (segment_top_k_plain: cuBLAS sums each dot in another order)
+    beside, p50 by cuda_ms beside its bound, the plain version and
+    library_ms (torch.mm + masked_top_k). Returns the kernel's stats at
+    B = 32."""
+    from nrtsearch_tpu_torch.ops import knn
+    from nrtsearch_tpu_torch.ops.topk import masked_top_k
+
+    rows, dims, k = KNN_CELL_ROWS, KNN_CELL_DIMS, KNN_CELL_K
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    values = torch.randn(rows, dims, generator=g, device=dev)
+    values /= torch.linalg.vector_norm(values, dim=1, keepdim=True)
+    sq = (values * values).sum(1)
+    mask = torch.ones(rows, dtype=torch.bool, device=dev)
+    mask[::997] = False
+    out = {}
+    for B in (KNN_CELL_B, 1):
+        pick = torch.randint(0, rows, (B,), generator=g, device=dev)
+        q = values[pick] + 0.02 * torch.randn(B, dims, generator=g, device=dev)
+
+        def fused(q=q):
+            return knn.fused_segment_top_k(values, sq, mask, q, similarity="dot_product", k=k)
+
+        def plain(q=q):
+            return knn.segment_top_k_plain(values, sq, mask, q, similarity="dot_product", k=k)
+
+        def library(q=q):
+            return masked_top_k(torch.mm(q, values.T), mask[None, :], k)
+
+        (gs, gi, gh), (cs, _ci, ch) = fused(), plain()
+        # the f64 reference: (1 + q.v) / 2, masked, its top k + 16 by score,
+        # then (score desc, doc asc)
+        ref = torch.empty((B, rows), dtype=torch.float64, device=dev)
+        q64 = q.double()
+        for lo in range(0, rows, 1 << 17):
+            ref[:, lo:lo + (1 << 17)] = (1 + q64 @ values[lo:lo + (1 << 17)].double().T) / 2
+        ref[:, ~mask] = float("-inf")
+        cand = torch.topk(ref, k + 16, dim=1).indices
+        cand_s = torch.gather(ref, 1, cand).cpu().numpy()
+        cand = cand.cpu().numpy()
+        torch.cuda.synchronize()
+        if not (gh.cpu() == ch.cpu()[0]).all():
+            raise AssertionError(f"knn_topk: eligible rows {gh.tolist()} against {ch.tolist()}")
+        gs, gi, cs = (t.cpu().numpy() for t in (gs, gi, cs))
+        q_np = q.cpu().numpy()
+        swaps, worst = 0, 0.0
+        for b in range(B):
+            order = np.lexsort((cand[b], -cand_s[b]))[:k]
+            r_i, r_s = cand[b][order], cand_s[b][order]
+            docs = np.union1d(gi[b], r_i)
+            rows_np = values[torch.as_tensor(docs, device=dev)].cpu().numpy()
+            at = {int(d): i for i, d in enumerate(docs)}
+            ref_of = (1 + rows_np.astype(np.float64) @ q_np[b].astype(np.float64)) / 2
+
+            def tol_of(i, s, b=b, rows_np=rows_np, at=at):
+                return VEC_ULPS * 2.0 ** -23 * float(
+                    _vec_scale(q_np[b], rows_np[at[i]:at[i] + 1], "dot_product", s)[0])
+
+            swaps += _check_knn_lists(gi[b], gs[b], r_i, r_s,
+                                      lambda i, at=at, p=ref_of: float(p[at[i]]), tol_of,
+                                      f"knn_topk B={B} query {b}")
+            worst = max(worst, float(np.max(np.abs(gs[b].astype(np.float64) - cs[b]))))
+        t_kernel = cuda_ms(fused, reps=KNN_CELL_REPS)
+        t_plain = cuda_ms(plain, reps=KNN_CELL_REPS)
+        t_lib = cuda_ms(library, reps=KNN_CELL_REPS)
+        nbytes = rows * dims * 4 + rows * 1 + B * dims * 4 + B * k * 12
+        ops = 2.0 * B * rows * dims
+        bound_ms, bound_by = bound(nbytes, ops)
+        out[B] = {"ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
+                  "bytes": nbytes, "ops": ops, "max_abs_err": worst, "swaps": swaps,
+                  "shape": f"[{rows}, {dims}] f32, B={B}, k={k}"}
+        clock = ""
+        if B == KNN_CELL_B:
+            # the f32 rate at the clock the card holds under the kernel: the
+            # data sheet's OPS_PER_S is at its highest SM clock
+            c = out[B]["clock"] = sm_clock_under(fused)
+            peak = OPS_PER_S * c["sm_mhz"] / c["sm_mhz_max"]
+            rate = ops / (1e-3 * t_kernel)
+            clock = (f"; under it the SM clock {c['sm_mhz']:.0f} MHz (lowest "
+                     f"{c['sm_mhz_min']:.0f}, the card's highest {c['sm_mhz_max']:.0f}; "
+                     f"{c['samples']} samples), {c['watts']:.0f} W: the products at "
+                     f"{rate / 1e12:.1f} TFLOP/s, {100 * rate / peak:.1f}% of the f32 rate "
+                     f"at that clock ({peak / 1e12:.1f} TFLOP/s)")
+        log(f"vectors knn_topk: [{rows}, {dims}] f32 segment, B={B} k={k} dot_product: "
+            f"{t_kernel:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{100 * bound_ms / t_kernel:.1f}%), plain {t_plain:.4f} ms, library (torch.mm "
+            f"+ masked_top_k) {t_lib:.4f} ms; against the f64 reference within {VEC_ULPS} "
+            f"ulps of S, near-tie swaps {swaps}; max |diff| from the plain version "
+            f"{worst:.3g}{clock} | {card}")
+    del values, sq, mask
+    torch.cuda.empty_cache()
+    return out[KNN_CELL_B]
+
+
 def phase_vectors(dev, corpus, columns, singles, card: str) -> dict:
     """Phase 14 (see the module docstring): the 1M-doc index with three
     vector fields on the card; ops, the engine, the served node with the
@@ -4191,6 +4340,9 @@ def phase_vectors(dev, corpus, columns, singles, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     mem0 = torch.cuda.memory_allocated(dev)
     try:
+        # 0. the kNN kernel at one segment of the vec cell
+        knn_stats = phase_knn_topk(dev, card) if dev.type == "cuda" else {}
+
         # 1. the index: phase 4's corpus and columns beside 1M clustered vectors
         t = time.perf_counter()
         base, queries = clustered_vectors(NUM_DOCS, VEC_DIMS, VEC_QUERIES + 4, seed=SEED)
@@ -4223,6 +4375,7 @@ def phase_vectors(dev, corpus, columns, singles, card: str) -> dict:
         # 3. the engine: Searcher.knn_search at B = 1
         qs = queries[:VEC_QUERIES]
         lat, answers = {}, {}
+        fused0 = kernels.LAUNCHES["knn_topk"]
         for name, _fmt, _sim in VEC_FIELDS:
             s_card.knn_search(name, qs[0], 10)        # first call: cuBLAS handles
             for k in VEC_KS:
@@ -4233,13 +4386,23 @@ def phase_vectors(dev, corpus, columns, singles, card: str) -> dict:
                     ts.append(1e3 * (time.perf_counter() - t))
                 lat[(name, k)] = ts
                 answers[(name, k)] = res
+        engine_launches = kernels.LAUNCHES["knn_topk"] - fused0
+        if dev.type == "cuda" and engine_launches != (1 + len(VEC_KS) * len(qs)) * SEGMENTS:
+            raise AssertionError(f"knn_topk: {engine_launches} launches for the f32 field's "
+                                 f"{1 + len(VEC_KS) * len(qs)} searches over {SEGMENTS} "
+                                 f"segments")
+        kernels.reset_launch_counts()
+        s_card.knn_search_batch("vec", qs, 100)
+        torch.cuda.synchronize()
+        per_batch = kernels.LAUNCHES["knn_topk"]
         with SyncCount() as sc:
             s_card.knn_search("vec", qs[0], 10)
         log(f"vectors engine: Searcher.knn_search B=1 over {SEGMENTS} segments, "
             + "; ".join(f"{n} k={k} p50 {np.median(lat[(n, k)]):.3f} ms p99 "
                         f"{np.percentile(lat[(n, k)], 99):.3f} ms" for n, _f, _s in VEC_FIELDS
                         for k in VEC_KS)
-            + f"; host waits per query {sc.n} | {card}")
+            + f"; host waits per query {sc.n}; knn_topk launches {engine_launches} on the "
+            f"f32 field, {per_batch} per B={len(qs)} batch | {card}")
 
         # recall@10 of the f32 field against an f64 brute force (1.0 but at ties)
         b64 = base.astype(np.float64)
@@ -4571,7 +4734,10 @@ def phase_vectors(dev, corpus, columns, singles, card: str) -> dict:
             f"requests bit for bit as the primary; peak device memory {peak / 2**30:.3f} GiB "
             f"(phase start {mem0 / 2**30:.3f} GiB); phase {seconds:.1f} s | {card}")
         return {"launches": hybrid_launches, "ops": ops, "seconds": seconds, "peak": peak,
-                "recall": recall_f32, "recall_q": recall_q}
+                "recall": recall_f32, "recall_q": recall_q,
+                "stats": {"knn_topk": knn_stats},
+                "engine_launches": {"knn_topk": engine_launches},
+                "per_batch": {"knn_topk": per_batch}}
     finally:
         for node, client in nodes:
             client.close()
@@ -6005,7 +6171,8 @@ def main() -> int:
     log(f"search: specs by path {res['paths']}; host syncs window {syncs[0]}, "
         f"hierarchical_topk {syncs[1]}; window branch {dense_fused.WINDOW_BRANCH}; "
         f"merge branch {branches}")
-    missing = [k for k in KERNEL_SOURCES if k not in BUCKET_KERNELS + DENSE_TAIL_KERNELS
+    missing = [k for k in KERNEL_SOURCES
+               if k not in BUCKET_KERNELS + DENSE_TAIL_KERNELS + VECTOR_KERNELS
                and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
@@ -6072,6 +6239,9 @@ def main() -> int:
     # 14. vector search and the result tail: three vector fields beside the
     # same corpus, kNN, the served hybrid and result tail, writes, a replica
     vectors = phase_vectors(dev, corpus, columns, singles, card)
+    stats.update(vectors["stats"])
+    launches.update(vectors["engine_launches"])
+    per_batch.update(vectors["per_batch"])
 
     # 15. term positions: positional queries on the 1M-doc index, then
     # nested documents and the field types that need positions, served

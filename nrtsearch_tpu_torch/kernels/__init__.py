@@ -23,7 +23,7 @@ The counters are plain dicts: under concurrent searches an increment can be
 lost, so counts taken while threads search are lower bounds.
 The wrappers take CUDA tensors only; the plain torch twins live beside their
 callers (ops/dense_fused.py, ops/bitonic_merge.py, ops/merge_scoring.py,
-ops/bucket_retrieval.py).
+ops/bucket_retrieval.py, ops/knn.py).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ NVCC_FLAGS = (
 LAUNCHES = {
     "head_scores": 0, "near_stages": 0, "far_stage": 0,
     "gather_runs": 0, "far_pair_stage": 0, "finish_mask": 0,
-    "bucket_rank": 0, "bucket_rank_topk": 0,
+    "bucket_rank": 0, "bucket_rank_topk": 0, "knn_topk": 0,
 }
 # near_stages: the largest tile (2^14 pairs, 128 KB of shared memory)
 NEAR_MAX_TILE = 16384
@@ -69,6 +69,14 @@ MAX_SHARED_BYTES = 232_448   # what one Hopper block may use
 BUCKET_MAX_SLOTS = 16
 BUCKET_MIN_BITS = 2
 BUCKET_MAX_BITS = 15
+# knn_topk (csrc/knn_topk.cu): rows per tile, queries per block, candidates
+# buffered per query, and so the most one launch keeps of each query
+KNN_TILE_ROWS = 384
+KNN_QUERIES = 32
+KNN_CAP = 256
+KNN_MAX_K = KNN_CAP - 32
+KNN_SIMILARITY = {"l2_norm": 0, "dot_product": 1, "cosine": 2, "normalized_cosine": 2,
+                  "max_inner_product": 3}
 # ptxas register / shared-memory report of the last build (nvcc's stderr)
 BUILD_INFO = {"log": "", "seconds": 0.0, "path": ""}
 
@@ -161,9 +169,12 @@ def _bind(so: Path) -> None:
                                     ci, ci, ci, ci, ci, vp]
     lib.nrt_bucket_rank_topk.argtypes = [vp, vp, cll, vp, vp, vp, vp, vp, vp,
                                          ci, ci, ci, ci, ci, ci, vp]
+    lib.nrt_knn_topk.argtypes = [vp, cll, vp, vp, vp, vp, vp, vp, vp, vp,
+                                 ci, ci, ci, ci, ci, ci, ci, vp]
     for fn in (lib.nrt_head_scores, lib.nrt_near_stages, lib.nrt_far_stage,
                lib.nrt_far_pair_stage, lib.nrt_gather_runs,
-               lib.nrt_finish_mask, lib.nrt_bucket_rank, lib.nrt_bucket_rank_topk):
+               lib.nrt_finish_mask, lib.nrt_bucket_rank, lib.nrt_bucket_rank_topk,
+               lib.nrt_knn_topk):
         fn.restype = ci
     lib.nrt_error_string.argtypes = [ci]
     lib.nrt_error_string.restype = ctypes.c_char_p
@@ -496,3 +507,82 @@ def bucket_rank_topk(post_docs: torch.Tensor, post_impacts: torch.Tensor,
             toffs.data_ptr(), bounds.data_ptr(), wts.data_ptr(), n_terms.data_ptr(),
             cands.data_ptr(), hits.data_ptr(), B, T, m, bucket_bits, int(require_all), kk)
     return cands, hits
+
+
+_SM_COUNT: dict[int, int] = {}
+
+
+def knn_topk_grid(rows: int, B: int, device: torch.device) -> int:
+    """Row-tile blocks per 32-query tile of knn_topk: one block per SM over
+    the query tiles, at most one per tile of KNN_TILE_ROWS rows."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    tiles = -(-rows // KNN_TILE_ROWS)
+    q_tiles = -(-B // KNN_QUERIES)
+    return max(1, min(tiles, _SM_COUNT[idx] // q_tiles))
+
+
+def knn_topk(values: torch.Tensor, v_sq: torch.Tensor, mask: torch.Tensor,
+             queries: torch.Tensor, q_sq: torch.Tensor | None, similarity: str, k: int,
+             ceiling: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 rows [rows, dims] (any row stride), their squared norms [rows]
+    (read for l2_norm and cosine), bool mask [rows], f32 queries [B, dims]
+    and, for l2_norm and cosine, their squared sums q_sq [B] -> (cands int64
+    [B, G, k], part_hits int32 [G]): over the G blocks' shares of the rows,
+    each block's top k of each query in descending order, as the keys
+    ``ops/topk.lowest_index_keys`` of the f32 order keys of ops/knn.py
+    ``_transform`` of the f32 dots (-inf where the mask is false) and the
+    row ids (INT64_MIN past a block's rows), and each block's count of
+    eligible rows. With ``ceiling`` (int64 [B]) only keys below a query's
+    ceiling count. The top k of a query's [G * k] candidates is its top k of
+    the segment (``ops/knn.fused_segment_top_k``). One launch
+    (csrc/knn_topk.cu) after a fill of the thresholds the blocks publish; no
+    [B, rows] array is written."""
+    if values.device.type != "cuda":
+        raise ValueError(f"values must be a CUDA tensor, got {values.device}")
+    if values.dtype != torch.float32 or values.dim() != 2 or values.stride(1) != 1:
+        raise ValueError(f"values must be f32 [rows, dims] with unit column stride, got "
+                         f"{values.dtype} {tuple(values.shape)} strides {values.stride()}")
+    rows, dims = values.shape
+    _check(v_sq, "v_sq", torch.float32, 1)
+    _check(mask, "mask", torch.bool, 1)
+    _check(queries, "queries", torch.float32, 2)
+    if similarity not in KNN_SIMILARITY:
+        raise ValueError(f"unknown similarity {similarity!r}")
+    need_sq = similarity in ("l2_norm", "cosine", "normalized_cosine")
+    if need_sq:
+        if q_sq is None:
+            raise ValueError(f"{similarity} needs the queries' squared sums q_sq")
+        _check(q_sq, "q_sq", torch.float32, 1)
+    B = queries.shape[0]
+    if ceiling is not None:
+        _check(ceiling, "ceiling", torch.int64, 1)
+    if v_sq.shape[0] < rows or mask.shape[0] != rows or queries.shape[1] != dims or (
+            need_sq and q_sq.shape[0] != B) or (ceiling is not None and ceiling.shape[0] != B):
+        raise ValueError(f"v_sq {tuple(v_sq.shape)}, mask {tuple(mask.shape)}, queries "
+                         f"{tuple(queries.shape)} do not fit values {tuple(values.shape)}")
+    if len({t.device for t in (values, v_sq, mask, queries)}) != 1:
+        raise ValueError("all knn_topk inputs must be on one device")
+    if not 1 <= k <= rows or rows >= 2**31 or B < 1:
+        raise ValueError(f"k={k} must lie in [1, the width {rows}] (< 2^31), B={B} >= 1")
+    if k > KNN_MAX_K:
+        raise ValueError(f"knn_topk keeps at most {KNN_MAX_K} candidates a query, got k={k}")
+    dev = values.device
+    if mask.data_ptr() % 4:     # the kernel copies the mask 4 bytes at a time
+        mask = mask.clone()
+    G = knn_topk_grid(rows, B, dev)
+    cands = torch.empty((B, G, k), dtype=torch.int64, device=dev)
+    part = torch.empty((G,), dtype=torch.int32, device=dev)
+    g_thr = torch.full((B,), -2**63, dtype=torch.int64, device=dev)
+    ld = values.stride(0)
+    vec = dims % 4 == 0 and ld % 4 == 0 and values.data_ptr() % 16 == 0 \
+        and queries.data_ptr() % 16 == 0
+    lib = _library()
+    _launch("knn_topk", lib.nrt_knn_topk, dev,
+            values.data_ptr(), ld, v_sq.data_ptr(), mask.data_ptr(), queries.data_ptr(),
+            q_sq.data_ptr() if need_sq else None,
+            ceiling.data_ptr() if ceiling is not None else None, cands.data_ptr(),
+            part.data_ptr(), g_thr.data_ptr(), rows, dims, B, k, KNN_SIMILARITY[similarity], G,
+            int(vec))
+    return cands, part

@@ -42,6 +42,16 @@ all B queries against the column's rows and a masked top k, then the
 segments' candidates merge on the device by (score desc, global doc id
 asc), Lucene's order, with no host sync; ``batch_to_host`` is its one read
 of the results to the host, counted in ``KNN_READBACKS``.
+
+The per-segment step (``segment_top_k``) of an f32 column on the card is
+one hand-written kernel (``kernels.knn_topk``, csrc/knn_topk.cu): the f32
+products on the FFMA units, the score, the mask and each block's top k of
+each query in one pass, writing only those candidates, which one
+``torch.topk`` reduces to the segment's top k; a k past the kernel's
+buffer (``kernels.KNN_MAX_K``) takes more passes, each below the last
+one's k-th key. ``segment_top_k_plain`` (``_scores`` + ``masked_top_k``)
+serves CPU tensors, bf16 and int8 columns. ``KNN_SEGMENTS`` counts the
+segments on each route.
 """
 
 from __future__ import annotations
@@ -49,10 +59,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nrtsearch_tpu_torch import kernels
 from nrtsearch_tpu_torch.device import exact_cuda_matmul, on_cuda, resolve_device, scalar_f32
 from nrtsearch_tpu_torch.ops.dense_fused import _mm as bf16_mm_f32
-from nrtsearch_tpu_torch.ops.topk import f32_order_keys, lowest_index_keys, masked_top_k, \
-    topk_f32_total_order, topk_lowest_index
+from nrtsearch_tpu_torch.ops.topk import f32_from_order_keys, f32_order_keys, \
+    lowest_index_keys, masked_top_k, topk_f32_total_order, topk_lowest_index
 
 SIMILARITIES = (
     "l2_norm", "dot_product", "cosine", "normalized_cosine", "max_inner_product",
@@ -65,6 +76,8 @@ INT_MM_MULTIPLE = 8
 # reads of the kNN path's results to the host (``batch_to_host``): one per
 # batch; a plain counter dict, as the ops' HOST_SYNCS
 KNN_READBACKS: dict[str, int] = {"results": 0}
+# segments through the kernel (``fused``) and through ``segment_top_k_plain``
+KNN_SEGMENTS: dict[str, int] = {"fused": 0, "plain": 0}
 
 
 def _f32_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -183,16 +196,75 @@ def _quantized_scores(queries: torch.Tensor, q_values: torch.Tensor, scale: floa
     return _transform(dots, None, None, v_sq_hat, similarity)
 
 
+def fused_route(values: torch.Tensor, scale: float | None = None) -> bool:
+    """Whether ``segment_top_k`` takes the kernel: f32 rows on the card."""
+    return scale is None and values.dtype == torch.float32 and on_cuda(values)
+
+
 def segment_top_k(values: torch.Tensor, score_sq_norms: torch.Tensor, mask: torch.Tensor,
                   queries: torch.Tensor, *, similarity: str, k: int,
                   scale: float | None = None):
-    """The per-segment step of every kNN entry point: one product of the
-    queries [B, dims] against ``values`` [rows, dims] (``_scores``, or
-    ``_quantized_scores`` when ``scale`` is given: int8 storage), and the
-    top k where ``mask`` holds (``masked_top_k``: ties to the lower id).
-    ``mask`` is read over its first ``rows`` entries, so a segment's
-    [capacity] mask and a column's [rows] mask both serve. Returns (scores
-    [B, k], ids [B, k] int64, matches [B])."""
+    """The per-segment step of every kNN entry point: the top k of the
+    queries [B, dims] against ``values`` [rows, dims] where ``mask`` holds,
+    by (score desc, id asc). ``mask`` is read over its first ``rows``
+    entries, so a segment's [capacity] mask and a column's [rows] mask both
+    serve. The kernel (``fused_segment_top_k``) where ``fused_route`` says
+    so, else ``segment_top_k_plain``; counted in ``KNN_SEGMENTS``. Returns
+    (scores [B, k], ids [B, k] int64, matches: the eligible rows, [B] from
+    the kernel, [1] from the plain version)."""
+    if fused_route(values, scale):
+        KNN_SEGMENTS["fused"] += 1
+        return fused_segment_top_k(values, score_sq_norms, mask, queries,
+                                   similarity=similarity, k=k)
+    KNN_SEGMENTS["plain"] += 1
+    return segment_top_k_plain(values, score_sq_norms, mask, queries, similarity=similarity,
+                               k=k, scale=scale)
+
+
+def fused_segment_top_k(values: torch.Tensor, score_sq_norms: torch.Tensor,
+                        mask: torch.Tensor, queries: torch.Tensor, *, similarity: str,
+                        k: int):
+    """``segment_top_k`` of f32 rows on the card by the kernel
+    (``kernels.knn_topk``), the queries' squared sums taken as ``_scores``
+    takes them: each block's top k of each query, then the top k of the
+    [B, blocks * k] candidates by one ``torch.topk`` (their int64 keys order
+    as (score desc, id asc)). A k past ``kernels.KNN_MAX_K`` takes passes
+    of at most that many, each pass's ceiling the last one's k-th key."""
+    rows = values.shape[0]
+    B = queries.shape[0]
+    if k > rows:
+        raise ValueError(f"k={k} must not exceed the width {rows}")
+    q = queries.to(torch.float32).contiguous()
+    q_sq = None
+    if similarity in ("l2_norm", "cosine", "normalized_cosine"):
+        q_sq = torch.sum(queries * queries, dim=1, keepdim=True).reshape(-1)
+    v_sq, m = score_sq_norms[:rows].contiguous(), mask[:rows].contiguous()
+    if B == 0 or k == 0:
+        return (torch.empty((B, k), dtype=torch.float32, device=values.device),
+                torch.empty((B, k), dtype=torch.int64, device=values.device),
+                m.sum(dtype=torch.int32).expand(B))
+    tops, ceiling, part = [], None, None
+    for done in range(0, k, kernels.KNN_MAX_K):
+        kp = min(kernels.KNN_MAX_K, k - done)
+        cands, p = kernels.knn_topk(values, v_sq, m, q, q_sq, similarity, kp, ceiling)
+        part = p if part is None else part
+        tops.append(torch.topk(cands.view(B, -1), kp, dim=1).values)
+        ceiling = tops[-1][:, -1].contiguous() if kp < k - done else None
+    top = tops[0] if len(tops) == 1 else torch.cat(tops, dim=1)
+    # the keys of ``lowest_index_keys``: the order key above, 2^32 - 1 - id below
+    low = (1 << 32) - 1
+    return (f32_from_order_keys((top >> 32).to(torch.int32)), low - (top & low),
+            part.sum(dtype=torch.int32).expand(B))
+
+
+def segment_top_k_plain(values: torch.Tensor, score_sq_norms: torch.Tensor,
+                        mask: torch.Tensor, queries: torch.Tensor, *, similarity: str,
+                        k: int, scale: float | None = None):
+    """The plain per-segment step: one product of the queries [B, dims]
+    against ``values`` [rows, dims] (``_scores``, or ``_quantized_scores``
+    when ``scale`` is given: int8 storage), and the top k where ``mask``
+    holds (``masked_top_k``: ties to the lower id). Returns (scores [B, k],
+    ids [B, k] int64, matches [1])."""
     if scale is None:
         scores = _scores(queries, values, score_sq_norms, similarity)
     else:
