@@ -281,13 +281,6 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    4 on the card x 4 answering phase 5's 32 batch queries as singles like
    the node at virtualShards 1, and with the seam left alone (one card) on
    the local path; the mesh on distinct cards when there are two or more.
-17. MaxScore: the merge path's PrunedIndex at the serving thresholds,
-   prune=True against prune=False on phase 5's 8 singles and first B=32
-   batch: the same docs, scores within PRUNE_ULPS, hits lower bounds only
-   where pruned; the shares certified / escalated / full, the shape_log,
-   p50 of both, the launches of #2-#6; phase 16's node with NRT_MAXSCORE=1
-   answers GREATER_THAN_OR_EQUAL_TO exactly where a direct search at the
-   batcher's k (pow2(topHits, 8)) prunes, with the unpruned docs.
 18. the standalone bucket API: BucketIndex.build and plan_bucket_batch
    over the merge path's packed postings and phase 5's singles (a term's
    runs as slots), bucket_search_topk on the card (kernel #7/#8's top-k
@@ -295,9 +288,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 19. the flagship model (models/flagship.py) at bench.py's configuration:
    phase 4's corpus as one segment (``SyntheticCorpus.to_model``, raw
    lengths), attach_bucket(16384), attach_dense(max_rows 1024, min_df 2048,
-   residual rows) and attach_maxscore, each timed, with the bytes on the
+   residual rows), each timed, with the bytes on the
    card. With the launch counters reset just before and read just after:
-   each of the six routes (search, MaxScore, bucket, dense head + bucket
+   each of the five routes (search, bucket, dense head + bucket
    tail, dense head + merge tail, fused) on 8 singles and a B=32 batch of
    4 Zipf terms, then one compile_queries_bucketed batch (31 tail-term
    queries and one of the four most frequent terms, which must split);
@@ -309,8 +302,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    index bytes on the card it holds and its B=32 call's peak working bytes.
    The answers: search bit-equal to a CPU copy of the model (the
    accelerator branch's plain versions) on a B=8 batch and within MERGE_REL
-   of the corpus's numpy BM25 (raw lengths), MaxScore within 4 ulps of
-   search (hits lower bounds where pruned), the bucketed split as one
+   of the corpus's numpy BM25 (raw lengths), the bucketed split as one
    batch, bucket bit-equal to the CPU copy and to reference_bucket_search
    (4 queries), the dense tail within 8 f32 ulps of the largest score a
    query can reach of the CPU copy (bit-equal rank keys, the head products
@@ -333,8 +325,7 @@ served searches, ``launches_replica`` from phase 11's searches sent to the
 replica alone, ``launches_general`` from phase 12's timeout and arrays
 searches, ``launches_write`` from phase 13's searches on the deleted index,
 ``launches_vectors`` from phase 14's hybrid request, ``launches_mesh`` from
-phase 16's S = 2 and S = 4 runs, ``launches_pruned`` from phase 17's pruned
-searches, ``launches_bucket_standalone`` from phase 18's search,
+phase 16's S = 2 and S = 4 runs, ``launches_bucket_standalone`` from phase 18's search,
 ``launches_flagship`` from phase 19's routes),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -988,12 +979,8 @@ def phase_index(dev, num_docs: int, vocab: int, draws: int, segments: int):
 
 def fused_tail_width(searcher) -> int:
     """R * run_len of the fused path's fixed tail shape on this snapshot."""
-    from nrtsearch_tpu_torch.ops.merge_scoring import _pow2
-
-    st = searcher.packed_view("body")._dense_state()
-    run_len = int(os.environ.get("NRT_DENSE_RL", 0)) or _pow2(
-        min(max(4096, st["tail_max_df"]), 65536))
-    return int(os.environ.get("NRT_DENSE_R", "8")) * run_len
+    view = searcher.packed_view("body")
+    return view._DENSE_R * view.dense_run_len(view._dense_state()["tail_max_df"])
 
 
 def conjunction_terms(corpus, searcher) -> list[str]:
@@ -5223,8 +5210,7 @@ def _id_request(pb, ids: list[str]):
 
 
 # ---------------------------------------------------------------------------
-# phase 16: virtual shards, phase 17: MaxScore, phase 18: the standalone
-# bucket API
+# phase 16: virtual shards, phase 18: the standalone bucket API
 # ---------------------------------------------------------------------------
 
 MESH_SHARDS = (2, 4)
@@ -5233,9 +5219,6 @@ MESH_REPS = 3
 MESH_KERNELS = ("head_scores", "near_stages", "far_stage", "far_pair_stage", "gather_runs",
                 "finish_mask")
 MESH_KNN_REL = 1e-5        # kNN scores, mesh against the unsharded column
-PRUNE_ULPS = 4             # pruned against full: the probe adds in run order
-PRUNE_KERNELS = MESH_KERNELS[1:]
-PRUNE_REPS = 3
 
 
 def _mesh_row(out, qi: int) -> tuple:
@@ -5560,113 +5543,6 @@ def phase_mesh(dev, corpus, columns, searcher, singles, batch, node, card: str) 
             "seconds": seconds}
 
 
-def _prune_queries(view, terms_list) -> list[dict]:
-    """PrunedIndex query dicts of OR match queries (as
-    PackedFieldView.search_batch builds them)."""
-    out = []
-    for terms in terms_list:
-        entries = view.term_entries(list(terms))
-        out.append({"entries": [(w, runs) for _, w, runs in entries if w and runs],
-                    "require_all": False, "n_terms": 1})
-    return out
-
-
-def phase_maxscore(dev, searcher, singles, batch, node, card: str) -> dict:
-    """Phase 17 (see the module docstring). Returns the pruned runs'
-    launches and the phase's measurements."""
-    from nrtsearch_tpu_torch import kernels
-    from nrtsearch_tpu_torch.ops.merge_scoring import _pow2
-
-    t_phase = time.perf_counter()
-    view = searcher.packed_view("body")
-    index = view.index
-    sets = {"singles": [_prune_queries(view, [q]) for q in singles],
-            "batch": [_prune_queries(view, batch)]}
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    pruned_out, logs = {}, {}
-    for name, groups in sets.items():
-        logs[name] = {}
-        pruned_out[name] = [r for qs in groups
-                            for r in index.search(qs, TOP_K, shape_log=logs[name], prune=True)]
-    torch.cuda.synchronize()
-    launches = {k: kernels.LAUNCHES[k] for k in PRUNE_KERNELS}
-    counts = {"certified": 0, "escalated": 0, "full": 0}
-    near_ties = 0
-    for name, groups in sets.items():
-        qs = [q for g in groups for q in g]
-        full = [r for g in groups for r in index.search(g, TOP_K, prune=False)]
-        for qi, (q, p, f) in enumerate(zip(qs, pruned_out[name], full)):
-            ctx = f"maxscore {name} query {qi}"
-            # scores rank by rank within PRUNE_ULPS; a doc may differ only
-            # where the two scores at that rank are that close (the probe
-            # adds a doc's terms in another order than the full merge)
-            bits = np.abs(p[0].view(np.int32).astype(np.int64) - f[0].view(np.int32))
-            if bits.max(initial=0) > PRUNE_ULPS:
-                raise AssertionError(f"{ctx}: scores {bits.max()} ulps from the full dispatch")
-            swapped = np.nonzero(p[1] != f[1])[0]
-            if len(set(p[1][p[0] > -np.inf].tolist())) != int((p[0] > -np.inf).sum()):
-                raise AssertionError(f"{ctx}: duplicate docs in the pruned top-k")
-            near_ties += len(swapped)
-            if not f[3] or (p[3] and p[2] != f[2]) or p[2] > f[2]:
-                raise AssertionError(f"{ctx}: hits {p[2]} (exact {p[3]}) vs full {f[2]}")
-            eligible = index._plan_theta(q, TOP_K) is not None
-            counts["certified" if not p[3] else "escalated" if eligible else "full"] += 1
-    n = sum(counts.values())
-    if counts["certified"] == 0:
-        raise AssertionError(f"no query took the pruned path: {counts}")
-    p50 = {}
-    for name, groups in sets.items():
-        for prune in (True, False):
-            p50[(name, prune)], _ = _timed(
-                lambda: [index.search(g, TOP_K, prune=prune) for g in groups], PRUNE_REPS)
-    log(f"maxscore: NRT_FAST_PATH=merge, {n} queries ({len(singles)} singles, a B={len(batch)} "
-        f"batch): certified {counts['certified'] / n:.3f}, escalated "
-        f"{counts['escalated'] / n:.3f}, full {counts['full'] / n:.3f}; docs equal to "
-        f"prune=False but {near_ties} near-tie order swaps, scores within {PRUNE_ULPS} ulps "
-        f"rank by rank, hits lower bounds where pruned")
-    log(f"maxscore: shape_log (run_len, R) singles {logs['singles']}, batch {logs['batch']}; "
-        f"launches in the pruned runs {launches}")
-    per = len(singles)
-    log(f"maxscore: p50 per B=1 single ({per} in turn): pruned "
-        f"{p50[('singles', True)] / per:.2f} ms, full {p50[('singles', False)] / per:.2f} ms; "
-        f"B={len(batch)}: "
-        f"pruned {p50[('batch', True)]:.2f} ms, full {p50[('batch', False)]:.2f} ms | {card}")
-
-    # served: NRT_MAXSCORE=1 on phase 16's node
-    server, client, rt = node
-
-    def answers():
-        return [_served_td(client.search(_request(_match_dict(q)))) for q in singles]
-
-    served_p = _with_path("merge",
-                         lambda: _with_env("NRT_MAXSCORE", "1", answers))
-    served_f = _with_path("merge", answers)
-    # the batcher searches at k = pow2(topHits, 8): the pruning decision
-    # (theta is the k-th score) is the direct run's at that k
-    k_served = _pow2(TOP_K, 8)
-    directs = [index.search(g, k_served, prune=True)[0] for g in sets["singles"]]
-    gte = 0
-    for qi, (a, b, direct) in enumerate(zip(served_p, served_f, directs)):
-        sa = np.array([h.score for h in a.hits], np.float32)
-        sb = np.array([h.score for h in b.hits], np.float32)
-        if len(sa) != len(sb) or np.abs(sa.view(np.int32).astype(np.int64)
-                                        - sb.view(np.int32)).max(initial=0) > PRUNE_ULPS:
-            # docs then differ only at near-ties, as in the direct runs
-            raise AssertionError(f"served NRT_MAXSCORE=1 single {qi}: scores differ")
-        want = "EQUAL_TO" if direct[3] else "GREATER_THAN_OR_EQUAL_TO"
-        if a.relation != want or b.relation != "EQUAL_TO" or a.total_hits > b.total_hits:
-            raise AssertionError(f"served NRT_MAXSCORE=1 single {qi}: {a.relation} "
-                                 f"{a.total_hits} vs {want} (unpruned {b.total_hits})")
-        gte += a.relation == "GREATER_THAN_OR_EQUAL_TO"
-    seconds = time.perf_counter() - t_phase
-    log(f"maxscore: served NRT_MAXSCORE=1: {gte} of {len(singles)} singles answered "
-        f"GREATER_THAN_OR_EQUAL_TO (exactly those a direct search at k = {k_served} "
-        f"prunes), scores within {PRUNE_ULPS} ulps "
-        f"of the unpruned answers rank by rank, with their docs; phase {seconds:.1f} s | {card}")
-    return {"launches": launches, "counts": counts, "p50": p50, "seconds": seconds}
-
-
 def phase_bucket_standalone(dev, searcher, singles, card: str) -> dict:
     """Phase 18 (see the module docstring). Returns the kernel's launches."""
     from nrtsearch_tpu_torch import kernels
@@ -5730,7 +5606,7 @@ FLAGSHIP_DENSE = {"max_rows": 1024, "min_df": 2048, "residual": True}
 FLAGSHIP_REPS = 5                  # B=32 calls per route for the p50
 FLAGSHIP_CPU_B = 8                 # the batch held to the CPU copy
 FLAGSHIP_ORACLE_QUANT = 4          # queries held to the numpy oracles of the quantized routes
-FLAGSHIP_ULPS = 4                  # MaxScore against search; bucketed split against one batch
+FLAGSHIP_ULPS = 4                  # bucketed split against one batch
 NATIVE_DOCS = 20_000
 
 
@@ -5874,20 +5750,13 @@ def phase_flagship(dev, corpus, card: str) -> dict:
     torch.cuda.synchronize()
     build["dense"] = time.perf_counter() - t
     mem_dense = torch.cuda.memory_allocated(dev) - mem0 - mem_model
-    t = time.perf_counter()
-    model.attach_maxscore()
-    torch.cuda.synchronize()
-    build["maxscore"] = time.perf_counter() - t
-    mem_maxscore = torch.cuda.memory_allocated(dev) - mem0 - mem_model - mem_dense
     idx = model.dense_idx
     log(f"flagship: SyntheticCorpus({NUM_DOCS}, {VOCAB}, {DRAWS}, seed={SEED}).to_model "
         f"{build['model']:.2f} s: {int(model.doc_ids.shape[0])} postings slots, D "
         f"{model.capacity}, {mem_model / 2**30:.3f} GiB on the card; attach_bucket("
         f"{FLAGSHIP_BUCKET_DOCS}) {build['bucket']:.2f} s (host bounds); attach_dense"
         f"({FLAGSHIP_DENSE}) {build['dense']:.2f} s: {idx.n_rows} head rows (Hp "
-        f"{idx.rows.shape[0]}), {mem_dense / 2**30:.3f} GiB of rows on the card; "
-        f"attach_maxscore {build['maxscore']:.2f} s, {mem_maxscore / 2**20:.1f} MiB on the "
-        f"card | {card}")
+        f"{idx.rows.shape[0]}), {mem_dense / 2**30:.3f} GiB of rows on the card | {card}")
 
     rng = np.random.default_rng(SEED + 19)
     singles = _zipf_queries(corpus, rng, 8)
@@ -5902,9 +5771,6 @@ def phase_flagship(dev, corpus, card: str) -> dict:
 
     def run_search(qs):
         return [_host_rows(x) for x in model.search(model.compile_queries(qs), TOP_K)]
-
-    def run_maxscore(qs):
-        return model.serve_maxscore_batch(qs, TOP_K)
 
     def run_bucket(qs):
         plan = model.plan_bucket(qs)
@@ -5924,7 +5790,7 @@ def phase_flagship(dev, corpus, card: str) -> dict:
         return dense_head.decode_packed2(
             model.serve_dense_fused(model.plan_dense_merge(qs), TOP_K), TOP_K)
 
-    runs = {"search": run_search, "maxscore": run_maxscore, "bucket": run_bucket,
+    runs = {"search": run_search, "bucket": run_bucket,
             "dense_tail": run_dense_tail, "dense_merge": run_dense_merge, "fused": run_fused}
     for fn in runs.values():        # warm-up: first calls allocate
         fn(batch[:2])
@@ -5958,21 +5824,22 @@ def phase_flagship(dev, corpus, card: str) -> dict:
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     branches = {k: dense_head.WINDOW_BRANCH[k] - branch0[k] for k in branch0}
-    missing = [k for k in KERNEL_SOURCES if launches.get(k, 0) == 0]
+    missing = [k for k in KERNEL_SOURCES
+               if k not in VECTOR_KERNELS and launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the flagship routes: {missing}")
     if len(split) != 2:
         raise AssertionError(f"the bucketed batch did not split: {[ix for _q, ix in split]}")
 
     # the index bytes on the card each route holds: the postings and
-    # impacts, MaxScore's own tensors, the head rows (and their maxima and
+    # impacts, the head rows (and their maxima and
     # residual rows where the route reads them; the dense tails stream all
     # the head rows per call, the fused route only the rows a batch uses)
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
     postings = nbytes(model.doc_ids, model.impacts)
-    held = {"search": postings, "maxscore": postings + mem_maxscore, "bucket": postings,
+    held = {"search": postings, "bucket": postings,
              "dense_tail": postings + nbytes(idx.rows),
              "dense_merge": postings + nbytes(idx.rows, idx.row_max),
              "fused": postings + nbytes(idx.rows, idx.rows_lo, idx.row_max)}
@@ -6013,7 +5880,6 @@ def phase_flagship(dev, corpus, card: str) -> dict:
     cpu.bucket_idx = model.bucket_idx
     cpu.dense_idx = dataclasses.replace(idx, rows=idx.rows.cpu(), rows_lo=idx.rows_lo.cpu(),
                                         row_max=idx.row_max.cpu())
-    cpu.attach_maxscore()
     swaps = {}
     # search: bit-equal to the CPU copy on the accelerator branch's plain
     # versions, and to the numpy BM25 within MERGE_REL
@@ -6033,14 +5899,6 @@ def phase_flagship(dev, corpus, card: str) -> dict:
                np.stack([np.pad(e[1], (0, width - len(e[1])), constant_values=-1) for e in ex]),
                np.array([e[2] for e in ex]))
     swaps["search_numpy"] = _check_rows(card_s, ex_rows, MERGE_REL, "search vs numpy BM25")
-    # MaxScore: the card's search within FLAGSHIP_ULPS
-    ms = answers["maxscore"]
-    full = answers["search"]
-    ulps = np.abs(ms[0].view(np.int32).astype(np.int64) - full[0].view(np.int32))
-    if np.where(np.isfinite(full[0]), ulps, 0).max() > FLAGSHIP_ULPS:
-        raise AssertionError("MaxScore scores differ from search beyond the ulps bound")
-    swaps["maxscore"] = _check_rows(ms[:3], full, 2 * FLAGSHIP_ULPS * 2.0**-23, "maxscore",
-                                    hits_lower=True)
     # the bucketed split: every query's answer as in one batch
     one = run_search(bucketed)
     for ix, out in split_out:
@@ -6099,8 +5957,7 @@ def phase_flagship(dev, corpus, card: str) -> dict:
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t_phase
     log(f"flagship: answers held: search bit-equal to the CPU copy (B={FLAGSHIP_CPU_B}) and "
-        f"within {MERGE_REL} of the numpy BM25; MaxScore within {FLAGSHIP_ULPS} ulps of "
-        f"search ({answers['maxscore'][3]} of {BATCH} pruned); the bucketed batch split "
+        f"within {MERGE_REL} of the numpy BM25; the bucketed batch split "
         f"{[len(ix) for _q, ix in split]} as one batch answers; bucket bit-equal to the CPU "
         f"copy and reference_bucket_search ({FLAGSHIP_ORACLE_QUANT} queries); dense tail "
         f"within 8 ulps of its reach of the CPU copy, plus one quantum per tail term of "
@@ -6111,8 +5968,7 @@ def phase_flagship(dev, corpus, card: str) -> dict:
     log(f"flagship: launches over the routes' run {launches}; phase {seconds:.1f} s | {card}")
     return {"launches": launches, "per_route": per_route, "timing": timing,
             "busy": {k: v["device_busy_ms"] for k, v in busy.items()}, "build": build,
-            "bytes": {"model": mem_model, "dense_rows": mem_dense, "maxscore": mem_maxscore,
-                      "held": held, "peak": peak}, "native": native,
+            "bytes": {"model": mem_model, "dense_rows": mem_dense, "held": held, "peak": peak}, "native": native,
             "seconds": seconds}
 
 
@@ -6249,9 +6105,8 @@ def main() -> int:
     nested = phase_nested(dev, card)
     log(f"phase 15: {phrases['seconds'] + nested['seconds']:.1f} s | {card}")
 
-    # 16. virtual shards on meshes of one card, and 17. MaxScore pruning,
-    # both also through a served node over the same index; 18. the
-    # standalone bucket API
+    # 16. virtual shards on meshes of one card, also through a served node
+    # over the same index; 18. the standalone bucket API
     import shutil
     import tempfile
 
@@ -6261,7 +6116,6 @@ def main() -> int:
         server, client, rt, _index_dir = start_served(dev, searcher, root, singles, card)
         node = (server, client, rt)
         mesh = phase_mesh(dev, corpus, columns, searcher, singles, batches[0], node, card)
-        pruned = phase_maxscore(dev, searcher, singles, batches[0], node, card)
     finally:
         if client is not None:
             client.close()
@@ -6272,7 +6126,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     standalone = phase_bucket_standalone(dev, searcher, singles, card)
 
-    # 19. the flagship model: its six routes at bench.py's configuration,
+    # 19. the flagship model: its five routes at bench.py's configuration,
     # and the segment builder's native accumulator
     flagship = phase_flagship(dev, corpus, card)
 
@@ -6295,7 +6149,6 @@ def main() -> int:
             "launches_write": write["launches"].get(name, 0),
             "launches_vectors": vectors["launches"].get(name, 0),
             "launches_mesh": mesh["launches"].get(name, 0),
-            "launches_pruned": pruned["launches"].get(name, 0),
             "launches_bucket_standalone": standalone["launches"].get(name, 0),
             "launches_flagship": flagship["launches"].get(name, 0),
         })
@@ -6316,7 +6169,6 @@ def main() -> int:
             f"{write['launches'].get(name, 0)} on the deleted index, "
             f"{vectors['launches'].get(name, 0)} in the hybrid request, "
             f"{mesh['launches'].get(name, 0)} on the meshes, "
-            f"{pruned['launches'].get(name, 0)} in the pruned runs, "
             f"{standalone['launches'].get(name, 0)} in the standalone bucket search, "
             f"{flagship['launches'].get(name, 0)} on the flagship routes | {card}")
     print(json.dumps({"kernels": table}))

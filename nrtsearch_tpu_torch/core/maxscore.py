@@ -1,40 +1,15 @@
-"""Device-resident packed postings and the batched MaxScore-or-full merge
-search over them (counterpart: nrtsearch_tpu/core/maxscore.py
-``PrunedIndex``).
+"""Device-resident packed postings and the batched full merge search over
+them (counterpart: nrtsearch_tpu/core/maxscore.py ``PrunedIndex``).
 
-The exact merge path: every query's postings runs go through one batched
-``merge_score_topk`` dispatch (ops/merge_scoring.py), on its accelerator
-branch when the postings live on CUDA (``use_pallas``, as the reference sets
-it on its TPU).
+Every query's postings runs go through one batched ``merge_score_topk``
+dispatch per column group (ops/merge_scoring.py), on its accelerator branch
+when the postings live on CUDA (``use_pallas``, as the reference sets it on
+its TPU). The reference's MaxScore pruning is not carried: on an H100 it
+was slower than this full merge at batch 1 and at batch 32 alike.
 
-MaxScore pruning (``search(..., prune=True)``, the reference's
-maxscore.py:1-46) spends no work on postings that provably cannot reach the
-top k:
-
-1. **Theta dispatch**: merge only the query's rarest terms (within
-   ``THETA_BUDGET`` postings). Its k-th real score is a lower bound
-   ``theta`` of the true k-th score: each of its scores is a partial sum of
-   a real doc's score. Filters and additive columns ride it as they ride
-   the full dispatch.
-2. **Split** (host): with per-term upper bounds ub_t = w_t * max impact, the
-   non-essential set N is the longest ascending-ub prefix with
-   ``sum_N ub + max(additive) < SPLIT_FRAC * theta`` (strict). A doc that
-   matches only N terms scores below theta.
-3. **Essential dispatch** over the essential runs only, to a window of the
-   top M candidates; it also counts the docs whose essential score reaches
-   ``tau = theta - sum_N ub`` (less a 1e-5 relative slack).
-4. **Probe and finish** (``probe_finish``, torch ops on the index's
-   device): each candidate's non-essential mass by binary search over the
-   doc-sorted runs, then the top k with ties to the lower doc id.
-5. **Certify or escalate**: when the tau count fits the window, the window
-   holds every possible top-k doc; otherwise the query takes the full
-   dispatch.
-
-Pruned hit counts are lower bounds (``exact`` False, reported as
-GREATER_THAN_OR_EQUAL_TO); flat reductions always take the full path, and
-pruning engages only above ``PRUNE_MIN_WIDTH`` postings, so small indexes
-keep exact counts. ``split_rows`` serves the bucket path's per-run bucket
-bounds (``PackedFieldView._bucket_state``) and the docid chunks of
+``run_ub``, the per-run impact upper bounds, sets the bucket path's
+quantization scale; ``split_rows`` serves that path's per-run bucket bounds
+(``PackedFieldView._bucket_state``) and the docid chunks of
 ``search_chunked``, the timeout search.
 """
 
@@ -48,21 +23,8 @@ import torch
 
 from nrtsearch_tpu_torch.device import on_cuda
 from nrtsearch_tpu_torch.ops.merge_scoring import _pow2, merge_score_topk, plan_run_lists
-from nrtsearch_tpu_torch.ops.topk import topk_lowest_index
 from nrtsearch_tpu_torch.tracing import span
 
-# pruning engages only when a query's total postings width exceeds this
-# (below it the full dispatch is already cheap and counts stay exact)
-PRUNE_MIN_WIDTH = 1 << 16
-# theta dispatch postings budget: rarest terms whose cumulative df fits
-THETA_BUDGET = 1 << 16
-# candidate window: M = pow2(max(WINDOW_K_MULT * k, WINDOW_MIN))
-WINDOW_MIN = 512
-WINDOW_K_MULT = 4
-# non-essential mass must stay below this fraction of theta (a smaller
-# fraction keeps tau high, so the window certificate passes more often)
-SPLIT_FRAC = 0.5
-_I32_MAX = 2**31 - 1
 # impacts block size for per-run upper bounds
 _UB_BLOCK = 512
 
@@ -101,61 +63,6 @@ def run_upper_bounds(
     return ub
 
 
-def probe_finish(
-    post_docs: torch.Tensor,     # i32 [P_pad] doc-sorted postings (flat, global ords)
-    post_impacts: torch.Tensor,  # f32 [P_pad]
-    cand_docs: torch.Tensor,     # i32 [B, M] window docs (garbage where score == -inf)
-    cand_scores: torch.Tensor,   # f32 [B, M] essential scores (-inf padded)
-    probe_offs: torch.Tensor,    # i32 [B, TN] non-essential run starts (0: unused)
-    probe_lens: torch.Tensor,    # i32 [B, TN] run lengths (0: unused)
-    probe_w: torch.Tensor,       # f32 [B, TN] idf * boost (0: unused)
-    *,
-    k: int,
-    steps: int,                  # binary-search rounds (>= ceil(log2(max len)))
-):
-    """Each window candidate's non-essential mass, then the top k (the
-    reference's jitted ``_probe_finish_impl``, maxscore.py:135-196, as torch
-    ops on the index's device, no host read).
-
-    ``steps`` rounds of one binary search over [B, TN, M] at once find each
-    candidate's posting in each non-essential run; the found ``w * impact``
-    sum over TN in run order (t = 0 first), and add to the essential score.
-    Candidates are sorted by doc id first, so the lowest-index top-k breaks
-    ties by doc ascending. Returns (scores [B, k], docs [B, k], k-th score
-    [B])."""
-    valid = cand_scores > float("-inf")
-    docs = torch.where(valid, cand_docs, torch.full((), _I32_MAX, dtype=torch.int32,
-                                                    device=cand_docs.device))
-    offs = probe_offs.to(torch.int64)[:, :, None]                 # [B, TN, 1]
-    lens = probe_lens.to(torch.int64)[:, :, None]
-    last = torch.clamp(lens - 1, min=0)
-    want = docs[:, None, :]                                       # [B, 1, M]
-    B, TN = probe_offs.shape
-    M = docs.shape[1]
-    lo = torch.zeros((B, TN, M), dtype=torch.int64, device=docs.device)
-    hi = torch.clamp(lens, min=0).expand(B, TN, M).clone()
-    for _ in range(steps):
-        mid = (lo + hi) // 2
-        v = post_docs[offs + torch.minimum(mid, last)]
-        go_hi = v < want
-        lo = torch.where(go_hi, mid + 1, lo)
-        hi = torch.where(go_hi, hi, mid)
-    at = offs + torch.minimum(lo, last)
-    w = probe_w[:, :, None]
-    found = (lo < lens) & (post_docs[at] == want) & (w != 0.0)
-    mass = torch.where(found, w * post_impacts[at], 0.0)          # [B, TN, M]
-    probed = mass[:, 0]
-    for t in range(1, TN):
-        probed = probed + mass[:, t]
-    final = torch.where(valid, cand_scores + probed, float("-inf"))
-    order = torch.sort(docs, dim=1, stable=True).indices
-    docs_s = torch.gather(docs, 1, order)
-    final_s = torch.gather(final, 1, order)
-    top_s, pos = topk_lowest_index(final_s, k)
-    top_d = torch.gather(docs_s, 1, pos)
-    return top_s, top_d, top_s[:, k - 1]
-
-
 class PrunedIndex:
     """Device-resident packed postings (doc-sorted per run, global ords)
     plus per-run impact upper bounds, and the batched merge search.
@@ -184,7 +91,6 @@ class PrunedIndex:
         )
         # merge_score_topk's accelerator branch (the reference: _on_tpu())
         self.use_pallas = on_cuda(device_ids)
-        self._steps = max(int(np.ceil(np.log2(max(self.run_lengths.max(initial=1), 2)))) + 1, 1)
 
     @property
     def device(self) -> torch.device:
@@ -222,28 +128,14 @@ class PrunedIndex:
         out[:, -1] = lens_np
         return out
 
-    # -- helpers ---------------------------------------------------------------
-
-    def _term_stats(self, entries):
-        """Per term: (weight, [runs], df, ub)."""
-        out = []
-        for w, runs in entries:
-            df = int(sum(int(self.run_lengths[r]) for r in runs))
-            ub = w * float(max((self.run_ub[r] for r in runs), default=0.0))
-            out.append((w, runs, df, ub))
-        return out
-
     def _dispatch(self, rows, n_terms, k: int, require_all: bool,
                   filter_mask=None, additive=None, sort=None,
-                  device_out: bool = False, count_threshold=None,
                   reduce_cols=(), reduce_kinds=()):
         """One merge_score_topk dispatch over planned run tables (the
         reference's maxscore.py:258-300, without its ``force`` shape pin:
         eager torch has no compiled shapes to keep). Returns
         (out, (run_len, R)): ``out`` is (scores, docs, hits), then the
-        counts at or above ``count_threshold`` [B] when it is given, or the
-        reductions; host arrays, or the device tensors with
-        ``device_out``."""
+        reductions when ``reduce_kinds`` is given, as host arrays."""
         with span("plan.runs"):
             offs, lens, weights, run_len = plan_run_lists(
                 rows, max_run=int(self.doc_ids.shape[0])
@@ -253,28 +145,19 @@ class PrunedIndex:
             dev = self.device
             tables = [torch.as_tensor(x, device=dev) for x in (
                 offs, lens, weights, np.asarray(n_terms, np.int32))]
-            threshold = (
-                None if count_threshold is None
-                else torch.as_tensor(np.asarray(count_threshold, np.float32), device=dev)
-            )
         out = merge_score_topk(
             self.doc_ids, self.impacts, *tables,
             run_len=run_len, k=k_eff, require_all_terms=require_all,
             use_pallas=self.use_pallas, filter_mask=filter_mask, additive=additive,
             sort_keys=None if sort is None else sort[0],
             sort_ascending=True if sort is None else bool(sort[1]),
-            count_threshold=threshold,
             reduce_cols=reduce_cols, reduce_kinds=reduce_kinds,
         )
         shape = (run_len, offs.shape[1])
-        if device_out:
-            return out, shape
         with span("readback"):
             host = [t.cpu().numpy() for t in out[:3]]
             if reduce_kinds:
                 host.append([r.cpu().numpy() for r in out[3]])
-            elif count_threshold is not None:
-                host.append(out[3].cpu().numpy())
         return tuple(host), shape
 
     def search_chunked(self, query: dict, k: int, deadline: float, chunks: int = 8):
@@ -336,207 +219,33 @@ class PrunedIndex:
         queries: Sequence[dict],
         k: int,
         shape_log: Optional[dict] = None,
-        prune: bool = True,
         reduce_cols=(),
         reduce_kinds=(),
     ):
-        """Batched MaxScore-or-full search (the reference's
-        maxscore.py:403-459). Returns per query (scores [k] f32 -inf
-        padded, docs [k] int64, total_hits, exact): ``exact`` False means
-        the hits are a lower bound. With ``reduce_kinds`` (which always take
-        the full path) also the per-query reductions, as (results,
-        reductions). ``shape_log`` collects the largest (run_len, R) of
-        each dispatch kind ("theta", "essential", "full"). The reference's
-        ``force_*`` shape pins are left out: eager torch compiles no
-        shapes."""
+        """Batched full search (the reference's maxscore.py:403-459, its
+        full path). Returns per query (scores [k] f32 -inf padded,
+        docs [k] int64, total_hits); with ``reduce_kinds`` also the
+        per-query reductions, as (results, reductions). ``shape_log``
+        collects the largest (run_len, R) of the dispatches under "full".
+        The reference's ``force_*`` shape pins are left out: eager torch
+        compiles no shapes."""
         B = len(queries)
         results: list = [None] * B
         reductions: dict[int, list] = {}
-        if reduce_kinds:
-            # flat reductions read the full unique-match stream, which a
-            # pruned dispatch does not see
-            prune = False
-        full_idx: list[int] = []
-        pruned: list[dict] = []
+        live: list[int] = []
         for i, q in enumerate(queries):
-            if not q["entries"]:
-                results[i] = (
-                    np.full(k, -np.inf, np.float32), np.zeros(k, np.int64), 0, True,
-                )
-                if reduce_kinds:
-                    reductions[i] = _zero_reductions(reduce_kinds)
+            if q["entries"]:
+                live.append(i)
                 continue
-            plan = self._plan_theta(q, k) if prune else None
-            if plan is None:
-                full_idx.append(i)
-            else:
-                plan["i"] = i
-                pruned.append(plan)
-        if pruned:
-            self._run_pruned(queries, pruned, k, results, full_idx, shape_log)
-        if full_idx:
-            self._run_full(queries, full_idx, k, results, shape_log,
+            results[i] = (np.full(k, -np.inf, np.float32), np.zeros(k, np.int64), 0)
+            if reduce_kinds:
+                reductions[i] = _zero_reductions(reduce_kinds)
+        if live:
+            self._run_full(queries, live, k, results, shape_log,
                            reduce_cols, reduce_kinds, reductions)
         if reduce_kinds:
             return results, [reductions[i] for i in range(B)]
         return results
-
-    # -- pruned path ---------------------------------------------------------------
-
-    def _plan_theta(self, q: dict, k: int) -> Optional[dict]:
-        """Eligibility and the theta dispatch's terms for one query (the
-        reference's maxscore.py:461-481)."""
-        if q.get("require_all") or q.get("sort") is not None:
-            return None
-        stats = self._term_stats(q["entries"])
-        stats = [st for st in stats if st[2] > 0 and st[0] != 0.0]
-        if len(stats) < 2:
-            return None
-        total_width = sum(df for _, _, df, _ in stats)
-        if total_width < PRUNE_MIN_WIDTH or k > 1024:
-            return None
-        # theta terms: highest ub (rarest) first, within the postings budget
-        by_ub = sorted(stats, key=lambda st: -st[3])
-        theta_terms, used = [], 0
-        for st in by_ub:
-            if used + st[2] <= THETA_BUDGET:
-                theta_terms.append(st)
-                used += st[2]
-        if not theta_terms:
-            return None
-        return {"stats": stats, "theta_terms": theta_terms}
-
-    def _rows_for(self, terms) -> list[tuple[int, int, float]]:
-        return [
-            (int(self.run_offsets[r]), int(self.run_lengths[r]), w)
-            for w, runs, _df, _ub in terms
-            for r in runs
-            if self.run_lengths[r]
-        ]
-
-    def _run_pruned(self, queries, pruned, k, results, full_idx, shape_log):
-        """Theta dispatch, split, essential dispatch, probe and certificate
-        per column group (the reference's maxscore.py:500-603). A query
-        whose split prunes nothing or whose window overflows joins
-        ``full_idx``."""
-        M = _pow2(max(WINDOW_K_MULT * k, WINDOW_MIN))
-        groups = _group_by_arrays([queries[p["i"]] for p in pruned],
-                                  list(range(len(pruned))))
-        dev = self.device
-        for (fmask, addv), pidx in groups:
-            plans = [pruned[j] for j in pidx]
-            # the additive column's max bounds the columnar mass that a doc
-            # matching no essential term can carry. It is taken per group,
-            # launched before the theta dispatch and read after its host
-            # read: the reference caches it per id(column)
-            # (maxscore.py:233-247), and a freed request column's id can be
-            # reused by the next request's column
-            add_max = None if addv is None else addv.amax()
-            # theta dispatch (tiny)
-            rows_t = self._pad_rows([self._rows_for(p["theta_terms"]) for p in plans])
-            (s_t, _d_t, _h_t), shape = self._dispatch(
-                rows_t, [1] * len(rows_t), k, False,
-                filter_mask=fmask, additive=addv,
-            )
-            _log_shape(shape_log, "theta", shape)
-            max_add = 0.0 if add_max is None else max(float(add_max), 0.0)
-
-            # split, and the essential dispatch's rows and probe tables
-            ess_rows, probe_tables, run_idx, taus = [], [], [], []
-            for row_i, p in enumerate(plans):
-                # theta is the k-th real score; with fewer than k slots
-                # there is no k-th lower bound
-                theta = float(s_t[row_i][k - 1]) if s_t.shape[1] >= k else -np.inf
-                split = self._split(p["stats"], theta, max_add)
-                if split is None:
-                    full_idx.append(p["i"])
-                    continue
-                ess, non_ess, sum_ub = split
-                p["sum_ub"] = sum_ub
-                ess_rows.append(self._rows_for(ess))
-                probe_tables.append(self._rows_for(non_ess))
-                # docs below tau in essential score cannot reach theta even
-                # with every non-essential bound; the relative slack absorbs
-                # f32 summation-order noise (it counts a hair more)
-                tau = theta - sum_ub
-                taus.append(tau - 1e-5 * max(1.0, abs(tau)))
-                run_idx.append(row_i)
-            if not ess_rows:
-                continue
-            live_plans = [plans[j] for j in run_idx]
-            ess_rows = self._pad_rows(ess_rows)
-            taus = taus + [np.inf] * (len(ess_rows) - len(taus))
-
-            # essential dispatch, its output left on the device; it also
-            # counts the docs at or above tau
-            (s_e, d_e, h_e, n_above), shape = self._dispatch(
-                ess_rows, [1] * len(ess_rows), M, False,
-                filter_mask=fmask, additive=addv,
-                device_out=True, count_threshold=np.asarray(taus, np.float32),
-            )
-            _log_shape(shape_log, "essential", shape)
-            m_eff = int(s_e.shape[1])
-
-            # probe and finish; the probe tables' width is a power of two
-            TN = _pow2(max((len(t) for t in probe_tables), default=1) or 1)
-            po = np.zeros((len(ess_rows), TN), np.int32)
-            pl = np.zeros((len(ess_rows), TN), np.int32)
-            pw = np.zeros((len(ess_rows), TN), np.float32)
-            for bi, table in enumerate(probe_tables):
-                for ti, (o, ln, w) in enumerate(table):
-                    po[bi, ti], pl[bi, ti], pw[bi, ti] = o, ln, w
-            kk = min(k, m_eff)
-            top_s, top_d, _kth = probe_finish(
-                self.doc_ids, self.impacts, d_e, s_e,
-                torch.as_tensor(po, device=dev), torch.as_tensor(pl, device=dev),
-                torch.as_tensor(pw, device=dev), k=kk, steps=self._steps,
-            )
-            # the one host read of the pruned path
-            host = torch.cat([top_s.view(torch.int32), top_d.to(torch.int32),
-                              n_above[:, None].to(torch.int32),
-                              h_e[:, None].to(torch.int32)], dim=1).cpu().numpy()
-            top_s_h = host[:, :kk].view(np.float32)
-            top_d_h = host[:, kk:2 * kk]
-            n_above_h, h_e_h = host[:, 2 * kk], host[:, 2 * kk + 1]
-
-            # certify or escalate
-            for bi, p in enumerate(live_plans):
-                if int(n_above_h[bi]) > m_eff:
-                    # more tau-reaching docs than the window holds
-                    full_idx.append(p["i"])
-                    continue
-                out_s = np.full(k, -np.inf, np.float32)
-                out_d = np.zeros(k, np.int64)
-                out_s[:kk] = top_s_h[bi][:k]
-                out_d[:kk] = top_d_h[bi][:k].astype(np.int64)
-                out_d[out_s == -np.inf] = 0
-                # hits: essential matches only, a lower bound of the union
-                results[p["i"]] = (out_s, out_d, int(h_e_h[bi]), False)
-
-    @staticmethod
-    def _split(stats, theta: float, max_add: float):
-        """MaxScore split (the reference's maxscore.py:605-628). Returns
-        (essential, non_essential, sum_ub), or None when nothing can be
-        pruned."""
-        if not (theta > 0.0) or not np.isfinite(theta):
-            return None
-        by_ub = sorted(stats, key=lambda st: st[3])  # ascending ub
-        budget = SPLIT_FRAC * theta - max_add
-        non_ess, cum = [], 0.0
-        for st in by_ub:
-            if cum + st[3] < budget:
-                non_ess.append(st)
-                cum += st[3]
-            else:
-                break
-        if not non_ess:
-            return None
-        ess = [st for st in stats if not any(st is n for n in non_ess)]
-        if not ess:
-            # keep the highest-ub term essential: the window must exist
-            ess = [non_ess.pop()]
-            cum = sum(st[3] for st in non_ess)
-        return ess, non_ess, cum
 
     # -- full path -------------------------------------------------------------------
 
@@ -579,7 +288,7 @@ class PrunedIndex:
                     out_d = np.zeros(k, np.int64)
                     out_s[: min(k, kk)] = s2[row_i][:k]
                     out_d[: min(k, kk)] = d2[row_i][:k].astype(np.int64)
-                    results[i] = (out_s, out_d, int(h2[row_i]), True)
+                    results[i] = (out_s, out_d, int(h2[row_i]))
 
 
 def _zero_reductions(reduce_kinds) -> list:

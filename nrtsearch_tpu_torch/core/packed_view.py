@@ -6,15 +6,15 @@ array with doc ids rebased to GLOBAL ords, so runs from different segments
 are just more sorted runs in the same merge, and one dispatch scores the
 whole index for a whole query batch.
 
-Path choice mirrors the reference: ``NRT_FAST_PATH`` picks it; by default
-the fused dense path (``dense_search_batch``) serves when the index tensors
-live on CUDA (the reference serves it on its accelerator) and the exact
-merge path (``PrunedIndex.search``) on the CPU. Specs the fused path refuses
-go to the merge path, exactly as in the reference. ``NRT_FAST_PATH=bucket``
-(or ``NRT_BUCKET=1``) sends plain text batches to the bucket-local path
-(``bucket_search_batch``, ops/bucket_retrieval.py) after the fused attempt
-and before the merge path, as the reference routes it; its scores are
-15-bit quantized and it refuses specs with columns, as the reference does.
+Path choice mirrors the reference, and ``fast_path`` alone makes it from
+``NRT_FAST_PATH``: by default the fused dense path (``dense_search_batch``)
+serves when the index tensors live on CUDA (the reference serves it on its
+accelerator) and the exact merge path (``PrunedIndex.search``) on the CPU.
+Specs the fused path refuses go to the merge path, exactly as in the
+reference. ``NRT_FAST_PATH=bucket`` sends plain text batches to the
+bucket-local path (``bucket_search_batch``, ops/bucket_retrieval.py) and
+what it refuses to the merge path; its scores are 15-bit quantized and it
+refuses specs with columns, as the reference does.
 
 A spec may carry device columns indexed by global doc ord: a ``filter``
 mask, an ``additive`` score column and a ``sort`` (keys, ascending).
@@ -83,6 +83,15 @@ class FastResult:
     pruned: bool         # total_hits is a lower bound
 
 
+def fast_path(on_device: bool) -> str:
+    """The batched text route: ``NRT_FAST_PATH`` (``fused`` is another
+    name of ``dense``), or unset, ``dense`` when the index lives on the
+    device and ``merge`` on the CPU. ``dense`` and ``bucket`` name the
+    fused and bucket paths; any other value serves as ``merge``."""
+    path = os.environ.get("NRT_FAST_PATH", "") or ("dense" if on_device else "merge")
+    return "dense" if path == "fused" else path
+
+
 def _empty(k: int) -> FastResult:
     return FastResult(np.full(k, -np.inf, np.float32), np.zeros(k, np.int64), 0, False)
 
@@ -91,9 +100,20 @@ class PackedFieldView:
     """All live segments' postings for one field, packed for fused search."""
 
     # H rows x D docs: at most 1024 rows, and at most this many bytes of
-    # bf16 rows (+ residual rows) per field view
+    # bf16 rows and their residual rows per field view
     _DENSE_MAX_ROWS = 1024
     _DENSE_BYTES_BUDGET = 2048 << 20
+    # the fused path's fixed shapes: at most _DENSE_U head rows a dispatch
+    # (32 when the batch needs no more), head terms past them spilling to
+    # the tail, and _DENSE_R tail runs a query of ``dense_run_len`` each
+    _DENSE_U = 128
+    _DENSE_R = 8
+
+    @staticmethod
+    def dense_run_len(tail_max_df: int) -> int:
+        """The fused path's tail run length on a snapshot: its largest
+        tail df as a power of two, within [4096, 65536]."""
+        return _pow2(min(max(4096, tail_max_df), 65536))
 
     def __init__(self, searcher, field: str):
         from nrtsearch_tpu_torch.core.maxscore import PrunedIndex
@@ -310,8 +330,8 @@ class PackedFieldView:
         dev = self.index.device
         D = -(-self.max_doc // 128) * 128
         min_df = max(256, self.max_doc // 512)
-        residual = os.environ.get("NRT_DENSE_RESIDUAL", "1") != "0"
-        bytes_per_row = (4 if residual else 2) * D
+        # bf16 rows and their Dekker residual rows
+        bytes_per_row = 4 * D
         max_rows = min(
             self._DENSE_MAX_ROWS, self._DENSE_BYTES_BUDGET // bytes_per_row
         )
@@ -351,13 +371,11 @@ class PackedFieldView:
         hi = imps.to(torch.bfloat16)
         rows = torch.zeros((Hp, D), dtype=torch.bfloat16, device=dev)
         rows[rowid, ids] = hi
-        rows_lo = None
-        if residual:
-            # Dekker residual: bf16(imp - f32(hi))
-            lo = (imps - hi.float()).to(torch.bfloat16)
-            rows_lo = torch.zeros((Hp, D), dtype=torch.bfloat16, device=dev)
-            rows_lo[rowid, ids] = lo
-        del gidx, rowid, ids, imps, hi
+        # Dekker residual: bf16(imp - f32(hi))
+        lo = (imps - hi.float()).to(torch.bfloat16)
+        rows_lo = torch.zeros((Hp, D), dtype=torch.bfloat16, device=dev)
+        rows_lo[rowid, ids] = lo
+        del gidx, rowid, ids, imps, hi, lo
         row_max = rows.amax(dim=1).float()
         # the largest tail (non-head) df sizes the fixed serving run_len
         tail_max_df = max((n for t, n in df.items() if t not in head_pos), default=0)
@@ -419,9 +437,7 @@ class PackedFieldView:
             return x if n == D else F.pad(x, (0, D - n))
 
         out: list = [_empty(k)] * B
-        # shape discipline: U from a 2-value menu with head->tail spill, one
-        # fixed tail shape (run_len, R) per snapshot
-        u_cap = int(os.environ.get("NRT_DENSE_U", "128"))
+        u_cap = self._DENSE_U
         for (*_cols, is_and), idxs in groups.items():
             items = [parsed[i] for i in idxs]
             live_items = [it for it in items if not it[3]]
@@ -464,8 +480,7 @@ class PackedFieldView:
             if spill_and:
                 return _refused("spill_and")  # merge path serves the conjunction exactly
             has_head = bool(used)
-            lo = min(32, u_cap)
-            U = lo if len(used) <= lo else u_cap
+            U = 32 if len(used) <= 32 else u_cap
             W = np.zeros((Bg, U), np.float32)
             row_idx = np.zeros(U, np.int32)
             for r, slot in used.items():
@@ -474,10 +489,8 @@ class PackedFieldView:
                 for slot, w in slots:
                     W[gi, slot] += w
             if any_tail:
-                run_len = int(os.environ.get("NRT_DENSE_RL", 0)) or _pow2(
-                    min(max(4096, st["tail_max_df"]), 65536)
-                )
-                R_fix = int(os.environ.get("NRT_DENSE_R", "8"))
+                run_len = self.dense_run_len(st["tail_max_df"])
+                R_fix = self._DENSE_R
                 t_offs = np.zeros((Bg, R_fix), np.int32)
                 t_lens = np.zeros((Bg, R_fix), np.int32)
                 t_w = np.zeros((Bg, R_fix), np.float32)
@@ -613,36 +626,28 @@ class PackedFieldView:
     # -- batched search ------------------------------------------------------------
 
     def search_batch(
-        self, specs: Sequence[QuerySpec], k: int, prune: Optional[bool] = None,
-        reduce_cols=(), reduce_kinds=(),
+        self, specs: Sequence[QuerySpec], k: int, reduce_cols=(), reduce_kinds=(),
     ):
         """Batched search over all segments in one dispatch per path (and
         column group).
 
-        ``NRT_FAST_PATH`` picks the path; unset, the fused dense path when
-        the index lives on CUDA and the merge path on the CPU. The bucket
-        path is opt-in (``NRT_FAST_PATH=bucket`` or ``NRT_BUCKET=1``), as in
-        the reference; what it refuses goes to the merge path. With
+        ``fast_path`` picks the path: with ``NRT_FAST_PATH`` unset, the
+        fused dense path when the index lives on CUDA and the merge path on
+        the CPU. The bucket path is opt-in (``NRT_FAST_PATH=bucket``), as in
+        the reference. What the fused or bucket path refuses goes to the
+        merge path. With
         ``reduce_kinds`` the batch takes the merge path and returns
-        (results, per-spec reductions). ``prune=None`` reads NRT_MAXSCORE
-        (default off); with it the merge path takes MaxScore pruning
-        (core/maxscore.py), whose hit counts are lower bounds (``pruned``)."""
+        (results, per-spec reductions)."""
         from nrtsearch_tpu_torch.core.maxscore import _zero_reductions
 
-        path = os.environ.get("NRT_FAST_PATH", "")
-        if not path:
-            on_dev = self.index is not None and on_cuda(self.index.doc_ids)
-            path = "dense" if on_dev else "merge"
-        if prune is None:
-            prune = os.environ.get("NRT_MAXSCORE", "0") == "1"
-        if path in ("dense", "fused") and not reduce_kinds:
+        path = fast_path(self.index is not None and on_cuda(self.index.doc_ids))
+        if path == "dense" and not reduce_kinds:
             with span("fused"):
                 res = self.dense_search_batch(specs, k)
             if res is not None:
                 self.path_counts["fused"] += len(specs)
                 return res
-        if (path == "bucket" or os.environ.get("NRT_BUCKET", "0") == "1") \
-                and not reduce_kinds:
+        if path == "bucket" and not reduce_kinds:
             res = self.bucket_search_batch(specs, k)
             if res is not None:
                 self.path_counts["bucket"] += len(specs)
@@ -677,13 +682,12 @@ class PackedFieldView:
             sub = [queries[qi] for qi in live_idx]
             if reduce_kinds:
                 results, reds_sub = self.index.search(
-                    sub, k, prune=prune, reduce_cols=reduce_cols,
-                    reduce_kinds=reduce_kinds)
+                    sub, k, reduce_cols=reduce_cols, reduce_kinds=reduce_kinds)
             else:
-                results = self.index.search(sub, k, prune=prune)
+                results = self.index.search(sub, k)
             for si, qi in enumerate(live_idx):
-                s, d, total, count_exact = results[si]
-                out[qi] = FastResult(s, d, total, not count_exact)
+                s, d, total = results[si]
+                out[qi] = FastResult(s, d, total, False)
                 if reduce_kinds:
                     reds[qi] = reds_sub[si]
         return (out, reds) if reduce_kinds else out

@@ -560,17 +560,16 @@ class Searcher:
 
     def warm(self, fields: Sequence[str]) -> None:
         """Eagerly build packed views, and the dense-head rows when the
-        fused path is active (CUDA default, or NRT_FAST_PATH in {dense,
-        fused}), so the first query after a refresh does not pay them."""
-        path = os.environ.get("NRT_FAST_PATH", "")
+        fused path is the route (``packed_view.fast_path``), so the first
+        query after a refresh does not pay them."""
+        from nrtsearch_tpu_torch.core.packed_view import fast_path
+
         for f in fields:
             if self.field_defs.get(f) is not None and any(
                 f in seg.fields for seg in self.segments
             ):
                 view = self.packed_view(f)
-                if view.index is not None and (
-                    path in ("dense", "fused") or (not path and on_cuda(view.index.doc_ids))
-                ):
+                if view.index is not None and fast_path(on_cuda(view.index.doc_ids)) == "dense":
                     view._dense_state()
 
     # -- sorts -----------------------------------------------------------------
@@ -847,10 +846,10 @@ class Searcher:
         the batch is not eligible (filters, sorts, additive columns and
         multi-term conjunctions stay local) or fewer than two search
         devices exist (the reference's searcher.py:689-767). The fused mesh
-        serves when NRT_FAST_PATH is dense/fused, or unset with the index
-        on CUDA; else the merge mesh."""
+        serves when ``packed_view.fast_path`` routes to the fused path; else
+        the merge mesh."""
         from nrtsearch_tpu_torch import device as _device
-        from nrtsearch_tpu_torch.core.packed_view import FastResult
+        from nrtsearch_tpu_torch.core.packed_view import FastResult, fast_path
 
         if int(self.dist_shards) <= 1 or len(_device.search_devices()) < 2:
             return None
@@ -876,9 +875,8 @@ class Searcher:
                 spec, FastResult(scores[qi], gids[qi], int(hits_n[qi]), False), top_hits)
                 for qi, spec in enumerate(specs)]
 
-        fp = os.environ.get("NRT_FAST_PATH", "")
         view = self.packed_view(specs[0].field)
-        if fp in ("dense", "fused") or (not fp and on_cuda(view.index.doc_ids)):
+        if fast_path(view.index is not None and on_cuda(view.index.doc_ids)) == "dense":
             with self._dist_build_lock:
                 if not dist.dense_attached:
                     dist.attach_dense()

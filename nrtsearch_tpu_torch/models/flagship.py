@@ -2,13 +2,11 @@
 (counterpart: nrtsearch_tpu/models/flagship.py).
 
 ``BatchedBM25`` holds one field's packed postings and their refresh-time
-impacts on one device, the term dictionary on the host, and six routes:
+impacts on one device, the term dictionary on the host, and five routes:
 
 - ``search``: the scatter-free merge step (``bm25_search_step``, the
   port's ``merge_score_topk``), on its accelerator branch when the postings
   live on CUDA: kernels #2-#6.
-- ``serve_maxscore_batch``: MaxScore pruning over ``core.maxscore.PrunedIndex``
-  (``attach_maxscore``), certify or escalate to the full merge.
 - ``serve_bucket_batch``: the bucket-local kernel with 15-bit quantized
   scores (``attach_bucket``; kernels #7 and #8 in one launch on the card).
 - ``serve_dense_batch``: dense bf16 head rows + the bucket tail
@@ -222,48 +220,6 @@ class BatchedBM25:
             require_all_terms=require_all_terms,
             use_pallas=self.on_cuda(),
         )
-
-    # -- MaxScore -------------------------------------------------------------
-
-    def attach_maxscore(self):
-        """The MaxScore engine (core/maxscore.py) over the model's postings:
-        it shares doc_ids / impacts and adds per-term impact upper bounds."""
-        from nrtsearch_tpu_torch.core.maxscore import PrunedIndex
-
-        self.maxscore = PrunedIndex(
-            self.doc_ids, self.impacts,
-            np.asarray(self.offsets, np.int64),
-            np.asarray(self.lengths, np.int32),
-            self.num_docs_real,
-        )
-        return self.maxscore
-
-    def maxscore_queries(self, queries, max_terms: int = 8) -> list[dict]:
-        """Analyzed query term lists -> PrunedIndex query dicts."""
-        out = []
-        for qterms in queries:
-            entries = []
-            for term in list(qterms)[:max_terms]:
-                tid = self.terms.get(term)
-                if tid is None or not self.lengths[tid]:
-                    continue
-                w = lucene_idf(self.num_docs_real, int(self.lengths[tid]))
-                entries.append((w, [tid]))
-            out.append({"entries": entries, "require_all": False, "n_terms": 1})
-        return out
-
-    def serve_maxscore_batch(self, queries, k: int, *, max_terms: int = 8,
-                             shape_log: Optional[dict] = None):
-        """One serving batch on the MaxScore path. Returns (scores [B, k],
-        docs [B, k], hits [B], n_pruned): n_pruned counts the queries whose
-        answers came from the pruned path (their hits are lower bounds)."""
-        tq = self.maxscore_queries(queries, max_terms)
-        results = self.maxscore.search(tq, k, shape_log=shape_log)
-        scores = np.stack([r[0] for r in results])
-        docs = np.stack([r[1] for r in results])
-        hits = np.asarray([r[2] for r in results], np.int64)
-        n_pruned = sum(1 for r in results if not r[3])
-        return scores, docs, hits, n_pruned
 
     # -- bucket ---------------------------------------------------------------
 

@@ -22,11 +22,11 @@ f32 and bit-equal to the reference: every stage keeps its operation order.
   On CUDA its merge levels still go through the far/near kernels.
 
 Both branches take the reference's column arguments in its order
-(``merge_scoring.py:372-462``): a filter gates the merged contributions
-before the finish; flat reductions read the finish's match stream; then
-sort keys replace the masked scores (negated for an ascending sort, and
-negated back after the top-k), or the additive column is added to them; a
-count threshold counts the masked values at or above it.
+(``merge_scoring.py:372-462``), less its count threshold, which only
+MaxScore pruning read: a filter gates the merged contributions before the
+finish; flat reductions read the finish's match stream; then sort keys
+replace the masked scores (negated for an ascending sort, and negated back
+after the top-k), or the additive column is added to them.
 """
 
 from __future__ import annotations
@@ -350,14 +350,12 @@ def merge_score_topk(
     additive=None,
     sort_keys=None,
     sort_ascending: bool = True,
-    count_threshold=None,
     reduce_cols=(),
     reduce_kinds=(),
 ):
     """Scatter-free retrieval. Returns (scores [B, k], docs [B, k],
-    hits [B]), plus counts [B] of masked values at or above
-    ``count_threshold`` [B] when it is given, or else the list of flat
-    reductions when ``reduce_kinds`` is given (see ``_flat_reductions``).
+    hits [B]), plus the list of flat reductions when ``reduce_kinds`` is
+    given (see ``_flat_reductions``).
     Deleted docs carry zero impacts and drop out through the ``score > 0``
     mask. ``filter_mask`` (bool [D]), ``additive`` and ``sort_keys`` (f32
     [D]) are indexed by doc id; with sort keys the returned scores are the
@@ -367,8 +365,7 @@ def merge_score_topk(
         use_pallas = on_cuda(post_docs)
     R = term_offsets.shape[1]
     cols = dict(additive=additive, sort_keys=sort_keys, sort_ascending=sort_ascending,
-                count_threshold=count_threshold, reduce_cols=reduce_cols,
-                reduce_kinds=reduce_kinds)
+                reduce_cols=reduce_cols, reduce_kinds=reduce_kinds)
     if not use_pallas:
         docs, contribs = gather_runs(
             post_docs, post_impacts, term_offsets, term_lengths, term_weights, run_len
@@ -491,8 +488,7 @@ def _flat_reductions(match, docs, reduce_cols, reduce_kinds) -> list:
 
 
 def _rank_topk(masked, docs, k: int, topk, *, additive=None, sort_keys=None,
-               sort_ascending: bool = True, count_threshold=None, reduce_cols=(),
-               reduce_kinds=()):
+               sort_ascending: bool = True, reduce_cols=(), reduce_kinds=()):
     """The column half of the finish, over a masked stream (the per-doc
     sum at each matched doc's last entry, -inf elsewhere): hit counts and
     reductions from the match stream, then sort keys or the additive
@@ -512,9 +508,6 @@ def _rank_topk(masked, docs, k: int, topk, *, additive=None, sort_keys=None,
     top_docs = torch.gather(docs, 1, pos)
     if sort_keys is not None and sort_ascending:
         top_scores = torch.where(top_scores > neg, -top_scores, top_scores)
-    if count_threshold is not None:
-        n_above = (masked >= count_threshold[:, None]).sum(dim=-1, dtype=torch.int32)
-        return top_scores, top_docs, total_hits, n_above
     if reductions is not None:
         return top_scores, top_docs, total_hits, reductions
     return top_scores, top_docs, total_hits

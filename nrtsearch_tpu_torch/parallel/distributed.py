@@ -411,17 +411,13 @@ class DistributedBM25:
     # -- the dense mesh --------------------------------------------------------------
 
     def attach_dense(self, *, max_rows: int = 1024, min_df: int | None = None,
-                     residual: bool | None = None) -> int:
+                     residual: bool = True) -> int:
         """Per-shard dense head rows (the reference's
         distributed.py:358-409): the global head terms (df >= min_df, the
         top max_rows by df), each shard writing its own postings into bf16
         [Hp, cap] impact rows, so virtual shards add head capacity.
-        ``residual`` (default: NRT_DENSE_RESIDUAL, on) also builds the
-        Dekker residual rows. Returns the head row count."""
-        import os
-
-        if residual is None:
-            residual = os.environ.get("NRT_DENSE_RESIDUAL", "1") != "0"
+        ``residual`` also builds the Dekker residual rows. Returns the head
+        row count."""
         S, V = self.term_lengths_host.shape
         if min_df is None:
             min_df = max(256, self.num_docs_total // 512)

@@ -1,8 +1,9 @@
-"""Copy of ``nrtsearch_tpu/server/monitoring.py``, kept whole but for one
-line and two histograms: the serving path's gauge reads the device the
-node's indexes live on (``GlobalState.device``) where the reference asks
-whether JAX runs on a TPU, and the micro-batcher's group sizes and queue
-waits (``server/batcher.py``) have histograms of their own.
+"""Copy of ``nrtsearch_tpu/server/monitoring.py``, kept whole but for the
+serving path's gauge and two histograms: the gauge takes its route from
+``core/packed_view.fast_path`` on the device the node's indexes live on
+(``GlobalState.device``) where the reference asks whether JAX runs on a
+TPU, and the micro-batcher's group sizes and queue waits
+(``server/batcher.py``) have histograms of their own.
 
 Prometheus metrics.
 
@@ -171,15 +172,10 @@ class Metrics:
         self.search_stage_latency.labels(index, stage).observe(seconds)
 
     def scrape(self) -> str:
-        import os as _os
+        from nrtsearch_tpu_torch.core.packed_view import fast_path
 
         on_cuda = getattr(getattr(self.global_state, "device", None), "type", "") == "cuda"
-
-        active = _os.environ.get("NRT_FAST_PATH", "") or (
-            "dense" if on_cuda else "merge"
-        )
-        if active == "fused":   # round-5 alias: the fused dense path
-            active = "dense"
+        active = fast_path(on_cuda)
         for p in ("dense", "merge", "bucket"):
             self.fast_path.labels(p).set(1.0 if p == active else 0.0)
         if self.global_state is not None:

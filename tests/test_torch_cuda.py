@@ -175,7 +175,7 @@ def test_head_scores_kernel_query_chunks(cuda_device, B):
 @pytest.mark.parametrize("B", [8, 32])
 def test_head_scores_kernel_wide_u(cuda_device, B, U):
     """U past the kernel's 512-column weight window (any U that
-    NRT_DENSE_U gives): the window reloads as each tile's k-steps reach it;
+    the kernel may be handed): the window reloads as each tile's k-steps reach it;
     S within the bound, C bit-equal."""
     rows, rows_lo, idx, W = _head_inputs(B + U, B, U, 4096)
     g = [t.to(cuda_device) for t in (rows, rows_lo, idx, W)]
@@ -434,9 +434,13 @@ def test_merge_score_topk_cuda_equals_cpu_accel_branch(cuda_device, run_len, req
     assert torch.equal(g[1].cpu()[fin], c[1][fin])
 
 
-def _column_args(case, rng, B, D, dev):
-    """merge_score_topk column arguments: a filter with an additive column
-    and count thresholds; a filter with a descending sort (keys with long
+# each column case keeps the seed it has always drawn from
+_COLUMN_SEEDS = {"filter_additive": 21, "sort_desc_reduce": 16, "sort_asc": 8}
+
+
+def _column_args(case, rng, D, dev):
+    """merge_score_topk column arguments: a filter with an additive column;
+    a filter with a descending sort (keys with long
     tie plateaus and a missing sentinel) and every reduction kind; an
     ascending sort."""
     def t(x):
@@ -445,10 +449,9 @@ def _column_args(case, rng, B, D, dev):
     filt = rng.random(D) < 0.7
     keys = rng.integers(0, 50, D).astype(np.float32)
     keys[rng.random(D) < 0.01] = np.float32(-1e38)
-    if case == "filter_additive_count":
+    if case == "filter_additive":
         additive = np.where(rng.random(D) < 0.5, 1.5, 0.0).astype(np.float32)
-        return dict(filter_mask=t(filt), additive=t(additive),
-                    count_threshold=t(np.linspace(0.5, 3.0, B).astype(np.float32)))
+        return dict(filter_mask=t(filt), additive=t(additive))
     if case == "sort_asc":
         return dict(sort_keys=t(keys), sort_ascending=True)
     tags = rng.integers(-1, 12, D).astype(np.int32)
@@ -462,19 +465,19 @@ def _column_args(case, rng, B, D, dev):
 
 
 @pytest.mark.parametrize("run_len", [4096, 65536])
-@pytest.mark.parametrize("case", ["filter_additive_count", "sort_desc_reduce", "sort_asc"])
+@pytest.mark.parametrize("case", ["filter_additive", "sort_desc_reduce", "sort_asc"])
 def test_merge_score_topk_columns_cuda_equals_cpu(cuda_device, case, run_len):
     """The column arguments on the card's accelerator branch against the
     same call on the CPU (twins): bit-equal scores, keys, hits and counts;
     reduction counts equal, the f32 sum within 1e-6 relative."""
-    rng = np.random.default_rng(run_len + len(case))
+    rng = np.random.default_rng(run_len + _COLUMN_SEEDS[case])
     P = 3 * run_len
     docs, imps = _postings(rng, P, P // 2)
     tabs = _tables(rng, 4, 8, run_len, P)
     n_terms = torch.tensor([2, 3, 1, 1], dtype=torch.int32)
     kw = dict(run_len=run_len, k=100, require_all_terms=case == "sort_asc")
-    cpu_cols = _column_args(case, np.random.default_rng(7), 4, P // 2, "cpu")
-    gpu_cols = _column_args(case, np.random.default_rng(7), 4, P // 2, cuda_device)
+    cpu_cols = _column_args(case, np.random.default_rng(7), P // 2, "cpu")
+    gpu_cols = _column_args(case, np.random.default_rng(7), P // 2, cuda_device)
     g = ms.merge_score_topk(docs.to(cuda_device), imps.to(cuda_device),
                             *[x.to(cuda_device) for x in tabs], n_terms.to(cuda_device),
                             **kw, **gpu_cols)
@@ -483,8 +486,6 @@ def test_merge_score_topk_columns_cuda_equals_cpu(cuda_device, case, run_len):
     assert torch.equal(g[2].cpu(), c[2]) and int(c[2][:-1].min()) > 0   # row 3: no runs
     fin = torch.isfinite(c[0])
     assert torch.equal(g[1].cpu()[fin], c[1][fin])
-    if case == "filter_additive_count":
-        assert torch.equal(g[3].cpu(), c[3])
     if case == "sort_desc_reduce":
         for i, (a, b) in enumerate(zip(g[3], c[3])):
             if i == 1:
@@ -1534,7 +1535,7 @@ def test_inner_hits_cuda_equals_cpu(cuda_device, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# virtual shards, MaxScore pruning and the standalone bucket API on the card
+# virtual shards and the standalone bucket API on the card
 # ---------------------------------------------------------------------------
 
 
@@ -1577,33 +1578,6 @@ def test_mesh_on_card_equals_cpu(cuda_device):
     np.testing.assert_allclose(g[0], c[0], rtol=1e-6)
     swap = g[1] != c[1]
     assert (np.abs(g[0] - c[0])[swap] <= 2e-6 * np.abs(c[0])[swap]).all()
-
-
-def test_pruned_search_on_card_equals_cpu(cuda_device, monkeypatch):
-    """MaxScore on the card against the CPU's accelerator-branch twins:
-    equal shape logs, docs, hits and exact flags, scores within 4 ulps."""
-    from torch_maxscore_data import index_arrays, queries, ulps
-
-    from nrtsearch_tpu_torch.core import maxscore
-
-    monkeypatch.setattr(maxscore, "PRUNE_MIN_WIDTH", 64)
-    monkeypatch.setattr(maxscore, "THETA_BUDGET", 256)
-    monkeypatch.setattr(maxscore, "WINDOW_MIN", 128)
-    d_ids, d_imp, offsets, lengths, n = index_arrays()
-    gpu = maxscore.PrunedIndex(torch.from_numpy(d_ids).to(cuda_device),
-                               torch.from_numpy(d_imp).to(cuda_device), offsets, lengths, n)
-    cpu = maxscore.PrunedIndex(torch.from_numpy(d_ids), torch.from_numpy(d_imp),
-                               offsets, lengths, n)
-    cpu.use_pallas = True
-    qs = queries(lengths, n, np.random.default_rng(7), 24, 5, len(lengths))
-    glog, clog = {}, {}
-    g = gpu.search(qs, 10, shape_log=glog)
-    c = cpu.search(qs, 10, shape_log=clog)
-    assert glog == clog and "essential" in glog
-    for a, b in zip(g, c):
-        np.testing.assert_array_equal(a[1], b[1])
-        assert ulps(a[0], b[0]) <= 4 and (a[2], a[3]) == (b[2], b[3])
-    assert sum(not a[3] for a in g) > 0
 
 
 def test_standalone_bucket_search_on_card(cuda_device):
@@ -1650,7 +1624,7 @@ def test_standalone_bucket_search_on_card(cuda_device):
 @pytest.fixture(scope="module")
 def flagship_pair(cuda_device):
     """The same corpus as a model on the card and on the CPU, with the same
-    bucket, dense-head and MaxScore indexes (the CPU copy takes the card's
+    bucket and dense-head indexes (the CPU copy takes the card's
     head rows, so both score the same bf16 rows)."""
     import dataclasses
 
@@ -1660,12 +1634,10 @@ def flagship_pair(cuda_device):
     card, cpu = corpus.to_model(cuda_device), corpus.to_model("cpu")
     card.attach_bucket(4096)
     card.attach_dense(max_rows=32, min_df=400, residual=True)
-    card.attach_maxscore()
     idx = card.dense_idx
     cpu.bucket_idx = card.bucket_idx
     cpu.dense_idx = dataclasses.replace(idx, rows=idx.rows.cpu(), rows_lo=idx.rows_lo.cpu(),
                                         row_max=idx.row_max.cpu())
-    cpu.attach_maxscore()
     return card, cpu, corpus.sample_queries(24, 4) + [[], ["no-such-term"]]
 
 
@@ -1739,20 +1711,6 @@ def test_flagship_dense_merge_and_fused_on_card_equal_cpu(flagship_pair):
             for i in (1, 2, 3):
                 np.testing.assert_array_equal(got[i], want[i])
             np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
-
-
-def test_flagship_maxscore_on_card_equals_cpu(flagship_pair):
-    """MaxScore on the card: docs, hits and the pruned count equal to the
-    CPU copy's, scores within 4 f32 ulps."""
-    card, cpu, qs = flagship_pair
-    got = card.serve_maxscore_batch(qs, 50)
-    want = cpu.serve_maxscore_batch(qs, 50)
-    np.testing.assert_array_equal(got[1], want[1])
-    np.testing.assert_array_equal(got[2], want[2])
-    assert got[3] == want[3]
-    fin = np.isfinite(want[0])
-    bits = np.abs(got[0].view(np.int32).astype(np.int64) - want[0].view(np.int32))
-    assert np.where(fin, bits, 0).max() <= 4
 
 
 def test_native_builder_segments_on_card(cuda_device, monkeypatch):

@@ -389,17 +389,17 @@ def _columns(rng, max_doc):
 
 
 # each case puts several column arguments into one call, as a served batch
-# does: a filter with an additive column and a count threshold; a filter
-# with a descending sort and every reduction kind; an ascending sort of a
-# conjunction
-COLUMN_CASES = ["filter_additive_count", "sort_desc_reduce", "sort_asc_and"]
+# does: a filter with an additive column; a filter with a descending sort
+# and every reduction kind; an ascending sort of a conjunction. Each case
+# keeps the seed it has always drawn from
+COLUMN_CASES = ["filter_additive", "sort_desc_reduce", "sort_asc_and"]
+CASE_SEEDS = {"filter_additive": 21, "sort_desc_reduce": 16, "sort_asc_and": 12}
 
 
-def _column_kwargs(case, cols, B, conv):
+def _column_kwargs(case, cols, conv):
     filt, additive, keys, tags, vals = cols
-    if case == "filter_additive_count":
-        return dict(filter_mask=conv(filt), additive=conv(additive),
-                    count_threshold=conv(np.linspace(0.5, 3.0, B).astype(np.float32)))
+    if case == "filter_additive":
+        return dict(filter_mask=conv(filt), additive=conv(additive))
     if case == "sort_asc_and":
         return dict(sort_keys=conv(keys), sort_ascending=True)
     present = conv(tags >= 0)
@@ -416,8 +416,6 @@ def _assert_columns_equal(out, ref, case):
     assert int(np.asarray(ref[2]).min()) > 0, case
     fin = np.isfinite(np.asarray(ref[0]))
     np.testing.assert_array_equal(out[1].numpy()[fin], np.asarray(ref[1])[fin], err_msg=case)
-    if case == "filter_additive_count":
-        np.testing.assert_array_equal(out[3].numpy(), np.asarray(ref[3]))
     if case == "sort_desc_reduce":
         for i, (p, r) in enumerate(zip(out[3], ref[3])):
             if i == 1:      # the f32 sum: another summation order
@@ -431,7 +429,7 @@ def test_merge_score_topk_columns_plain_branch(case):
     """The plain branch (the reference's XLA path, use_pallas False)."""
     from nrtsearch_tpu.ops import merge_scoring as ref_ms
 
-    rng = np.random.default_rng(len(case))
+    rng = np.random.default_rng(CASE_SEEDS[case])
     post_docs, post_imps, run_offs, run_lens, max_doc = _index(rng, max_doc=120_000)
     B, R, run_len = 3, 8, 4096
     offs = np.zeros((B, R), np.int32)
@@ -448,9 +446,9 @@ def test_merge_score_topk_columns_plain_branch(case):
     args = (post_docs, post_imps, offs, lens, w, n_terms)
     kw = dict(run_len=run_len, k=40, require_all_terms=case == "sort_asc_and")
     ref = ref_ms.merge_score_topk(*map(jnp.asarray, args), **kw,
-                                  **_column_kwargs(case, cols, B, jnp.asarray))
+                                  **_column_kwargs(case, cols, jnp.asarray))
     out = port_ms.merge_score_topk(*map(to_torch, args), use_pallas=False, **kw,
-                                   **_column_kwargs(case, cols, B, to_torch))
+                                   **_column_kwargs(case, cols, to_torch))
     _assert_columns_equal(out, ref, case)
 
 
@@ -460,7 +458,7 @@ def test_merge_score_topk_columns_accel_branch(interpret, case, monkeypatch):
     the reference's Pallas kernels in interpret mode."""
     from nrtsearch_tpu.ops import merge_scoring as ref_ms
 
-    rng = np.random.default_rng(100 + len(case))
+    rng = np.random.default_rng(100 + CASE_SEEDS[case])
     post_docs, post_imps, run_offs, run_lens, max_doc = _index(rng)
     B, R, run_len = 2, 4, 65536
     offs = np.tile(run_offs[:R].astype(np.int32), (B, 1))
@@ -472,9 +470,9 @@ def test_merge_score_topk_columns_accel_branch(interpret, case, monkeypatch):
     kw = dict(run_len=run_len, k=60, require_all_terms=case == "sort_asc_and")
     alt = alt_merges(monkeypatch)
     ref = ref_ms.merge_score_topk(*map(jnp.asarray, args), use_pallas=True, **kw,
-                                  **_column_kwargs(case, cols, B, jnp.asarray))
+                                  **_column_kwargs(case, cols, jnp.asarray))
     out = port_ms.merge_score_topk(*map(to_torch, args), use_pallas=True, **kw,
-                                   **_column_kwargs(case, cols, B, to_torch))
+                                   **_column_kwargs(case, cols, to_torch))
     assert len(alt) == 1
     _assert_columns_equal(out, ref, case)
 

@@ -3,16 +3,14 @@ reference's, route by route, on the CPU.
 
 Both packages build their ``BatchedBM25`` from the same seeded
 ``SyntheticCorpus`` (the port's corpus draws the reference's numbers) and
-attach the same bucket, dense-head and MaxScore indexes. Each of the six
-routes then answers the same queries in both. The reference runs as its
+attach the same bucket and dense-head indexes. Each of the five routes
+then answers the same queries in both. The reference runs as its
 own tests run it on the CPU: its merge step on the XLA branch, its bucket
 kernels in Pallas interpret mode; the port runs its plain torch versions.
 
 Tolerances, each stated where it is used:
 - ``search``: docs and hits equal, scores bit-equal (the same f32
   operations in the same order).
-- MaxScore: docs and hits equal, scores within 4 f32 ulps (the probe sums a
-  doc's non-essential mass in run order).
 - bucket: keys, docs and hits equal (integer sums).
 - dense head + bucket tail: hits equal, docs equal but at near-ties, scores
   within 8 f32 ulps of the largest score the query can reach (XLA and
@@ -29,12 +27,10 @@ import numpy as np
 import pytest
 import torch
 
-from nrtsearch_tpu.core import maxscore as ref_maxscore
 from nrtsearch_tpu.models.flagship import BatchedBM25 as RefBM25
 from nrtsearch_tpu.models.flagship import SyntheticCorpus as RefCorpus
 from nrtsearch_tpu.ops import dense_head as ref_dh
 from nrtsearch_tpu_torch import convert
-from nrtsearch_tpu_torch.core import maxscore as port_maxscore
 from nrtsearch_tpu_torch.models import flagship
 from nrtsearch_tpu_torch.models.synthetic import SyntheticCorpus
 from nrtsearch_tpu_torch.ops import bucket_retrieval as br
@@ -52,7 +48,6 @@ def models():
     for m in (ref, port):
         m.attach_bucket(4096)
         m.attach_dense(max_rows=16, min_df=300, bucket_docs=4096, residual=True)
-        m.attach_maxscore()
     queries = ref_corpus.sample_queries(12, 4)
     assert corpus.sample_queries(12, 4) == queries
     head = [str(int(t)) for t in port.dense_idx.head_ids]
@@ -71,13 +66,6 @@ def models():
 
 def _np(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def _ulps(a, b) -> int:
-    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
-    fin = np.isfinite(a) | np.isfinite(b)
-    d = np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
-    return int(np.where(fin, d, 0).max(initial=0))
 
 
 def test_model_arrays_and_impacts_equal(models):
@@ -292,31 +280,6 @@ def test_dense_merge_pruned_branch_engaged():
     s, d, h = (_np(x) for x in port.search(port.compile_queries(qs), 100))
     assert got[2][0] <= h[0]
     np.testing.assert_allclose(got[0], s, rtol=6e-3)       # bf16 head vs exact f32
-
-
-@pytest.fixture()
-def low_thresholds(monkeypatch):
-    """Both packages' MaxScore thresholds lowered alike, so that it engages
-    at this corpus size."""
-    for mod in (ref_maxscore, port_maxscore):
-        monkeypatch.setattr(mod, "PRUNE_MIN_WIDTH", 512)
-        monkeypatch.setattr(mod, "THETA_BUDGET", 2048)
-        monkeypatch.setattr(mod, "WINDOW_MIN", 128)
-
-
-def test_maxscore_route(models, low_thresholds):
-    """Docs, hits and the pruned count equal, scores within 4 ulps of the
-    reference's; the pruned answers' docs equal ``search``'s."""
-    _corpus, ref, port, qs = models
-    qs = [q for q in qs if q]
-    want = ref.serve_maxscore_batch(qs, K)
-    got = port.serve_maxscore_batch(qs, K)
-    np.testing.assert_array_equal(got[1], want[1])
-    np.testing.assert_array_equal(got[2], want[2])
-    assert got[3] == want[3] > 0
-    assert _ulps(got[0], want[0]) <= 4
-    s, _d, _h = (_np(x) for x in port.search(port.compile_queries(qs), K))
-    assert _ulps(got[0], s) <= 4
 
 
 def test_from_segment_answers_as_the_arrays(models):

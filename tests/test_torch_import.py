@@ -129,7 +129,7 @@ res = rtr.run_retrievers(vs, [
 blended = rtr.blend_rrf(res, {"text": 1.0, "knn": 2.0})
 assert blended[0].global_ord == 9, blended[:3]
 assert len(script_rescore(vs, blended, 5, "_score * 2")) == len(blended)
-# virtual shards on a (2, 2) grid of the CPU, MaxScore pruning, the
+# virtual shards on a (2, 2) grid of the CPU, the merge path's index, the
 # standalone bucket API
 import torch
 from nrtsearch_tpu_torch import device as _device
@@ -143,17 +143,16 @@ s.dist_shards = 4
 assert s.search(parse_query({"matchQuery": {"field": "body", "query": "gamma needle"}}),
                 10).total_hits == 120 and s._dist_cache
 from nrtsearch_tpu_torch.core import maxscore
-pruned = s.packed_view("body").index.search(
-    [{"entries": [(0.5, [1]), (2.0, [4])], "require_all": False, "n_terms": 1}], 5,
-    prune=True)
-assert pruned[0][2] > 0
+full = s.packed_view("body").index.search(
+    [{"entries": [(0.5, [1]), (2.0, [4])], "require_all": False, "n_terms": 1}], 5)
+assert full[0][2] > 0
 from nrtsearch_tpu_torch.ops import bucket_retrieval as br
 bidx = br.BucketIndex.build(np.arange(8, dtype=np.int32), np.ones(8, np.float32),
                             np.array([0, 4]), np.array([4, 4], np.int32), capacity=8,
                             bucket_docs=4)
 bplan = br.plan_bucket_batch(bidx, [[(0, 1.0), (1, 2.0)]], np.array([0, 4]), max_terms=2)
 assert br.reference_bucket_search(np.arange(8), np.ones(8), bidx, bplan, 3)[2][0] == 8
-# the flagship model's six routes on a small corpus, and the native
+# the flagship model's five routes on a small corpus, and the native
 # postings accumulator under the builder above
 from nrtsearch_tpu_torch import native_ext
 from nrtsearch_tpu_torch.models.synthetic import SyntheticCorpus
@@ -162,10 +161,9 @@ assert native_ext.get() is not None and w._builder._native is not None
 corpus = SyntheticCorpus(3000, 300, 12, seed=1)
 model = corpus.to_model("cpu")
 fq = corpus.sample_queries(4, 3)
-fs, fd, fh = model.search(model.compile_queries(fq), 5)
+fh = model.search(model.compile_queries(fq), 5)[2]
 model.attach_bucket(1024)
 model.attach_dense(max_rows=4, min_df=100, bucket_docs=1024, residual=True)
-model.attach_maxscore()
 assert model.serve_bucket_batch(model.plan_bucket(fq), 5)[2].tolist() == fh.tolist()
 assert dense_head.decode_packed(model.serve_dense_batch(model.plan_dense(fq), 5), 5)[2].tolist() \
     == fh.tolist()
@@ -174,7 +172,6 @@ assert dense_head.decode_packed2(model.serve_dense_merge(mplan, 5, exact_counts=
                                  5)[2].tolist() == fh.tolist()
 assert dense_head.decode_packed2(model.serve_dense_fused(mplan, 5, exact_counts=True),
                                  5)[2].tolist() == fh.tolist()
-assert model.serve_maxscore_batch(fq, 5)[1].tolist() == fd.tolist()
 loaded = [k for k, v in sys.modules.items() if v is not None]
 assert not any(k == "jax" or k.startswith("jax.") for k in loaded)
 assert not any(k == "nrtsearch_tpu" or k.startswith("nrtsearch_tpu.") for k in loaded)
@@ -186,7 +183,7 @@ VECTOR_SLICE = ("nrtsearch_tpu_torch.ops.knn", "nrtsearch_tpu_torch.search.retri
                 "nrtsearch_tpu_torch.search.rescore", "nrtsearch_tpu_torch.search.highlight")
 
 
-# the modules of the virtual-shard, MaxScore and standalone-bucket slice
+# the modules of the virtual-shard, merge-index and standalone-bucket slice
 MESH_SLICE = ("nrtsearch_tpu_torch.parallel", "nrtsearch_tpu_torch.parallel.distributed",
               "nrtsearch_tpu_torch.core.maxscore", "nrtsearch_tpu_torch.ops.bucket_retrieval")
 # the modules of the flagship slice: the model, the dense head's routes,
@@ -661,12 +658,17 @@ def test_copies_equal_reference(check):
 # each copy's lines that differ from its original (after the copy's header
 # and its import lines are normalized): (removed, added), stripped
 COPY_EXCEPTIONS = {
-    # the batcher's group sizes and waits have histograms of their own
+    # the serving path's gauge takes its route from core/packed_view.py's
+    # fast_path on the device the node's indexes live on; the batcher's
+    # group sizes and waits have histograms of their own
     "server/monitoring.py": (
-        ["from nrtsearch_tpu.core.maxscore import _on_tpu",
-         '"dense" if _on_tpu() else "merge"'],
-        ['on_cuda = getattr(getattr(self.global_state, "device", None), "type", "") == "cuda"',
-         '"dense" if on_cuda else "merge"',
+        ["import os as _os", "", "from nrtsearch_tpu.core.maxscore import _on_tpu",
+         'active = _os.environ.get("NRT_FAST_PATH", "") or (',
+         '"dense" if _on_tpu() else "merge"', ")",
+         'if active == "fused":   # round-5 alias: the fused dense path', 'active = "dense"'],
+        ["from nrtsearch_tpu.core.packed_view import fast_path", "",
+         'on_cuda = getattr(getattr(self.global_state, "device", None), "type", "") == "cuda"',
+         "active = fast_path(on_cuda)",
          "# the micro-batcher (server/batcher.py): queries per dispatched",
          "# group, and each query's wait from its enqueue to its group's", "# dispatch",
          "self.batcher_group_size = Histogram(", '"nrt_batcher_group_size",',

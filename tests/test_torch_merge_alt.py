@@ -304,7 +304,7 @@ def _index(rng, n_terms: int = 6, max_doc: int = 300_000):
 def test_pruned_index_accel_branch_matches_reference(interpret, require_all, monkeypatch):
     """The port's PrunedIndex with ``use_pallas = True`` on the CPU (twins)
     against the reference's with the same setting (Pallas kernels in
-    interpret mode), through ``search(..., prune=False)`` on the same
+    interpret mode), through the full ``search`` on the same
     postings: 4 runs of 65536 = width 2^18, so both take the alternating
     branch. The OR batch has 3 queries, padded to 4 rows with an all-pad
     row; the AND batch has 2."""
@@ -326,12 +326,12 @@ def test_pruned_index_accel_branch_matches_reference(interpret, require_all, mon
     ][: 2 if require_all else 3]
     alt = alt_merges(monkeypatch)
     ref_out = ref.search(queries, 40, prune=False)
-    port_out = port.search(queries, 40, prune=False)
+    port_out = port.search(queries, 40)
     assert len(alt) == 1
     for i, (r, p) in enumerate(zip(ref_out, port_out)):
         rs, rdocs, rh, rexact = r
-        ps, pdocs, ph, pexact = p
-        assert (ph, pexact) == (rh, rexact), i
+        ps, pdocs, ph = p
+        assert ph == rh and rexact, i
         assert rh > 0, i
         np.testing.assert_array_equal(ps.view(np.int32), rs.view(np.int32), err_msg=str(i))
         fin = np.isfinite(rs)

@@ -1,5 +1,5 @@
-"""The MaxScore tests' corpus (tests/test_maxscore.py's generator), shared by
-the CPU parity tests and the card tests; it imports neither package."""
+"""The merge index tests' corpus (tests/test_maxscore.py's generator); it
+imports neither package."""
 
 import numpy as np
 
@@ -65,11 +65,11 @@ def queries(lengths, num_docs, rng, n_queries, terms_per_q, vocab):
     return out
 
 
-def assert_topk_equal(pruned, full, k, ctx=""):
+def assert_topk_equal(got, want, k, ctx=""):
     """tests/test_maxscore.py's check: the same docs and scores modulo f32
     summation order; a doc may differ only at a score tie."""
-    ps, pd, _, _ = pruned
-    fs, fd, _, _ = full
+    ps, pd = got[:2]
+    fs, fd = want[:2]
     np.testing.assert_allclose(ps[:k], fs[:k], rtol=2e-4, atol=2e-5,
                                err_msg=f"scores diverge {ctx}")
     mism = pd[:k] != fd[:k]
